@@ -5,16 +5,26 @@
 
 Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
-  1. build: every kernel under dynamicpdb_tpu_torch/csrc, one nvcc each;
-  2. kernels: each kernel against its plain PyTorch version on the card, at
-     the release shapes and at a ragged N, with errors, tolerances and
-     times;
+  1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
+     each, all started together;
+  2. kernels: the IPA forward and its three backward kernels against their
+     plain PyTorch versions on the card, at the release shapes and at a
+     ragged N (the backward with cotangents zero on pad rows and with
+     cotangents everywhere), the autograd Function against dense autograd,
+     with errors, tolerances and times;
   3. serve: the release-width model with seeded random weights is saved,
      loaded by serve_cli and driven over HTTP (healthz + 4 rollouts), with
      the kernel launch counts of that run checked against the model's
      structure; then the same path at a small width on the card and on the
-     CPU, which must agree.
-The line before the last is the kernel report, the last line
+     CPU, which must agree;
+  4. train: one loss and backward at a small width with randomised weights
+     on the card and on the CPU (every gradient must agree, every IPA
+     projection's must be nonzero); then train_cli at release width
+     (configs/release.yaml, B=8, remat, bfloat16) for 3 steps on two
+     synthetic trajectories, with the launch counts of that run checked,
+     and serve_cli answering one request from the checkpoint it wrote.
+The line before the last is the kernel report (launches: the training
+run's), the last line
 {"ok": true, "device": {...}}. Any failed check exits nonzero; with no CUDA
 device, or without the package beside it, the script exits 1 and prints no
 result.
@@ -109,6 +119,127 @@ def ipa_cost(F, N, H, C, Pq, Pv, Dz):
     return ops, 4 * (n_in + n_out)
 
 
+def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz):
+    """{kernel: (operations, bytes)} of the three backward kernels: each
+    recomputes the tile (the forward's logit terms, ~12 elementwise
+    operations, then ds = g_o.v + g_opt.vp + g_pair.pz and dl, 2 per
+    multiply-add) and adds its own sums; each reads the 15 backward inputs
+    once and writes its outputs once, float32."""
+    P3q, P3v = 3 * Pq, 3 * Pv
+    recompute = (2 * C + 2 * P3q + 12) + (2 * C + 2 * P3v + 2 * Dz) + 2
+    per_elem = {
+        "ipa_attention_bwd_dq": recompute + 2 * C + 2 * P3q + 4,
+        "ipa_attention_bwd_dkv": recompute + 2 * C + 2 * P3q + 1 + 2 * C
+        + 2 * P3v,
+        "ipa_attention_bwd_pair": recompute + 2 * Dz + 1,
+    }
+    n_in = 4 * F * N * H * C + 2 * F * N * H * P3q + 2 * F * N * H * P3v \
+        + N * N * H + N * N * Dz + F * N + H + 2 * F * H * N + F * N * H * Dz
+    n_out = {
+        "ipa_attention_bwd_dq": F * N * H * C + F * N * H * P3q + F * H * N,
+        "ipa_attention_bwd_dkv": 2 * F * N * H * C + F * N * H * P3q
+        + F * N * H * P3v,
+        "ipa_attention_bwd_pair": N * N * H + N * N * Dz,
+    }
+    return {k: (F * H * N * N * per_elem[k], 4 * (n_in + n_out[k]))
+            for k in per_elem}
+
+
+BWD_GRADS = ("dq", "dk", "dv", "dqp", "dkp", "dvp", "dbias", "dpz", "dhw")
+# Float32 on both sides with the same saved lse and D, sums over up to N*C
+# terms taken in another order: the JAX package's gradient bar (2e-4,
+# tests/test_pallas_ipa.py) relative to each gradient's largest magnitude.
+BWD_RTOL = 2e-4
+# A pad query row's logits sit near -inf = -1e5, where float32 steps by
+# 2^-7, so its a_ij = exp(l - lse) differs between two implementations by
+# up to 2 x 2^-7 relative (as in the forward's ipa_errors). With nonzero
+# cotangents on pad rows that error reaches every gradient that sums over
+# query rows (dk, dv, dkp, dvp, dbias, dpz, dhw) and the pad rows' own dq
+# and dqp: on top of BWD_RTOL, each gradient may be off by 2 x 2^-7 of the
+# sum of the absolute values of its pad-row terms (ipa_bwd_pad_scale).
+BWD_PAD_RTOL = 2 * 2.0 ** -7
+
+
+def ipa_bwd_inputs(torch, args, c_qk, *, zero_pad: bool, seed: int):
+    """Forward (the kernel on the card), seeded random cotangents for o,
+    o_pt and o_pair (zeroed on pad query rows when ``zero_pad``), and the
+    15 inputs of the backward kernels."""
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    out = ipa_mod.ipa_attention_fwd(*args, c_qk)
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    mask = args[8]
+    cots = []
+    for o in out[:3]:
+        c = torch.randn(o.shape, generator=g, device=o.device)
+        if zero_pad:
+            c = c * mask.reshape(mask.shape + (1,) * (c.dim() - 2))
+        cots.append(c)
+    return ipa_mod.backward_inputs(tuple(args) + tuple(out), *cots), cots
+
+
+def ipa_bwd_grads(torch, inputs, c_qk, plain: bool) -> dict:
+    """The nine gradients from the three backward kernels (or their plain
+    versions), dhw reduced over frames and rows as the Function does."""
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    if plain:
+        fns = (ipa_mod.ipa_bwd_dq_plain, ipa_mod.ipa_bwd_dkv_plain,
+               ipa_mod.ipa_bwd_pair_plain)
+    else:
+        fns = (ipa_mod.ipa_attention_bwd_dq, ipa_mod.ipa_attention_bwd_dkv,
+               ipa_mod.ipa_attention_bwd_pair)
+    dq, dqp, dhw_rows = fns[0](*inputs, **kw)
+    dk, dkp, dv, dvp = fns[1](*inputs, **kw)
+    dbias, dpz = fns[2](*inputs, **kw)
+    return dict(dq=dq, dk=dk, dv=dv, dqp=dqp, dkp=dkp, dvp=dvp, dbias=dbias,
+                dpz=dpz, dhw=torch.sum(dhw_rows, dim=(0, 2)))
+
+
+def ipa_bwd_pad_scale(torch, inputs, c_qk) -> dict:
+    """Per gradient, the largest sum of the absolute values of its pad-row
+    terms: the plain backward's sums with every operand taken absolute and
+    a, dl restricted to pad query rows."""
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    a, dl, dist = ipa_mod._recompute(*inputs, **kw)
+    q, k, _, qp, kp, _, _, _, mask, hw, _, _, g_o, g_opt, g_pair = \
+        [t.abs() for t in inputs]
+    pad = (1.0 - mask)[:, None, :, None]  # [F, 1, N, 1] over query rows
+    a, dl, dist = a.abs() * pad, dl.abs() * pad, dist.abs()
+    rowsum = dl.sum(-1).transpose(1, 2)[..., None]
+    colsum = dl.sum(-2).transpose(1, 2)[..., None]
+    return dict(
+        dq=c_qk * torch.einsum("fhij,fjhc->fihc", dl, k).max(),
+        dk=c_qk * torch.einsum("fhij,fihc->fjhc", dl, q).max(),
+        dv=torch.einsum("fhij,fihc->fjhc", a, g_o).max(),
+        dqp=(hw[:, None] * (rowsum * qp + torch.einsum(
+            "fhij,fjhx->fihx", dl, kp))).max(),
+        dkp=(hw[:, None] * (colsum * kp + torch.einsum(
+            "fhij,fihx->fjhx", dl, qp))).max(),
+        dvp=torch.einsum("fhij,fihx->fjhx", a, g_opt).max(),
+        dbias=math.sqrt(1.0 / 3) * dl.sum(0).max(),
+        dpz=torch.einsum("fhij,fihd->ijd", a, g_pair).max(),
+        dhw=torch.sum(0.5 * dist * dl, dim=(0, 2, 3)).max(),
+    )
+
+
+def ipa_bwd_errors(got: dict, want: dict, pad_scale: dict | None) -> dict:
+    """{gradient: (max_abs_err, tol)}: BWD_RTOL of the gradient's largest
+    magnitude, plus BWD_PAD_RTOL of ``pad_scale`` when the pad rows carry
+    cotangents (None: they do not)."""
+    out = {}
+    for name in BWD_GRADS:
+        err = float((got[name] - want[name]).abs().max())
+        tol = BWD_RTOL * max(1.0, float(want[name].abs().max()))
+        if pad_scale is not None:
+            tol += BWD_PAD_RTOL * float(pad_scale[name])
+        out[name] = (err, tol)
+    return out
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -162,7 +293,7 @@ def kernel_phase(torch, device, card: str) -> dict:
         ("ragged", dict(N=203, masked=11)),
     ):
         args, c_qk = ipa_inputs(torch, device, seed=len(label), **shape)
-        got = ipa_mod.ipa_attention(*args, c_qk)
+        got = ipa_mod.ipa_attention_fwd(*args, c_qk)
         torch.cuda.synchronize()
         want = ipa_mod.ipa_attention_plain(*args, c_qk)
         errs = ipa_errors(got, want, args)
@@ -181,7 +312,8 @@ def kernel_phase(torch, device, card: str) -> dict:
         if label == "release":
             F, N, H, C = args[0].shape
             Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
-            ms = time_ms(torch, lambda: ipa_mod.ipa_attention(*args, c_qk), 50)
+            ms = time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(*args, c_qk),
+                         50)
             plain_ms = time_ms(
                 torch, lambda: ipa_mod.ipa_attention_plain(*args, c_qk), 20)
             ops, nbytes = ipa_cost(F, N, H, C, Pq, Pv, Dz)
@@ -208,6 +340,104 @@ def kernel_phase(torch, device, card: str) -> dict:
                   f"({report['bound_by']}: {ops / 1e9:.3f} GFLOP, "
                   f"{nbytes / 1e6:.2f} MB), warm L2 [{card}]")
     return report
+
+
+BWD_KERNELS = {  # kernel -> (replaced TPU kernel, its gradients)
+    "ipa_attention_bwd_dq": ("dynamicpdb_tpu/ops/pallas/ipa_attention.py:259",
+                             ("dq", "dqp", "dhw")),
+    "ipa_attention_bwd_dkv": ("dynamicpdb_tpu/ops/pallas/ipa_attention.py:297",
+                              ("dk", "dkp", "dv", "dvp")),
+    "ipa_attention_bwd_pair": ("dynamicpdb_tpu/ops/pallas/ipa_attention.py:338",
+                               ("dbias", "dpz")),
+}
+
+
+def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
+    """The three backward kernels against their plain versions at the
+    release shapes (last 56 residues masked) and at a ragged N = 203, with
+    cotangents zeroed on pad rows and with cotangents everywhere; then the
+    autograd Function's backward against autograd of the plain forward on
+    the card; then each kernel's time against its plain version."""
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    reports = {}
+    for label, shape in (("release", dict(N=256, masked=56)),
+                         ("ragged", dict(N=203, masked=11))):
+        args, c_qk = ipa_inputs(torch, device, seed=10 + len(label), **shape)
+        for zero_pad in (True, False):
+            case = "pad cotangents 0" if zero_pad else "pad cotangents random"
+            inputs, cots = ipa_bwd_inputs(torch, args, c_qk,
+                                          zero_pad=zero_pad, seed=3)
+            got = ipa_bwd_grads(torch, inputs, c_qk, plain=False)
+            torch.cuda.synchronize()
+            want = ipa_bwd_grads(torch, inputs, c_qk, plain=True)
+            pad_scale = None if zero_pad else ipa_bwd_pad_scale(torch, inputs,
+                                                                c_qk)
+            errs = ipa_bwd_errors(got, want, pad_scale)
+            for name, (err, tol) in errs.items():
+                print(f"kernel backward {label}, {case}: {name} max_abs_err "
+                      f"{err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"backward {label} {case}: {name} "
+                      f"{err} > {tol}")
+            if label == "release":
+                for kname, (_, grads) in BWD_KERNELS.items():
+                    key = "max_abs_err" if zero_pad else "max_abs_err_pad_cotangents"
+                    reports.setdefault(kname, {})[key] = max(
+                        errs[g][0] for g in grads)
+
+            # the Function end to end: kernels against dense autograd
+            leaves = [a.clone().requires_grad_(i != 8)
+                      for i, a in enumerate(args)]
+            diff = [a for a in leaves if a.requires_grad]
+
+            def loss(outs):
+                return sum((o * c).sum() for o, c in zip(outs[:3], cots))
+
+            g_fn = torch.autograd.grad(loss(ipa_mod.ipa_attention(*leaves, c_qk)),
+                                       diff)
+            g_dense = torch.autograd.grad(
+                loss(ipa_mod.ipa_attention_plain(*leaves, c_qk)), diff)
+            names = ("dq", "dk", "dv", "dqp", "dkp", "dvp", "dbias", "dpz",
+                     "dhw")
+            for name, a, b in zip(names, g_fn, g_dense):
+                err = float((a - b).abs().max())
+                tol = BWD_RTOL * max(1.0, float(b.abs().max()))
+                if pad_scale is not None:
+                    tol += BWD_PAD_RTOL * float(pad_scale[name])
+                print(f"function backward {label}, {case}: {name} vs dense "
+                      f"autograd max_abs_err {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"Function backward {label} {case}: {name} "
+                      f"{err} > {tol}")
+
+    args, c_qk = ipa_inputs(torch, device, seed=20)
+    inputs, _ = ipa_bwd_inputs(torch, args, c_qk, zero_pad=False, seed=4)
+    F, N, H, C = args[0].shape
+    costs = ipa_bwd_cost(F, N, H, C, args[3].shape[-2], args[5].shape[-2],
+                         args[7].shape[-1])
+    kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    out = []
+    for kname, (replaces, _) in BWD_KERNELS.items():
+        kernel = getattr(ipa_mod, kname)
+        plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
+                                               "ipa_bwd") + "_plain")
+        ms = time_ms(torch, lambda: kernel(*inputs, **kw), 50)
+        plain_ms = time_ms(torch, lambda: plain(*inputs, **kw), 20)
+        ops, nbytes = costs[kname]
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        rep = {
+            "name": kname, "route": "cuda",
+            "source": "dynamicpdb_tpu_torch/csrc/ipa_attention_bwd.cu",
+            "replaces": replaces, "launches": None, **reports[kname],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call computes it
+        }
+        print(f"kernel {kname} release: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
+              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), warm L2 "
+              f"[{card}]")
+        out.append(rep)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +557,235 @@ def serve_phase(device: str, overrides: list[str], *, lengths, pad_to: int,
     return dict(results=results, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 4: gradients on the card, and training at release width
+# ---------------------------------------------------------------------------
+IPA_PROJECTIONS = ("linear_q", "linear_kv", "linear_q_points",
+                   "linear_kv_points", "linear_b", "down_z", "head_weights")
+# card against CPU, float32 with TF32 off on both: the CUDA kernels and
+# cuDNN/cuBLAS sum in other orders than the CPU's plain versions through
+# two IPA blocks and the ConvNet; 1e-3 of each gradient's largest
+# magnitude, floored at 1e-6 of the model's largest gradient (a gradient
+# whose true value is 0, like linear_b's bias, is rounding noise)
+GRAD_FLOW_RTOL = 1e-3
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def grad_flow_phase(seed: int = 0) -> dict:
+    """One train-step loss and backward at a small width in float32, every
+    parameter drawn from a seeded generator (randomize_: the AF2 zero init
+    of linear_out would make every IPA input gradient exactly 0), with the
+    same injected noise on the card and on the CPU. Every parameter's
+    gradient must agree, every IPA projection's gradient must be nonzero
+    on the card, and each backward kernel must have run once per block and
+    window."""
+    import torch
+
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch.data.dataset import pad_window
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.train.experiment import Trainer
+    from dynamicpdb_tpu_torch.weights import randomize_
+
+    cfg = config_lib.apply_overrides(config_lib.Config(), SMALL_OVERRIDES)
+    ws = [pad_window(make_window(n_res=n, frame_time=cfg.data.frame_time,
+                                 node_dim=cfg.model.node_repr_dim,
+                                 edge_dim=cfg.model.edge_repr_dim,
+                                 seed=seed + i, rot_wiggle=0.1), 16)
+          for i, n in enumerate((16, 12))]
+    batch = {k: np.stack([w[k] for w in ws]) for k in ws[0]}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = Trainer(cfg, device=dev)
+        randomize_(t.model, seed)
+        if dev == "cpu":
+            noises = [t.draw_window_noise(cfg.data.frame_time, 16)
+                      for _ in ws]
+        ipa_mod.bwd_dq_launches = ipa_mod.bwd_dkv_launches = 0
+        ipa_mod.bwd_pair_launches = 0
+        loss, _ = t.loss_and_grads(batch, _to(noises, dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched = (ipa_mod.bwd_dq_launches, ipa_mod.bwd_dkv_launches,
+                    ipa_mod.bwd_pair_launches)
+        grads[dev] = (float(loss), {n: p.grad.detach().cpu()
+                                    for n, p in t.model.named_parameters()
+                                    if p.grad is not None})
+    expect = cfg.model.ipa.num_blocks * len(ws)
+    check(launched == (expect,) * 3, f"grad flow: backward kernel launches "
+          f"{launched}, expected {expect} each")
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = grads["cpu"], grads["cuda"]
+    check(sorted(g_cpu) == sorted(g_gpu), "grad flow: different parameters "
+          "received gradients on the card and on the CPU")
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
+    worst = (0.0, "")
+    for name, want in g_cpu.items():
+        tol = GRAD_FLOW_RTOL * max(float(want.abs().max()),
+                                   floor / GRAD_FLOW_RTOL)
+        err = float((g_gpu[name] - want).abs().max())
+        check(err <= tol, f"grad flow: {name} card vs CPU {err} > {tol}")
+        worst = max(worst, (err / tol, name))
+    for b in range(cfg.model.ipa.num_blocks):
+        for proj in IPA_PROJECTIONS:
+            key = f"score_model.trunk.ipa_{b}.{proj}" + (
+                "" if proj == "head_weights" else ".weight")
+            check(float(g_gpu[key].abs().max()) > 0,
+                  f"grad flow: {key} has a zero gradient on the card")
+    print(f"grad flow: small width, float32, randomised weights: loss card "
+          f"{loss_gpu:.6f} CPU {loss_cpu:.6f}; {len(g_cpu)} parameter "
+          f"gradients agree (worst {worst[1]} at {worst[0]:.3f} of its tol "
+          f"{GRAD_FLOW_RTOL:.0e} x max|g|); every IPA projection gradient "
+          f"nonzero on the card; backward kernel launches {launched}")
+    return dict(loss_cuda=loss_gpu, loss_cpu=loss_cpu)
+
+
+def write_manifest(tmp: str, lengths, n_frames: int, seed: int = 0) -> str:
+    """make_trajectory_npz bundles and their CSV manifest in ``tmp``."""
+    from dynamicpdb_tpu_torch.data.synthetic import make_trajectory_npz
+
+    rows = []
+    for i, n in enumerate(lengths):
+        path = make_trajectory_npz(os.path.join(tmp, f"prot{i}.npz"),
+                                   n_res=n, n_frames=n_frames, seed=seed + i)
+        rows.append(f"prot{i},{path},{n}")
+    csv = os.path.join(tmp, "train.csv")
+    with open(csv, "w") as f:
+        f.write("name,atlas_npz,seq_len\n" + "\n".join(rows) + "\n")
+    return csv
+
+
+def train_phase(device: str, config: str, extra: list[str], *, lengths,
+                n_frames: int, max_steps: int, tmp: str, tag: str = "") -> dict:
+    """train_cli.main on a manifest of synthetic bundles: checks the loss
+    and grad_norm of every step are finite, that the parameters moved
+    (the IPA projections and the zero-initialised out-projections
+    included), and on the card that every kernel launched exactly as the
+    model's structure implies: per step, each window runs every block's
+    forward twice (once more in the backward, for remat) and each backward
+    kernel once."""
+    import torch
+
+    from dynamicpdb_tpu_torch import train_cli
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.weights import init_like_jax_
+
+    csv = write_manifest(tmp, lengths, n_frames)
+    argv = ["--config", config, "--max-steps", str(max_steps), "--device",
+            device, f"data.csv_path={csv}",
+            f"experiment.ckpt_dir={os.path.join(tmp, 'ckpt')}",
+            f"experiment.eval_dir={os.path.join(tmp, 'eval')}", *extra]
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ipa_mod.launches = ipa_mod.bwd_dq_launches = 0  # the main path starts
+    ipa_mod.bwd_dkv_launches = ipa_mod.bwd_pair_launches = 0
+    t0 = time.perf_counter()
+    exp = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launched = dict(fwd=ipa_mod.launches, dq=ipa_mod.bwd_dq_launches,
+                    dkv=ipa_mod.bwd_dkv_launches, pair=ipa_mod.bwd_pair_launches)
+    cfg, trainer = exp.cfg, exp.trainer
+    check(trainer.diffuser.so3d.tables.cache_hit, "IGSO3 table "
+          f"{trainer.diffuser.so3d.tables.cache_file} was rebuilt, not read "
+          "from the cache")
+    check(exp.step == max_steps, f"trained {exp.step} steps, not {max_steps}")
+    for m in exp.step_metrics:
+        check(math.isfinite(m["total_loss"]) and math.isfinite(m["grad_norm"]),
+              f"step {m['step']}: loss {m['total_loss']} grad_norm "
+              f"{m['grad_norm']}")
+    start = init_like_jax_(type(trainer.model)(cfg.model, device="cpu"),
+                           cfg.experiment.seed).state_dict()
+    now = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    moved = [k for k in now if not torch.equal(now[k], start[k])]
+    for b in range(cfg.model.ipa.num_blocks):
+        for proj in ("linear_q", "linear_kv", "linear_out", "down_z"):
+            key = f"score_model.trunk.ipa_{b}.{proj}.weight"
+            check(key in moved, f"{key} did not change in training")
+    B, blocks = cfg.experiment.batch_size, cfg.model.ipa.num_blocks
+    per_step = B * blocks
+    expect = (dict(fwd=2 * per_step * max_steps if cfg.model.remat
+                   else per_step * max_steps,
+                   dq=per_step * max_steps, dkv=per_step * max_steps,
+                   pair=per_step * max_steps) if on_card
+              else dict(fwd=0, dq=0, dkv=0, pair=0))
+    check(launched == expect, f"train: kernel launches {launched}, expected "
+          f"{expect}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for m in exp.step_metrics:
+        total = m["seconds"] + m["data_seconds"]
+        print(f"train: step {m['step']} B={B} loss {m['total_loss']:.4f} "
+              f"grad_norm {m['grad_norm']:.4f}: {total:.3f} s ({m['seconds']:.3f}"
+              f" s train_step, {m['data_seconds']:.3f} s waiting for the "
+              f"batch), {B / total:.2f} windows/s{tag}")
+    steady = [m["seconds"] + m["data_seconds"] for m in exp.step_metrics[1:]]
+    print(f"train: {max_steps} steps in {wall:.2f} s of train_cli; steady "
+          f"steps (step 1 apart) {steady}; peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
+          f"launches {launched} ({len(moved)} of {len(now)} tensors "
+          f"moved){tag}")
+    ckpt = os.path.join(cfg.experiment.ckpt_dir, f"step_{exp.step}.ckpt")
+    check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+    return dict(ckpt=ckpt, launched=launched, steps=exp.step_metrics,
+                peak_bytes=peak, wall=wall, batch=B)
+
+
+def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
+                     n_res: int, pad_to: int, tag: str = "") -> dict:
+    """serve_cli from a training checkpoint: one fast_x0 request over HTTP
+    (n_steps = 2: one forward per step, each running every block's IPA
+    kernel on the card)."""
+    from dynamicpdb_tpu_torch import serve_cli
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    args = serve_cli.parse_args(["--ckpt", ckpt, "--port", "0", "--pad-to",
+                                 str(pad_to), "--device", device, "--config",
+                                 config, *extra])
+    service = serve_cli.service_from_args(args)
+    server = serve_cli.make_server(service, args.host, args.port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        cfg = service.model.cfg
+        w = make_window(n_res=n_res, frame_time=2,
+                        node_dim=cfg.node_repr_dim, edge_dim=cfg.edge_repr_dim,
+                        seed=7)
+        ipa_mod.launches = 0
+        t0 = time.perf_counter()
+        out = _post(f"http://{args.host}:{server.server_address[1]}",
+                    {k: w[k] for k in serve_cli.RAW_KEYS},
+                    "n_steps=2&fast_x0=1&seed=0")
+        dt = time.perf_counter() - t0
+        launched = ipa_mod.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+    check(service.step > 0, f"served step {service.step}, not the checkpoint's")
+    expect = 2 * cfg.ipa.num_blocks if device == "cuda" else 0
+    check(launched == expect, f"serve from checkpoint: {launched} kernel "
+          f"launches, expected {expect}")
+    check(out["atom_traj"].shape == (2, n_res, 37, 3)
+          and bool(np.isfinite(out["atom_traj"]).all()),
+          f"served from the checkpoint: {out['atom_traj'].shape}, finite "
+          f"{np.isfinite(out['atom_traj']).all()}")
+    print(f"serve from checkpoint: {os.path.basename(ckpt)} (step "
+          f"{service.step}), one fast_x0 request n_res={n_res} n_steps=2: "
+          f"{dt:.3f} s, {launched} kernel launches{tag}")
+    return out
+
+
 def main() -> int:
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "dynamicpdb_tpu_torch")):
         print("chip_smoke: dynamicpdb_tpu_torch is not beside this script",
@@ -340,7 +797,9 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    os.chdir(ROOT)  # configs/release.yaml names the IGSO3 cache relatively
     from dynamicpdb_tpu_torch.ops import _build
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
     from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
     # phase 0
@@ -362,16 +821,24 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"build: {b.name}: {line.strip()}")
-    print(f"build: {len(built)} kernel(s) in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {len(built)} kernel source(s) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    lib = ipa_mod._lib("ipa_attention_bwd")
+    for which, kname in enumerate(BWD_KERNELS):
+        print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
+              " bytes of dynamic shared memory per block at the release shapes")
 
     # phase 2
-    report = kernel_phase(torch, device, card)
+    t0 = time.perf_counter()
+    fwd_report = kernel_phase(torch, device, card)
+    bwd_reports = bwd_kernel_phase(torch, device, card)
+    print(f"kernels: {time.perf_counter() - t0:.2f} s")
 
-    # phase 3: the main path at release width
+    # phase 3: the serving path at release width
     t0 = time.perf_counter()
     serve = serve_phase("cuda", RELEASE_OVERRIDES, lengths=(256, 200, 97),
                         pad_to=256, n_steps=4, num_t=10, tag=f" [{card}]")
-    report["launches"] = serve["launches"]
+    fwd_report["launches_serve"] = serve["launches"]
     print(f"serve: release width, 4 requests in "
           f"{time.perf_counter() - t0:.2f} s [{card}]")
 
@@ -391,9 +858,30 @@ def main() -> int:
             check(err <= tol, f"small request {i} {key}: card and CPU "
                   f"differ by {err} > {tol}")
 
+    # phase 4: gradients through the kernels, then training at release width
+    grad_flow_phase()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase("cuda", os.path.join("configs", "release.yaml"),
+                            [], lengths=(256, 200), n_frames=8, max_steps=3,
+                            tmp=tmp, tag=f" [{card}]")
+        serve_checkpoint("cuda", os.path.join("configs", "release.yaml"),
+                         train["ckpt"], [], n_res=200, pad_to=256,
+                         tag=f" [{card}]")
+    print(f"train: release width through train_cli and serve_cli in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    launched = train["launched"]
+    fwd_report["launches"] = launched["fwd"]
+    for rep, key in zip(bwd_reports, ("dq", "dkv", "pair")):
+        rep["launches"] = launched[key]
+    reports = [fwd_report] + bwd_reports
+    for rep in reports:
+        check(rep["launches"] > 0, f"{rep['name']} never launched on the "
+              "training path")
+
     print(f"total: {time.perf_counter() - t_start:.2f} s wall [{card}]")
     faulthandler.cancel_dump_traceback_later()
-    print(json.dumps({"kernels": [report]}))
+    print(json.dumps({"kernels": reports}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,12 +2,15 @@
 
 Port of ``dynamicpdb_tpu/config.py``: the same dataclasses, field names and
 defaults, so every ``configs/*.yaml`` file and every ``a.b.c=value``
-override means the same thing to both packages. Fields that only the
-training loop reads are mirrored for YAML compatibility.
+override means the same thing to both packages. YAML files are read by ``parse_yaml``,
+a reader of the subset the config files use (nested mappings of plain
+scalars and flow lists), which resolves scalars as PyYAML's ``safe_load``
+does, so the package needs no YAML library.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -232,10 +235,114 @@ def _from_dict(cls, d: dict):
     return cls(**kwargs)
 
 
-def load_yaml(path: str, overrides: list[str] | None = None) -> Config:
-    import yaml
+# PyYAML's (YAML 1.1) implicit scalar types, without the sexagesimal forms
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_BOOL = re.compile(
+    r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+    r"|on|On|ON|off|Off|OFF)$")
+_YAML_INT = re.compile(
+    r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+    r"|[-+]?0x[0-9a-fA-F_]+)$")
+_YAML_FLOAT = re.compile(
+    r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
 
+
+def _yaml_scalar(text: str) -> Any:
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t.startswith("[") and t.endswith("]"):
+        inner = t[1:-1].strip()
+        return [_yaml_scalar(v) for v in inner.split(",")] if inner else []
+    if _YAML_NULL.match(t):
+        return None
+    if _YAML_BOOL.match(t):
+        return t.lower() in ("yes", "true", "on")
+    if _YAML_INT.match(t):
+        v = t.replace("_", "")
+        sign = -1 if v.startswith("-") else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if len(v) > 1 and v.startswith("0"):
+            return sign * int(v, 8)
+        return sign * int(v)
+    if _YAML_FLOAT.match(t):
+        v = t.replace("_", "").lower()
+        if v.endswith(".inf"):
+            return float("-inf") if v.startswith("-") else float("inf")
+        if v.endswith(".nan"):
+            return float("nan")
+        return float(v)
+    return t
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> dict:
+    """A YAML document of nested block mappings whose leaves are plain or
+    quoted scalars or flow lists of scalars, as a dict. Anything outside
+    that subset raises ValueError."""
+    root: dict = {}
+    stack = [(-1, root)]  # (indent, mapping)
+    for n, raw_line in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw_line).rstrip()
+        if not line.strip() or line.strip() in ("---", "..."):
+            continue
+        if "\t" in line[: len(line) - len(line.lstrip())]:
+            raise ValueError(f"YAML line {n}: tab indentation")
+        indent = len(line) - len(line.lstrip())
+        body = line.strip()
+        key, sep, value = body.partition(":")
+        if (body.startswith(("- ", "{", "[", "?")) or body == "-"
+                or value.strip().startswith(("&", "*", "!", "|", ">", "{"))):
+            raise ValueError(f"YAML line {n}: unsupported syntax: {body!r}")
+        if not sep or (value and not value.startswith(" ")):
+            raise ValueError(f"YAML line {n}: expected 'key: value': {body!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        key = _yaml_scalar(key)
+        if value.strip():
+            parent[key] = _yaml_scalar(value)
+        else:  # a mapping if indented lines follow, else null
+            child: dict = {}
+            stack.append((indent, child))
+            parent[key] = child
+    _empty_to_none(root)
+    return root
+
+
+def _empty_to_none(d: dict):
+    """``key:`` with nothing under it is null, as in YAML."""
+    for k, v in d.items():
+        if isinstance(v, dict):
+            if v:
+                _empty_to_none(v)
+            else:
+                d[k] = None
+
+
+def load_yaml(path: str, overrides: list[str] | None = None) -> Config:
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+        raw = parse_yaml(f.read())
     cfg = _from_dict(Config, raw)
     return apply_overrides(cfg, overrides or [])
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

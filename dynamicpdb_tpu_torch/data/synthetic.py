@@ -1,9 +1,10 @@
 """Synthetic protein windows for requests and test fixtures.
 
-Port of ``make_window`` from ``dynamicpdb_tpu/data/synthetic.py`` (numpy
-only): an idealised alpha-helix backbone that wiggles smoothly over time,
-random force/velocity channels and fake OmegaFold embeddings, in the raw
-window layout of ``data/featurize.py``. The same seed gives the same arrays
+Port of ``make_window`` and ``make_trajectory_npz`` from
+``dynamicpdb_tpu/data/synthetic.py`` (numpy only): an idealised
+alpha-helix backbone that wiggles smoothly over time, random
+force/velocity channels and fake OmegaFold embeddings, in the raw window
+layout of ``data/featurize.py``. The same seed gives the same arrays
 as the JAX package's function.
 """
 from __future__ import annotations
@@ -104,3 +105,22 @@ def make_window(
         "node_repr": rng.normal(size=(n_res, node_dim)).astype(np.float32),
         "edge_repr": rng.normal(size=(n_res, n_res, edge_dim)).astype(np.float32),
     }
+
+
+def make_trajectory_npz(path, n_res=32, n_frames=64, seed=0):
+    """Write a synthetic trajectory bundle in the on-disk dataset layout
+    (see data/dataset.py): one npz with positions, per-frame force/vel and
+    embeddings; the same arrays as the JAX package's function."""
+    w = make_window(n_res=n_res, frame_time=n_frames, seed=seed)
+    np.savez_compressed(
+        path,
+        all_atom_positions=w["atom37"],
+        all_atom_mask=w["atom37_mask"],
+        aatype=np.eye(21, dtype=np.float32)[w["aatype"]],
+        residue_index=w["residue_index"],
+        force=w["force"],
+        vel=w["vel"],
+        node_repr=w["node_repr"],
+        edge_repr=w["edge_repr"],
+    )
+    return path

@@ -67,6 +67,18 @@ class R3Diffuser:
         bt = self.marginal_b_t(t)
         return -(x_t - torch.exp(-0.5 * bt) * x_0) / self.conditional_var(t)
 
+    def forward_marginal(self, x_0, t, *, generator=None, z=None):
+        """Exact sample of p(x_t | x_0) and its score. x_0 in Angstroms;
+        x_t comes back in Angstroms, the score in scaled coordinates. ``z``
+        (standard normals shaped like x_0) is drawn from ``generator``
+        unless given."""
+        x_0 = self._scale(x_0)
+        bt = self.marginal_b_t(t)
+        if z is None:
+            z = torch.randn(x_0.shape, generator=generator, device=x_0.device)
+        x_t = torch.exp(-0.5 * bt) * x_0 + torch.sqrt(1 - torch.exp(-bt)) * z
+        return self._unscale(x_t), self.score(x_t, x_0, t)
+
     def reverse(self, x_t, score_t, t, dt, mask=None, center: bool = True,
                 noise_scale: float = 1.0, *, generator=None, z=None):
         """One Euler-Maruyama reverse step; ``z`` (standard normals shaped

@@ -31,6 +31,47 @@ class SE3Diffuser:
         self.so3d = SO3Diffuser(conf.so3, device=self.device)
         self.r3d = R3Diffuser(conf.r3, device=self.device)
 
+    # -- training-time forward noising ---------------------------------------
+    def forward_marginal(self, rigids_0: Rigid, t, diffuse_mask=None, *,
+                         generator=None, rot_axis=None, rot_u=None,
+                         trans_z=None) -> dict:
+        """Noise clean frames (batch shape [..., N]) to the scalar time t.
+        ``rot_axis``/``rot_u`` are the IGSO3 sample's draws and ``trans_z``
+        the R3 normals, drawn from ``generator`` unless given. Returns
+        rigids_t (tensor-7), trans_score, rot_score and the score
+        scalings."""
+        rot_0 = so3.quat_to_rotvec(rigids_0.quat)
+        trans_0 = rigids_0.trans
+        one = torch.ones((), device=trans_0.device)
+        if self.conf.diffuse_rot:
+            rot_t, rot_score = self.so3d.forward_marginal(
+                rot_0, t, generator=generator, axis=rot_axis, u=rot_u)
+            rot_score_scaling = self.so3d.score_scaling(t)
+        else:
+            rot_t, rot_score, rot_score_scaling = rot_0, torch.zeros_like(rot_0), one
+        if self.conf.diffuse_trans:
+            trans_t, trans_score = self.r3d.forward_marginal(
+                trans_0, t, generator=generator, z=trans_z)
+            trans_score_scaling = self.r3d.score_scaling(t)
+        else:
+            trans_t, trans_score = trans_0, torch.zeros_like(trans_0)
+            trans_score_scaling = one
+
+        if diffuse_mask is not None:
+            m = diffuse_mask[..., None]
+            rot_t = m * rot_t + (1 - m) * rot_0
+            trans_t = m * trans_t + (1 - m) * trans_0
+            rot_score = m * rot_score
+            trans_score = m * trans_score
+
+        return {
+            "rigids_t": Rigid(so3.rotvec_to_quat(rot_t), trans_t).to_tensor_7(),
+            "trans_score": trans_score,
+            "rot_score": rot_score,
+            "trans_score_scaling": trans_score_scaling,
+            "rot_score_scaling": rot_score_scaling,
+        }
+
     # -- model-side score conversions ----------------------------------------
     def calc_rot_score(self, quats_t, quats_0, t):
         """rotvec_0t = Log(q_0^{-1} ⊗ q_t); score = IGSO3 score there.

@@ -133,7 +133,16 @@ class SO3Diffuser:
     def score_scaling(self, t):
         return self.tables.score_scaling[self.t_to_idx(t)]
 
-    # -- reverse --------------------------------------------------------------
+    # -- forward / reverse ------------------------------------------------------
+    def forward_marginal(self, rot_0, t, *, generator=None, axis=None, u=None):
+        """Noise rotation vectors to time t (scalar): rot_t = rot_0 composed
+        on the right with an IGSO3(sigma(t)) sample, and the score at that
+        sample. ``axis`` and ``u`` are the sample's draws (see ``sample``)."""
+        sampled = self.sample(t, rot_0.shape[:-1], generator=generator,
+                              axis=axis, u=u)
+        rot_score = self.score(sampled, t)
+        return so3.compose_rotvec(rot_0, sampled), rot_score
+
     def reverse(self, rot_t, score_t, t, dt, noise_scale=1.0, mask=None, *,
                 generator=None, z=None):
         """One geodesic-random-walk reverse step; ``z`` (standard normals

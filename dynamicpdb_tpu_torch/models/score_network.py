@@ -14,8 +14,14 @@ window of F frames x N residues:
 Parameter names are the reference torch layout of
 ``dynamicpdb_tpu/train/export_torch.py`` without its dead
 ``embedding_layer.*`` entries; ``weights.state_dict_from_jax`` maps JAX
-params onto it. ``remat`` (training) and ``drop_ref`` (classifier-free
-guidance, which the ported sampler does not use) are not ported.
+params onto it.
+
+``drop_ref`` makes classifier-free guidance work as the JAX package's does
+(``score_network.py:95-104``): 1 replaces the reference-frame conditioning
+(rigids, forces, velocities, angles) with the unconditional identity.
+``model.remat`` wraps each IPA block in ``torch.utils.checkpoint``, as
+``nn.remat`` does (``:148-157``): its activations are recomputed in the
+backward instead of kept.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from dynamicpdb_tpu_torch.config import ModelConfig
 from dynamicpdb_tpu_torch.models.ipa import InvariantPointAttention
@@ -86,13 +93,15 @@ class DFoldScoreNetwork(nn.Module):
         self.score_model = _ScoreModel(cfg, self.dtype)
         self.to(resolve_device(device))
 
-    def forward(self, feats: dict[str, Any]):
+    def forward(self, feats: dict[str, Any], drop_ref=False):
         """Raw x0 prediction for one window.
 
         feats: rigids_0 [F,N,7], res_mask [F,N], fixed_mask [F,N],
           seq_idx [F,N], node_repr [N,Dn], edge_repr [N,N,De],
           torsion_angles_sin_cos [F,N,7,2], torsion_angles_mask [F,N,7],
           force [F,N,3], vel [F,N,3], aatype [F,N].
+        drop_ref: False, or a 0/1 float (tensor) that drops the
+          conditioning when 1.
         Returns rigids (tensor-7, unscaled), angles, unorm_angles,
           rigid_update, atom14, atom37.
         """
@@ -115,6 +124,13 @@ class DFoldScoreNetwork(nn.Module):
         angle = feats["torsion_angles_sin_cos"].float()
         angle = angle * feats["torsion_angles_mask"][..., None].float()
         angle = _ref_cat(angle).reshape(F, N, -1)  # [F, N, 14]
+        if drop_ref is not False:
+            keep = 1.0 - torch.as_tensor(drop_ref, dtype=torch.float32,
+                                         device=node_mask.device)
+            identity7 = torch.zeros_like(curr_rigids)
+            identity7[..., 0] = 1.0
+            curr_rigids = keep * curr_rigids + (1 - keep) * identity7
+            force, vel, angle = force * keep, vel * keep, angle * keep
 
         force_embed = sm.force_embeder(force, mask=node_mask)
         vel_embed = sm.vel_embeder(vel, mask=node_mask)
@@ -132,10 +148,13 @@ class DFoldScoreNetwork(nn.Module):
         rigid_update = None
         for b in range(ipa_cfg.num_blocks):
             rigids_embed = sm.rigid_embeder(curr_rigids, mask=node_mask)
-            ipa_out = getattr(trunk, f"ipa_{b}")(
-                node_embed, edge_embed, Rigid.from_tensor_7(curr_rigids),
-                node_mask,
-            )
+            ipa_args = (node_embed, edge_embed,
+                        Rigid.from_tensor_7(curr_rigids), node_mask)
+            ipa = getattr(trunk, f"ipa_{b}")
+            if cfg.remat and torch.is_grad_enabled():
+                ipa_out = checkpoint(ipa, *ipa_args, use_reentrant=False)
+            else:
+                ipa_out = ipa(*ipa_args)
             ipa_out = global_stat_norm(ipa_out, mask=node_mask)
             node_feat = torch.cat(
                 [t.float() for t in (rigids_embed, ipa_out, force_embed,
@@ -180,10 +199,10 @@ class DFoldScoreNetwork(nn.Module):
         }
 
 
-def score_forward(model: DFoldScoreNetwork, diffuser, feats):
+def score_forward(model: DFoldScoreNetwork, diffuser, feats, drop_ref=False):
     """Model forward + analytic score conversion: x0 prediction -> rot/trans
     scores against the noisy rigids_t."""
-    out = model(feats)
+    out = model(feats, drop_ref)
     node_mask = feats["res_mask"].float()
     t = feats["t"]
     init = Rigid.from_tensor_7(feats["rigids_t"].float())

@@ -13,8 +13,9 @@ model once and answers HTTP requests with rollouts, with the same API:
        -> an .npz with atom_traj [n_steps,N,37,3] and rigid_traj
        [n_steps,N,7], residue axis un-padded back to the request's N.
 
-``--ckpt`` is a ``torch.save``d state dict of ``DFoldScoreNetwork``
-(``weights.state_dict_from_jax`` makes one from JAX params). Requests are
+``--ckpt`` is a training checkpoint of ``train_cli`` or a ``torch.save``d
+state dict of ``DFoldScoreNetwork`` (``weights.state_dict_from_jax`` makes
+one from JAX params). Requests are
 padded to ``--pad-to`` residues; the device work of one request at a time
 runs behind a lock, while the threaded HTTP layer keeps health checks
 answering. Logs go to stderr.
@@ -39,6 +40,7 @@ from dynamicpdb_tpu_torch.data.featurize import eval_init_window, featurize_wind
 from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
 from dynamicpdb_tpu_torch.sampling.reverse import rollout
+from dynamicpdb_tpu_torch.train.checkpoint import model_state_dict
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger("serve")
@@ -164,7 +166,8 @@ def make_server(service: RolloutService, host: str = "127.0.0.1",
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--ckpt", required=True,
-                        help="torch.save'd DFoldScoreNetwork state dict")
+                        help="train_cli checkpoint, or a torch.save'd "
+                             "DFoldScoreNetwork state dict")
     parser.add_argument("--config", default=None)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8765)
@@ -185,11 +188,11 @@ def service_from_args(args: argparse.Namespace) -> RolloutService:
     )
     device = resolve_device(args.device)
     model = DFoldScoreNetwork(cfg.model, device=device)
-    state = torch.load(args.ckpt, map_location=device, weights_only=True)
+    state, step = model_state_dict(args.ckpt, map_location=device)
     model.load_state_dict(state, strict=True)
     diffuser = SE3Diffuser(cfg.diffuser, device=device)
     return RolloutService(model, diffuser,
-                          args.pad_to or cfg.data.filtering.max_len)
+                          args.pad_to or cfg.data.filtering.max_len, step=step)
 
 
 def main(argv=None):

@@ -1,12 +1,14 @@
 """Where the serving time goes: one rollout frame at release width on the
 card, under torch.profiler.
 
-    python -m dynamicpdb_tpu_torch.tools.profile_rollout [--trace out.json]
+    python -m dynamicpdb_tpu_torch.tools.profile_rollout [--repeats 1] \
+        [--trace out.json]
 
 Seeded random weights (weights.randomize_) and a synthetic 256-residue
-window; after a warm-up frame, times one full frame (num_t = 10 forwards)
-and one fast_x0 frame (1 forward) on the host clock around a synchronise,
-then profiles one full frame and prints the device time by kernel, grouped
+window; after a warm-up frame, times ``--repeats`` full frames (num_t = 10
+forwards) and as many fast_x0 frames (1 forward) on the host clock around
+a synchronise (with repeats, the median and quartiles too), then profiles
+one full frame and prints the device time by kernel, grouped
 by layer, and the device's busy share of the frame's wall time. Runs only
 on a CUDA device.
 """
@@ -18,6 +20,7 @@ import subprocess
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from dynamicpdb_tpu_torch import config as config_lib
@@ -51,6 +54,8 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--repeats", type=int, default=1,
+                        help="frames timed of each kind")
     parser.add_argument("--trace", default=None,
                         help="also write a Chrome trace to this path")
     args = parser.parse_args(argv)
@@ -79,12 +84,16 @@ def main(argv=None) -> int:
 
         frame(False)  # warm-up: library handles, cuDNN algorithm choice
         for fast in (False, True):
-            t0 = time.perf_counter()
-            frame(fast)
-            dt = time.perf_counter() - t0
+            times = []
+            for _ in range(args.repeats):
+                t0 = time.perf_counter()
+                frame(fast)
+                times.append((time.perf_counter() - t0) * 1e3)
             n_fwd = 1 if fast else 10
-            print(f"frame fast_x0={int(fast)}: {dt * 1e3:.2f} ms wall, "
-                  f"{dt * 1e3 / n_fwd:.2f} ms per forward [{card}]")
+            q1, med, q3 = np.percentile(times, [25, 50, 75])
+            print(f"frame fast_x0={int(fast)}: {med:.2f} ms wall (median of "
+                  f"{len(times)}; quartiles {q1:.2f}, {q3:.2f}), "
+                  f"{med / n_fwd:.2f} ms per forward [{card}]")
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]

@@ -124,3 +124,51 @@ def randomize_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         std = 1.0 / math.sqrt(p[0].numel()) if p.ndim >= 2 else 0.1
         p.copy_(torch.randn(p.shape, generator=g) * std)
     return model
+
+
+# The JAX package's init of each parameter (models/layers.py INITS), by the
+# parameter's name in the reference layout: "torch" = U(+-1/sqrt(fan_in)),
+# "default"/"relu" = fan-in truncated normal of variance 1 / 2 (AF2),
+# "final" = zeros. Biases are zeros; head_weights start at softplus^-1(1).
+_JAX_INIT_RULES = (  # the first key contained in the name decides
+    ("angle_resnet.linear_initial.", "default"),
+    ("angle_resnet.linear_in.", "default"),
+    ("angle_resnet.linear_out.", "default"),
+    (".linear_out.", "final"),  # the IPA out-projection
+    ("bb_update_", "final"),
+    (".linear_1.", "relu"),
+    (".linear_2.", "final"),
+    (".linear_rbf.", "final"),
+    ("", "torch"),
+)
+_TRUNC_CORR = 0.87962566103423978  # 1 / std of the normal truncated at +-2
+
+
+@torch.no_grad()
+def init_like_jax_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Draw every parameter from a seeded CPU generator by the JAX
+    package's init rule for it (the distributions, not JAX's numbers), as a
+    fresh ``DFoldScoreNetwork.init`` would: zero-initialised output layers
+    and backbone updates, so training starts from the same function."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in sorted(model.named_parameters()):
+        if name.endswith("head_weights"):
+            p.fill_(0.541324854612918)
+            continue
+        if p.ndim < 2:
+            p.zero_()
+            continue
+        rule = next(r for key, r in _JAX_INIT_RULES if key in name)
+        fan_in = p[0].numel()
+        if rule == "final":
+            p.zero_()
+        elif rule == "torch":
+            limit = 1.0 / math.sqrt(fan_in)
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * limit)
+        else:
+            std = math.sqrt((2.0 if rule == "relu" else 1.0) / fan_in) \
+                / _TRUNC_CORR
+            x = torch.empty(p.shape)
+            torch.nn.init.trunc_normal_(x, std=1.0, a=-2.0, b=2.0, generator=g)
+            p.copy_(x * std)
+    return model

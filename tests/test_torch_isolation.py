@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no import of jax, flax or the JAX package
-anywhere in it or in chip_smoke.py, its own byte-identical copy of the chem
+"""The PyTorch port stands alone: no import of jax, flax, optax, pandas,
+tensorboard, yaml or the JAX package anywhere in it or in chip_smoke.py
+(the card's machine is not promised any of them), its own byte-identical copy of the chem
 tables, and a config module that reads every YAML file as the JAX one does."""
 import ast
 import dataclasses
@@ -21,7 +22,8 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(ROOT, "dynamicpdb_tpu_torch", "**", "*.py"),
               recursive=True)
 ) + [os.path.join(ROOT, "chip_smoke.py")]
-FORBIDDEN = ("jax", "flax", "dynamicpdb_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "tensorboard", "yaml",
+             "dynamicpdb_tpu")
 
 
 def _imported_roots(path):
@@ -61,6 +63,21 @@ def test_serving_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+def test_training_modules_load_without_jax():
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.train_cli\n"
+        "import dynamicpdb_tpu_torch.train.experiment\n"
+        "import dynamicpdb_tpu_torch.data.dataset\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib',)!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 def test_chem_tables_copy_is_byte_identical():
     a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", "tables.npz"), "rb")
     b = open(os.path.join(ROOT, "dynamicpdb_tpu_torch", "chem", "tables.npz"),
@@ -84,6 +101,23 @@ def test_yaml_configs_load_identically(path):
     mine = port_config.load_yaml(path, OVERRIDES)
     ref = jax_config.load_yaml(path, OVERRIDES)
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("text", [
+    "a:\n  b: 1e-4\n  c: 0.0001\n  d: [2, 4]\n  e: 'x # y'\n",
+    "f: off\ng:\nh: 010\ni: -3  # comment\nj: .5\nk: \"quoted\"\n",
+    "# only a comment\nx:\n  y:\n    z: null\n  w: ~\n",
+])
+def test_yaml_reader_matches_pyyaml(text):
+    import yaml
+
+    assert port_config.parse_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", ["a:\n  - 1\n", "a: &x 1\n", "a: |\n  t\n"])
+def test_yaml_reader_refuses_what_it_does_not_read(text):
+    with pytest.raises(ValueError, match="unsupported"):
+        port_config.parse_yaml(text)
 
 
 def test_auto_rejected_on_bool_field():
