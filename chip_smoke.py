@@ -22,12 +22,23 @@ Phases, each printing its own lines:
      projection's must be nonzero); then train_cli at release width
      (configs/release.yaml, B=8, remat, bfloat16) for 3 steps on two
      synthetic trajectories, with the launch counts of that run checked,
-     and serve_cli answering one request from the checkpoint it wrote.
-The line before the last is the kernel report (launches: the training
-run's), the last line
-{"ok": true, "device": {...}}. Any failed check exits nonzero; with no CUDA
-device, or without the package beside it, the script exits 1 and prints no
-result.
+     and serve_cli answering one request from the checkpoint it wrote;
+  5. extract: a seeded random OmegaFold at release width and depth (795M
+     parameters) saved to a temporary checkpoint (3.2 GB) and run by the
+     extraction CLI on two sequences (256 and 203 residues, padded to
+     multiples of 32, 10 cycles, 15 pseudo-MSA rows), every npz checked
+     against the DFOLD contract and the launch counts of both GeoFormer
+     attention kernels checked; then the same CLI at release width and a
+     reduced depth on the card and on the CPU, which must agree and select
+     the same cycle.
+Phase 2 also holds both GeoFormer attention kernels against their plain
+versions (release and ragged L, float32 and bfloat16) and times them
+beside their bounds and torch's SDPA on the same attention core.
+The line before the last is the kernel report (launches: the IPA kernels'
+from the training run, the GeoFormer kernels' from the extraction run),
+the last line {"ok": true, "device": {...}}. Any failed check exits
+nonzero; with no CUDA device, or without the package beside it, the script
+exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -441,6 +452,179 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the GeoFormer attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+# release shapes: kernel 5 (GeometricAttention) B = L = 256, n_axis 2, H 4,
+# d 128; kernel 6 (AttentionWEdgeBias) M 16, L 256, d 256, H 8; c 32 both
+GEOM_SHAPES = {
+    "geom_attention": dict(B=None, R=2, H=4, d=128),  # B = L
+    "node_attention": dict(B=16, R=1, H=8, d=256),
+}
+GEOM_C = 32
+# float32 on both sides, sums over d and L terms in another order: 1e-4 on
+# unit-scale outputs (the IPA kernel's bar). bfloat16 inputs: both compute
+# in float32 from the same bf16 values and round the result to bf16, which
+# may then differ by one bf16 step (2^-8 relative): 2^-7 |want| on top.
+GEOM_ATOL = 1e-4
+GEOM_BF16_RTOL = 2.0 ** -7
+
+
+def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
+                pad: int = 0):
+    """Seeded inputs of kernel ``kind`` at its release widths and length L:
+    x ~ N(0, 1) (a normalised activation), weights ~ N(0, 1/d), biases ~
+    N(0, 0.1^2), the attention bias ~ N(0, 1) with the last ``pad`` keys at
+    -1e9 (pad_safe padding); node_attention's key mask drops ~12% of the
+    keys of every row but the first (the pseudo-MSA's mask rate)."""
+    shp = GEOM_SHAPES[kind]
+    B = shp["B"] or L
+    R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    x = rnd(B, R, L, d).to(dtype)
+    w = dict(qg_w=rnd(d, R, H, 2 * c, scale=d ** -0.5),
+             qg_b=rnd(R, H, 1, 2 * c, scale=0.1),
+             kv_w=rnd(d, R, H, 2 * c, scale=d ** -0.5),
+             kv_b=rnd(R, H, 1, 2 * c, scale=0.1))
+    bias = rnd(R, H, L, L)
+    if pad:
+        bias[..., L - pad:] = -1e9
+    kmask = None
+    if kind == "node_attention":
+        kmask = (torch.rand((B, L), generator=g, device=device) > 0.12).float()
+        kmask[0] = 1.0
+        x, bias = x[:, 0], bias[0]
+    w = {k: v.to(dtype) for k, v in w.items()}
+    return dict(x=x, bias=bias, kmask=kmask, **w)
+
+
+def geom_call(mod, kind: str, inp: dict, plain: bool):
+    """The kernel (or its plain version) on ``inp``."""
+    c, scale = GEOM_C, GEOM_C ** -0.5
+    args = [inp["x"], inp["qg_w"], inp["qg_b"], inp["kv_w"], inp["kv_b"],
+            inp["bias"]]
+    if kind == "node_attention":
+        fn = mod.node_attention_plain if plain else mod.fused_gated_node_attention
+        return fn(*args, inp["kmask"], c=c, scale=scale)
+    fn = mod.geom_attention_plain if plain else mod.fused_gated_geom_attention_t
+    return fn(*args, c=c, scale=scale)
+
+
+def geom_error(got, want) -> tuple[float, float]:
+    """(max_abs_err, how far past its tolerance: <= 0 passes)."""
+    import torch
+
+    w = want.float()
+    err = (got.float() - w).abs()
+    rtol = GEOM_BF16_RTOL if got.dtype == torch.bfloat16 else 0.0
+    return float(err.max()), float((err - rtol * w.abs() - GEOM_ATOL).max())
+
+
+def geom_cost(kind: str, L: int, bytes_per_elem: int = 4):
+    """(operations, bytes) of one launch: the q|gate and k|v projections and
+    the two L x L x c contractions (2 per multiply-add), ~4 elementwise
+    operations per logit and ~4 per output; x read once, the bias, key
+    mask and weights once, the output written once."""
+    shp = GEOM_SHAPES[kind]
+    B = shp["B"] or L
+    R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
+    G = R * H
+    ops = B * G * (2 * L * d * 4 * c + 4 * L * L * c + 4 * L * L + 4 * L * c)
+    nbytes = (bytes_per_elem * (B * R * L * d + B * G * L * c)
+              + 4 * (G * L * L + 2 * G * d * 2 * c + 2 * G * 2 * c))
+    if kind == "node_attention":
+        nbytes += 4 * B * L
+    return ops, nbytes
+
+
+GEOM_REPLACES = {
+    "geom_attention": "dynamicpdb_tpu/ops/pallas/geom_attention.py:50",
+    "node_attention": "dynamicpdb_tpu/ops/pallas/geom_attention.py:76",
+}
+
+
+def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
+    """The time of torch's scaled_dot_product_attention on the q, k, v and
+    bias (+ key mask) of these inputs: the attention core only, without the
+    projections and the gate the kernel fuses."""
+    c = GEOM_C
+    x = inp["x"].float()
+    if kind == "node_attention":
+        x = x[:, None]
+    qg = torch.einsum("brld,drhe->brhle", x, inp["qg_w"].float()) + inp["qg_b"].float()
+    kv = torch.einsum("brld,drhe->brhle", x, inp["kv_w"].float()) + inp["kv_b"].float()
+    B, R, H, L = qg.shape[:4]
+    q, k, v = (t.reshape(B, R * H, L, c).contiguous()
+               for t in (qg[..., :c], kv[..., :c], kv[..., c:]))
+    mask = inp["bias"].float().reshape(1, -1, L, L)
+    if kind == "node_attention":
+        mask = mask + (inp["kmask"][:, None, None, :] - 1.0) * 1e9
+    mask = mask.expand(B, R * H, L, L)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 20)
+
+
+def geom_kernel_phase(torch, device, card: str) -> list[dict]:
+    """Both GeoFormer attention kernels against their plain versions on the
+    card at the release shapes and at a ragged L = 203, in float32 and
+    bfloat16; then each kernel's time at the release shapes (float32, the
+    extraction's default) against its plain version, the SDPA core and its
+    bound."""
+    from dynamicpdb_tpu_torch.ops import geom_attention as mod
+
+    reports = {}
+    for kind in GEOM_SHAPES:
+        worst = 0.0
+        for label, L, pad in (("release", 256, 0), ("ragged", 203, 11)):
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = geom_inputs(torch, device, kind, L, dtype,
+                                  seed=L + (dtype == torch.bfloat16), pad=pad)
+                got = geom_call(mod, kind, inp, plain=False)
+                torch.cuda.synchronize()
+                want = geom_call(mod, kind, inp, plain=True)
+                check(got.dtype == dtype and got.shape == want.shape,
+                      f"{kind}: {got.dtype} {tuple(got.shape)}, want "
+                      f"{dtype} {tuple(want.shape)}")
+                err, over = geom_error(got, want)
+                tol = ("1e-4" if dtype == torch.float32
+                       else "1e-4 + 2^-7 |want|")
+                print(f"kernel {kind} {label} L={L} {str(dtype)[6:]}: "
+                      f"max_abs_err {err:.3e} (tol {tol}; scale "
+                      f"{float(want.float().abs().max()):.3f})")
+                check(over <= 0, f"{kind} {label} {dtype}: max_abs_err "
+                      f"{err} out of tolerance")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+        inp = geom_inputs(torch, device, kind, 256, torch.float32, seed=7)
+        ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=False), 20)
+        plain_ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=True), 5)
+        sdpa_ms = sdpa_core_ms(torch, mod, kind, inp)
+        ops, nbytes = geom_cost(kind, 256)
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        reports[kind] = {
+            "name": kind, "route": "cuda",
+            "source": "dynamicpdb_tpu_torch/csrc/geom_attention.cu",
+            "replaces": GEOM_REPLACES[kind], "launches": None,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # torch's SDPA on the same q, k, v and bias: the attention core
+            # only, without the projections and the gate the kernel fuses
+            "library_ms": sdpa_ms,
+            "library": "scaled_dot_product_attention (attention core only)",
+        }
+        print(f"kernel {kind} release float32: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA core only {sdpa_ms:.4f} ms, bound "
+              f"{reports[kind]['bound_ms']:.4f} ms ({reports[kind]['bound_by']}"
+              f": {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), warm L2 "
+              f"[{card}]")
+    return list(reports.values())
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
 def _post(base: str, raw: dict, query: str, timeout: float = 600):
@@ -784,6 +968,131 @@ def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: OmegaFold embedding extraction
+# ---------------------------------------------------------------------------
+RESTYPES = "ARNDCQEGHILKMFPSTWYV"
+
+
+def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
+                  num_pseudo_msa: int, pad_multiple: int, tmp: str,
+                  seed: int = 0, tag: str = "") -> dict:
+    """Seeded random weights at ``cfg`` -> torch.save -> the extraction
+    CLI's main on random sequences of ``lengths``. Checks every npz against
+    the DFOLD contract (validate) and the kernel launch counts (every
+    cycle runs each GeoFormer block's attention with edge bias once and its
+    geom_count geometric attentions; none on the CPU). Returns the records,
+    counts, parameter count, peak device memory and the npz arrays."""
+    import torch
+
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.preprocess import extract_embeddings as cli
+    from dynamicpdb_tpu_torch.preprocess.embeddings import validate
+    from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
+
+    t0 = time.perf_counter()
+    sd = random_omegafold_state_dict(cfg, seed)
+    n_params = sum(v.size for v in sd.values())
+    ckpt = os.path.join(tmp, f"omegafold_{device}.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+    del sd
+    gb = os.path.getsize(ckpt) / 1e9
+    print(f"extract: {n_params:,} parameters, {gb:.2f} GB checkpoint written "
+          f"in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    fasta = os.path.join(tmp, "seqs.fasta")
+    with open(fasta, "w") as f:
+        for i, n in enumerate(lengths):
+            f.write(f">seq{i}_{n}\n{''.join(rng.choice(list(RESTYPES), n))}\n")
+    out_dir = os.path.join(tmp, f"npz_{device}")
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    t0 = time.perf_counter()
+    records = cli.main(["--fasta", fasta, "--out-dir", out_dir, "--weights",
+                        ckpt, "--num-cycles", str(num_cycles),
+                        "--num-pseudo-msa", str(num_pseudo_msa),
+                        "--pad-multiple", str(pad_multiple), "--device",
+                        device])
+    wall = time.perf_counter() - t0
+    launched = {"geom_attention": geom_mod.geom_launches,
+                "node_attention": geom_mod.node_launches}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    per_cycle = cfg.geo_num_blocks if on_card else 0
+    expect = {"geom_attention": len(lengths) * num_cycles * per_cycle
+              * cfg.geom_count,
+              "node_attention": len(lengths) * num_cycles * per_cycle}
+    check(launched == expect, f"extract: kernel launches {launched}, "
+          f"expected {expect}")
+    check(sorted(r["n_res"] for r in records) == sorted(lengths),
+          f"extract: sequences {[r['n_res'] for r in records]}")
+    arrays = {}
+    for r in records:
+        validate(r["path"], n_res=r["n_res"])
+        with np.load(r["path"]) as z:
+            arrays[r["name"]] = {k: z[k] for k in z.files}
+        print(f"extract: {r['name']} n_res={r['n_res']} padded={r['padded']}"
+              f" {num_cycles} cycles x {num_pseudo_msa + 1} pseudo-MSA rows: "
+              f"{r['seconds']:.3f} s, {num_cycles / r['seconds']:.2f} cycles/s"
+              f", cycle {r['cycle']} selected (confidences "
+              f"{[round(c, 5) for c in r['confidences']]}){tag}")
+    print(f"extract: {len(records)} sequences in {wall:.2f} s of the CLI "
+          f"(weights loaded and moved included); peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
+          f"launches {launched}{tag}")
+    return dict(records=records, launches=launched, params=n_params,
+                peak_bytes=peak, wall=wall, arrays=arrays)
+
+
+# card against CPU: float32 with TF32 off on both, sums in other orders
+# through the PLM, the GeoFormer, the structure module and two recycles:
+# 1e-3 of each output's largest magnitude; confidences 1e-4
+EXTRACT_RTOL = 1e-3
+EXTRACT_CONF_ATOL = 1e-4
+
+
+def extract_card_vs_cpu(tmp: str) -> dict:
+    """The extraction CLI at the release widths and a reduced depth (2 PLM
+    layers, 2 GeoFormer blocks, 2 structure cycles; N = 40, 4 pseudo-MSA
+    rows, 2 cycles) on the card and on the CPU: every output must agree and
+    the same cycle must be selected."""
+    from dynamicpdb_tpu_torch.models.omegafold.model import (
+        OmegaFoldConfig,
+        StructConfig,
+    )
+    from dynamicpdb_tpu_torch.models.omegafold.plm import PLMConfig
+
+    cfg = OmegaFoldConfig(plm=PLMConfig(num_layers=2), geo_num_blocks=2,
+                          struct=StructConfig(num_cycle=2))
+    runs = {dev: extract_phase(dev, cfg, lengths=(40,), num_cycles=2,
+                               num_pseudo_msa=3, pad_multiple=0, tmp=tmp,
+                               seed=1)
+            for dev in ("cuda", "cpu")}
+    worst = {}
+    for rec_gpu, rec_cpu in zip(runs["cuda"]["records"], runs["cpu"]["records"]):
+        check(rec_gpu["cycle"] == rec_cpu["cycle"], f"extract card vs CPU: "
+              f"cycle {rec_gpu['cycle']} selected on the card, "
+              f"{rec_cpu['cycle']} on the CPU")
+        a, b = runs["cuda"]["arrays"][rec_gpu["name"]], \
+            runs["cpu"]["arrays"][rec_cpu["name"]]
+        for key in ("node_repr", "edge_repr", "confidence"):
+            err = float(np.abs(a[key] - b[key]).max())
+            tol = (EXTRACT_CONF_ATOL if key == "confidence" else
+                   EXTRACT_RTOL * max(1.0, float(np.abs(b[key]).max())))
+            print(f"extract card vs CPU: {key} max_abs_err {err:.3e} tol "
+                  f"{tol:.3e}")
+            check(err <= tol, f"extract card vs CPU: {key} {err} > {tol}")
+            worst[key] = err
+        conf_err = max(abs(x - y) for x, y in zip(rec_gpu["confidences"],
+                                                   rec_cpu["confidences"]))
+        check(conf_err <= EXTRACT_CONF_ATOL, f"extract card vs CPU: cycle "
+              f"confidences differ by {conf_err}")
+        print(f"extract card vs CPU: cycle {rec_gpu['cycle']} selected on "
+              f"both; per-cycle confidences within {conf_err:.3e}")
+    return worst
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.perf_counter()
@@ -798,16 +1107,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)  # configs/release.yaml names the IGSO3 cache relatively
+    from dynamicpdb_tpu_torch.models.omegafold.model import OmegaFoldConfig
     from dynamicpdb_tpu_torch.ops import _build
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
     from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
     # phase 0
     card = card_line()
     print(card)
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     device = resolve_device("cuda")
-    print(f"setup: {kind}, {torch.cuda.device_count()} device(s), torch "
+    print(f"setup: {card_kind}, {torch.cuda.device_count()} device(s), torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # phase 1
@@ -827,12 +1138,17 @@ def main() -> int:
     for which, kname in enumerate(BWD_KERNELS):
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
               " bytes of dynamic shared memory per block at the release shapes")
+    for gname, shp in GEOM_SHAPES.items():
+        print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
+              f" bytes of dynamic shared memory per block at d={shp['d']}")
+    print(f"build: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 2
     t0 = time.perf_counter()
     fwd_report = kernel_phase(torch, device, card)
     bwd_reports = bwd_kernel_phase(torch, device, card)
-    print(f"kernels: {time.perf_counter() - t0:.2f} s")
+    geom_reports = geom_kernel_phase(torch, device, card)
+    print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 3: the serving path at release width
     t0 = time.perf_counter()
@@ -874,16 +1190,34 @@ def main() -> int:
     fwd_report["launches"] = launched["fwd"]
     for rep, key in zip(bwd_reports, ("dq", "dkv", "pair")):
         rep["launches"] = launched[key]
-    reports = [fwd_report] + bwd_reports
+
+    # phase 5: OmegaFold embedding extraction at release width and depth
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ext = extract_phase("cuda", OmegaFoldConfig(), lengths=(256, 203),
+                            num_cycles=10, num_pseudo_msa=15, pad_multiple=32,
+                            tmp=tmp, tag=f" [{card}]")
+    check(ext["params"] == 795_074_210, f"extract: the release model has "
+          f"{ext['params']:,} parameters, not 795,074,210")
+    for rep in geom_reports:
+        rep["launches"] = ext["launches"][rep["name"]]
+    print(f"extract: release width and depth, 2 sequences in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        extract_card_vs_cpu(tmp)
+    print(f"extract: card vs CPU in {time.perf_counter() - t0:.2f} s")
+
+    reports = [fwd_report] + bwd_reports + geom_reports
     for rep in reports:
-        check(rep["launches"] > 0, f"{rep['name']} never launched on the "
-              "training path")
+        check(rep["launches"] > 0, f"{rep['name']} never launched on its "
+              "main path")
 
     print(f"total: {time.perf_counter() - t_start:.2f} s wall [{card}]")
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": reports}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -172,3 +172,158 @@ def init_like_jax_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             torch.nn.init.trunc_normal_(x, std=1.0, a=-2.0, b=2.0, generator=g)
             p.copy_(x * std)
     return model
+
+
+# ---------------------------------------------------------------------------
+# OmegaFold (embedding extraction)
+# ---------------------------------------------------------------------------
+_OMEGAFOLD_NORMS = ("output_norm", "layernorm_node", "layernorm_edge",
+                    "node_norm", "edge_norm", "input_norm", "update_norm",
+                    "multi_headed_scaling")
+# parameter name -> the input dims it contracts over (leading dims of its
+# reference layout); nn.Linear and nn.Embedding weights contract dim 1
+_OMEGAFOLD_FAN_IN = {
+    "qg_weights": (0,), "kv_weights": (0,), "linear_b_weights": (0,),
+    "act_w": (0,), "o_weights": (1, 2), "out_weights": (0, 1),
+    "out_proj_w": (1,),
+}
+
+
+def omegafold_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Every key of the reference OmegaFold state dict at ``cfg`` and its
+    shape (from the port's module built on the meta device)."""
+    from dynamicpdb_tpu_torch.models.omegafold.model import OmegaFold
+
+    with torch.device("meta"):
+        model = OmegaFold(cfg)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def random_omegafold_state_dict(cfg, seed: int) -> dict[str, np.ndarray]:
+    """A reference-layout OmegaFold state dict of float32 numpy arrays drawn
+    from ``np.random.default_rng(seed)``: LayerNorm and scale-shift weights
+    ~ 1 + N(0, 0.1^2), weights ~ N(0, 1/fan_in), vectors ~ N(0, 0.1^2), so
+    activations stay near unit scale through every layer."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in omegafold_shapes(cfg).items():
+        owner, name = key.split(".")[-2:]
+        mean, std = 0.0, 0.1
+        if owner in _OMEGAFOLD_NORMS:
+            mean = 1.0 if name == "weight" else 0.0
+        elif name in _OMEGAFOLD_FAN_IN:
+            std = 1.0 / math.sqrt(math.prod(shape[i]
+                                            for i in _OMEGAFOLD_FAN_IN[name]))
+        elif name == "weight" and len(shape) == 2:
+            std = 1.0 / math.sqrt(shape[1])
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        sd[key] = x + np.float32(mean) if mean else x
+    return sd
+
+
+def omegafold_state_dict_from_jax(params, cfg) -> dict[str, np.ndarray]:
+    """The JAX package's ``OmegaFoldParams`` (its NamedTuple tree, leaves as
+    numpy arrays) as the reference-layout state dict: the [num_layers] and
+    [num_blocks] axes unstacked and the converters' transposes undone.
+    Raises unless the keys are exactly those of ``OmegaFold(cfg)``."""
+    sd: dict[str, np.ndarray] = {}
+
+    def put(key, x):
+        sd[key] = np.ascontiguousarray(np.asarray(x, np.float32))
+
+    def lin(key, p, i=None):  # LinearParams (w [in, out], b), or stacked
+        w, b = (p[0], p[1]) if i is None else (p[0][i], p[1][i])
+        put(key + ".weight", np.asarray(w).T)
+        put(key + ".bias", b)
+
+    def ln(key, p, i=None):
+        put(key + ".weight", p[0] if i is None else p[0][i])
+        put(key + ".bias", p[1] if i is None else p[1][i])
+
+    def attn(key, a, i):
+        for f in ("qg_weights", "qg_bias", "kv_weights", "kv_bias",
+                  "o_weights", "o_bias"):
+            put(f"{key}.{f}", getattr(a, f)[i])
+
+    plm = params.plm
+    put("omega_plm.input_embedding.weight", plm.embedding)
+    for i in range(plm.layers.gva_w.shape[0]):
+        k, lp = f"omega_plm.layers.{i}.gau.", plm.layers
+        lin(k + "gva_proj.0", (lp.gva_w, lp.gva_b), i)
+        ln(k + "multi_headed_scaling", (lp.mhs_weight, lp.mhs_bias), i)
+        put(k + "relpos.weight", lp.relpos_table[i])
+        lin(k + "output_proj", (lp.out_w, lp.out_b), i)
+    ln("omega_plm.output_norm", (plm.out_ln_weight, plm.out_ln_bias))
+    lin("plm_node_embedder", params.plm_node_embedder)
+    lin("plm_edge_embedder", params.plm_edge_embedder)
+    e = params.input_embedder
+    put("input_embedder.proj_i.weight", e.proj_i)
+    put("input_embedder.proj_j.weight", e.proj_j)
+    put("input_embedder.relpos.weight", e.relpos_table)
+    r = params.recycle
+    ln("recycle_embedder.layernorm_node", r.ln_node)
+    ln("recycle_embedder.layernorm_edge", r.ln_edge)
+    put("recycle_embedder.prev_pos_embed.weight", r.prev_pos_embed)
+
+    geo = params.geoformer
+    bl = geo.blocks
+    for i in range(bl.node_transition.w1.shape[0]):
+        k = f"omega_fold_cycle.geoformer.blocks.{i}."
+        lin(k + "attention_w_edge_bias.proj_edge_bias",
+            (bl.attn_edge_bias.proj_edge_w, bl.attn_edge_bias.proj_edge_b), i)
+        attn(k + "attention_w_edge_bias.attention", bl.attn_edge_bias.attn, i)
+        attn(k + "column_attention", bl.column_attn, i)
+        for name in ("node_transition", "edge_transition"):
+            t = getattr(bl, name)
+            lin(k + name + ".network.0", (t.w1, t.b1), i)
+            lin(k + name + ".network.2", (t.w2, t.b2), i)
+        op = bl.out_product
+        lin(k + "out_product.input_proj", (op.in_w, op.in_b), i)
+        put(k + "out_product.out_weights", op.out_weights[i])
+        put(k + "out_product.out_bias", op.out_bias[i])
+        for j, g in enumerate(bl.geom):
+            gk = k + f"geometric_attention.{j}."
+            for f, jf in (("linear_b_weights", "linear_b_w"),
+                          ("linear_b_bias", "linear_b_b"), ("act_w", "act_w"),
+                          ("act_b", "act_b"), ("out_proj_w", "out_proj_w"),
+                          ("out_proj_b", "out_proj_b")):
+                put(gk + f, getattr(g, jf)[i])
+            attn(gk + "attention", g.attn, i)
+    lin("omega_fold_cycle.geoformer.node_final_proj",
+        (geo.final_proj_w, geo.final_proj_b))
+
+    s = params.structure
+    k = "omega_fold_cycle.structure_module."
+    ln(k + "node_norm", s.node_norm)
+    ln(k + "edge_norm", s.edge_norm)
+    lin(k + "init_proj", s.init_proj)
+    for c, cp in enumerate(s.cycles):
+        ck = f"{k}cycles.{c}."
+        for f in ("q_scalar", "k_scalar", "v_scalar", "q_point", "k_point",
+                  "v_point", "bias_2d"):
+            lin(ck + "ipa." + f, getattr(cp.ipa, f))
+        lin(ck + "ipa.output_projection", cp.ipa.out)
+        put(ck + "ipa.trainable_point_weights", cp.ipa.point_weights)
+        ln(ck + "input_norm", cp.input_norm)
+        for t, lp in enumerate(cp.transition):
+            lin(f"{ck}transition.{t}", lp)
+        ln(ck + "update_norm", cp.update_norm)
+        lin(ck + "affine_update", cp.affine_update)
+    th = s.torsion
+    for name, group in (("input_projection", th.input_projection),
+                        ("resblock1", th.resblock1),
+                        ("resblock2", th.resblock2)):
+        for t, lp in enumerate(group):
+            lin(f"{k}torsion_angle_pred.{name}.{t}", lp)
+    lin(k + "torsion_angle_pred.unnormalized_angles", th.unnormalized)
+    for t, lp in zip((0, 2, 4), params.confidence.layers):
+        lin(f"omega_fold_cycle.confidence_head.network.{t}", lp)
+
+    want = omegafold_shapes(cfg)
+    got = {key: v.shape for key, v in sd.items()}
+    if got != want:
+        bad = sorted(set(got) ^ set(want)) or sorted(
+            key for key in got if got[key] != want[key])
+        raise ValueError(f"the JAX params do not make OmegaFold({cfg}): "
+                         f"{bad[:5]}")
+    return sd

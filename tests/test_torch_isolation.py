@@ -78,10 +78,25 @@ def test_training_modules_load_without_jax():
                    check=True, timeout=120)
 
 
-def test_chem_tables_copy_is_byte_identical():
-    a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", "tables.npz"), "rb")
-    b = open(os.path.join(ROOT, "dynamicpdb_tpu_torch", "chem", "tables.npz"),
-             "rb")
+def test_extraction_modules_load_without_jax():
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.preprocess.extract_embeddings\n"
+        "import dynamicpdb_tpu_torch.tools.profile_extract\n"
+        "import dynamicpdb_tpu_torch.ops.geom_attention\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib',)!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
+@pytest.mark.parametrize("name", ["tables.npz", "omegafold_tables.npz"])
+def test_chem_tables_copy_is_byte_identical(name):
+    a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", name), "rb")
+    b = open(os.path.join(ROOT, "dynamicpdb_tpu_torch", "chem", name), "rb")
     with a, b:
         assert a.read() == b.read()
 

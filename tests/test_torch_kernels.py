@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import chip_smoke
+from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
 from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
 torch.set_num_threads(1)
@@ -173,3 +174,48 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     bad[6] = bad[6].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
+
+
+# ---------------------------------------------------------------------------
+# the GeoFormer attention kernels (ops/geom_attention.py)
+# ---------------------------------------------------------------------------
+GEOM_COUNTERS = {"geom_attention": "geom_launches",
+                 "node_attention": "node_launches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,pad", [(256, 0), (203, 11), (37, 5), (300, 0)],
+                         ids=["release", "ragged", "tiny", "two-query-chunks"])
+@pytest.mark.parametrize("kind", list(GEOM_COUNTERS))
+def test_geom_kernels_match_plain(cuda, kind, L, pad, dtype):
+    """Each kernel against its plain version at its release widths, one
+    launch each (tolerances and their reasons: chip_smoke.GEOM_ATOL,
+    GEOM_BF16_RTOL)."""
+    dtype = getattr(torch, dtype)
+    inp = chip_smoke.geom_inputs(torch, cuda, kind, L, dtype, seed=11, pad=pad)
+    before = getattr(geom_mod, GEOM_COUNTERS[kind])
+    got = chip_smoke.geom_call(geom_mod, kind, inp, plain=False)
+    torch.cuda.synchronize()
+    assert getattr(geom_mod, GEOM_COUNTERS[kind]) == before + 1
+    want = chip_smoke.geom_call(geom_mod, kind, inp, plain=True)
+    assert got.dtype == dtype and got.shape == want.shape
+    err, over = chip_smoke.geom_error(got, want)
+    assert over <= 0, err
+
+
+@pytest.mark.cuda
+def test_geom_kernels_reject_what_they_cannot_take(cuda):
+    inp = chip_smoke.geom_inputs(torch, cuda, "geom_attention", 16,
+                                 torch.float32, seed=12)
+    args = [inp[k] for k in ("x", "qg_w", "qg_b", "kv_w", "kv_b", "bias")]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        geom_mod.fused_gated_geom_attention_t(args[0].double(), *args[1:],
+                                              c=32, scale=1.0)
+    with pytest.raises(ValueError, match="built for c=32"):
+        geom_mod.fused_gated_geom_attention_t(
+            args[0], *(a[..., :32] for a in args[1:5]), args[5], c=16,
+            scale=1.0)
+    with pytest.raises(ValueError, match="bias has shape"):
+        geom_mod.fused_gated_geom_attention_t(*args[:5], args[5][:, :, :8],
+                                              c=32, scale=1.0)
