@@ -30,7 +30,7 @@ Phases, each printing its own lines:
      against the DFOLD contract and the launch counts of both GeoFormer
      attention kernels checked; then the same CLI at release width and a
      reduced depth on the card and on the CPU, which must agree and select
-     the same cycle.
+     the same cycle, and in bfloat16 on the card against float32.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release and ragged L, float32 and bfloat16) and times them
 beside their bounds and torch's SDPA on the same attention core.
@@ -976,7 +976,7 @@ RESTYPES = "ARNDCQEGHILKMFPSTWYV"
 
 def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
                   num_pseudo_msa: int, pad_multiple: int, tmp: str,
-                  seed: int = 0, tag: str = "") -> dict:
+                  seed: int = 0, dtype: str = "float32", tag: str = "") -> dict:
     """Seeded random weights at ``cfg`` -> torch.save -> the extraction
     CLI's main on random sequences of ``lengths``. Checks every npz against
     the DFOLD contract (validate) and the kernel launch counts (every
@@ -1004,7 +1004,7 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
     with open(fasta, "w") as f:
         for i, n in enumerate(lengths):
             f.write(f">seq{i}_{n}\n{''.join(rng.choice(list(RESTYPES), n))}\n")
-    out_dir = os.path.join(tmp, f"npz_{device}")
+    out_dir = os.path.join(tmp, f"npz_{device}_{dtype}")
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1014,7 +1014,7 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
                         ckpt, "--num-cycles", str(num_cycles),
                         "--num-pseudo-msa", str(num_pseudo_msa),
                         "--pad-multiple", str(pad_multiple), "--device",
-                        device])
+                        device, "--dtype", dtype])
     wall = time.perf_counter() - t0
     launched = {"geom_attention": geom_mod.geom_launches,
                 "node_attention": geom_mod.node_launches}
@@ -1050,13 +1050,18 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
 # 1e-3 of each output's largest magnitude; confidences 1e-4
 EXTRACT_RTOL = 1e-3
 EXTRACT_CONF_ATOL = 1e-4
+# bfloat16 against float32 on the card: the JAX package's bar for its bf16
+# path (tests/test_omegafold_model.py), a mean error under 0.1 of the mean
+# magnitude
+EXTRACT_BF16_RTOL = 0.1
 
 
-def extract_card_vs_cpu(tmp: str) -> dict:
+def extract_card_vs_cpu(tmp: str) -> None:
     """The extraction CLI at the release widths and a reduced depth (2 PLM
     layers, 2 GeoFormer blocks, 2 structure cycles; N = 40, 4 pseudo-MSA
     rows, 2 cycles) on the card and on the CPU: every output must agree and
-    the same cycle must be selected."""
+    the same cycle must be selected. Then --dtype bfloat16 on the card
+    against float32 on the card."""
     from dynamicpdb_tpu_torch.models.omegafold.model import (
         OmegaFoldConfig,
         StructConfig,
@@ -1069,7 +1074,6 @@ def extract_card_vs_cpu(tmp: str) -> dict:
                                num_pseudo_msa=3, pad_multiple=0, tmp=tmp,
                                seed=1)
             for dev in ("cuda", "cpu")}
-    worst = {}
     for rec_gpu, rec_cpu in zip(runs["cuda"]["records"], runs["cpu"]["records"]):
         check(rec_gpu["cycle"] == rec_cpu["cycle"], f"extract card vs CPU: "
               f"cycle {rec_gpu['cycle']} selected on the card, "
@@ -1083,14 +1087,24 @@ def extract_card_vs_cpu(tmp: str) -> dict:
             print(f"extract card vs CPU: {key} max_abs_err {err:.3e} tol "
                   f"{tol:.3e}")
             check(err <= tol, f"extract card vs CPU: {key} {err} > {tol}")
-            worst[key] = err
         conf_err = max(abs(x - y) for x, y in zip(rec_gpu["confidences"],
                                                    rec_cpu["confidences"]))
         check(conf_err <= EXTRACT_CONF_ATOL, f"extract card vs CPU: cycle "
               f"confidences differ by {conf_err}")
         print(f"extract card vs CPU: cycle {rec_gpu['cycle']} selected on "
               f"both; per-cycle confidences within {conf_err:.3e}")
-    return worst
+    bf16 = extract_phase("cuda", cfg, lengths=(40,), num_cycles=2,
+                         num_pseudo_msa=3, pad_multiple=0, tmp=tmp, seed=1,
+                         dtype="bfloat16")
+    for name, b in bf16["arrays"].items():
+        a = runs["cuda"]["arrays"][name]
+        for key in ("node_repr", "edge_repr"):
+            err = float(np.abs(b[key] - a[key]).mean())
+            tol = EXTRACT_BF16_RTOL * float(np.abs(a[key]).mean())
+            print(f"extract bfloat16 vs float32 on the card: {key} mean abs "
+                  f"err {err:.3e} tol {tol:.3e} (max abs err "
+                  f"{float(np.abs(b[key] - a[key]).max()):.3e})")
+            check(err <= tol, f"extract bf16 vs f32: {key} {err} > {tol}")
 
 
 def main() -> int:

@@ -166,11 +166,13 @@ def test_cli_refuses_a_missing_card():
         cli.main(["--fasta", "x", "--out-dir", "y", "--weights", "z"])
 
 
-def test_chip_smoke_extract_phase_rehearsal(tmp_path):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_extract_phase_rehearsal(tmp_path, dtype):
     """chip_smoke.extract_phase on the CPU at the tiny widths: the same
     code path, with no kernel launched."""
     out = chip_smoke.extract_phase("cpu", cli_cfg(), lengths=(19, 13),
                                    num_cycles=2, num_pseudo_msa=2,
-                                   pad_multiple=8, tmp=str(tmp_path))
+                                   pad_multiple=8, tmp=str(tmp_path),
+                                   dtype=dtype)
     assert out["launches"] == {"geom_attention": 0, "node_attention": 0}
     assert [r["n_res"] for r in out["records"]] == [13, 19]
