@@ -6,7 +6,9 @@
 Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
   1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
-     each, all started together;
+     each, all started together, with ptxas's registers and spills; the
+     GeoFormer kernels' machine code must hold tensor-core instructions
+     (cuobjdump -sass);
   2. kernels: the IPA forward and its three backward kernels against their
      plain PyTorch versions on the card, at the release shapes and at a
      ragged N (the backward with cotangents zero on pad rows and with
@@ -32,8 +34,11 @@ Phases, each printing its own lines:
      reduced depth on the card and on the CPU, which must agree and select
      the same cycle, and in bfloat16 on the card against float32.
 Phase 2 also holds both GeoFormer attention kernels against their plain
-versions (release and ragged L, float32 and bfloat16) and times them
-beside their bounds and torch's SDPA on the same attention core.
+versions (release, ragged and long ragged L, float32 and bfloat16) and
+times them beside their bounds and torch's SDPA on the same attention
+core. Every kernel report carries two bounds: bound_ms with every
+operation on the CUDA cores in float32, tc_bound_ms with the products on
+the TF32 tensor cores in three passes (bounds()).
 The line before the last is the kernel report (launches: the IPA kernels'
 from the training run, the GeoFormer kernels' from the extraction run),
 the last line {"ok": true, "device": {...}}. Any failed check exits
@@ -80,7 +85,27 @@ SMALL_OVERRIDES = [
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
+TC_PASSES = 3  # 3xTF32: the passes a product needs to keep float32 accuracy
+
+
+def bounds(ops: float, ew_ops: float, nbytes: float) -> dict:
+    """The least time (ms) the card could take for the work: the float32
+    bound (every operation on the CUDA cores) and the tensor-core bound (the
+    products, ops - ew_ops, in TC_PASSES TF32 passes on the tensor cores,
+    the elementwise operations on the CUDA cores), each the larger of its
+    arithmetic time and bytes / the memory rate, with what bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_f32 = ops / PEAK_F32_FLOPS * 1e3
+    t_tc = ((ops - ew_ops) * TC_PASSES / PEAK_TF32_FLOPS
+            + ew_ops / PEAK_F32_FLOPS) * 1e3
+    return {
+        "bound_ms": max(t_f32, t_bytes),
+        "bound_by": "operations" if t_f32 >= t_bytes else "bytes",
+        "tc_bound_ms": max(t_tc, t_bytes),
+        "tc_bound_by": "operations" if t_tc >= t_bytes else "bytes",
+    }
 
 
 class CheckFailed(RuntimeError):
@@ -97,6 +122,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mma_counts(nvcc: str, library: str) -> dict:
+    """{kernel function: tensor-core instructions (HMMA or HGMMA)} in the
+    machine code of ``library``, as cuobjdump -sass prints it."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -120,22 +161,24 @@ def ipa_inputs(torch, device, *, F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32,
 
 
 def ipa_cost(F, N, H, C, Pq, Pv, Dz):
-    """(operations, bytes) the forward must do and move: the five
-    contractions (2 per multiply-add) plus ~12 elementwise operations per
-    logit; each input read once, each output written once, float32."""
+    """(operations, bytes, elementwise operations) the forward must do and
+    move: the five contractions (2 per multiply-add) plus ~12 elementwise
+    operations per logit; each input read once, each output written once,
+    float32."""
     ops = F * H * N * N * (2 * C + 2 * 3 * Pq + 2 * C + 2 * 3 * Pv + 2 * Dz + 12)
     n_in = 3 * F * N * H * C + 2 * F * N * H * Pq * 3 + F * N * H * Pv * 3 \
         + N * N * H + N * N * Dz + F * N + H
     n_out = F * N * H * C + F * N * H * Pv * 3 + F * N * H * Dz + F * H * N
-    return ops, 4 * (n_in + n_out)
+    return ops, 4 * (n_in + n_out), F * H * N * N * 12
 
 
 def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz):
-    """{kernel: (operations, bytes)} of the three backward kernels: each
-    recomputes the tile (the forward's logit terms, ~12 elementwise
-    operations, then ds = g_o.v + g_opt.vp + g_pair.pz and dl, 2 per
-    multiply-add) and adds its own sums; each reads the 15 backward inputs
-    once and writes its outputs once, float32."""
+    """{kernel: (operations, bytes, elementwise operations)} of the three
+    backward kernels: each recomputes the tile (the forward's logit terms,
+    ~12 elementwise operations, then ds = g_o.v + g_opt.vp + g_pair.pz and
+    dl, 2 per multiply-add, and 2 elementwise) and adds its own sums and
+    elementwise steps; each reads the 15 backward inputs once and writes its
+    outputs once, float32."""
     P3q, P3v = 3 * Pq, 3 * Pv
     recompute = (2 * C + 2 * P3q + 12) + (2 * C + 2 * P3v + 2 * Dz) + 2
     per_elem = {
@@ -152,8 +195,10 @@ def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz):
         + F * N * H * P3v,
         "ipa_attention_bwd_pair": N * N * H + N * N * Dz,
     }
-    return {k: (F * H * N * N * per_elem[k], 4 * (n_in + n_out[k]))
-            for k in per_elem}
+    ew = {"ipa_attention_bwd_dq": 14 + 4, "ipa_attention_bwd_dkv": 14 + 1,
+          "ipa_attention_bwd_pair": 14 + 1}
+    return {k: (F * H * N * N * per_elem[k], 4 * (n_in + n_out[k]),
+                F * H * N * N * ew[k]) for k in per_elem}
 
 
 BWD_GRADS = ("dq", "dk", "dv", "dqp", "dkp", "dvp", "dbias", "dpz", "dhw")
@@ -327,8 +372,7 @@ def kernel_phase(torch, device, card: str) -> dict:
                          50)
             plain_ms = time_ms(
                 torch, lambda: ipa_mod.ipa_attention_plain(*args, c_qk), 20)
-            ops, nbytes = ipa_cost(F, N, H, C, Pq, Pv, Dz)
-            t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            ops, nbytes, ew_ops = ipa_cost(F, N, H, C, Pq, Pv, Dz)
             streams = [errs[n] for n in ("o", "o_pt", "o_pair")]
             report = {
                 "name": "ipa_attention_fwd",
@@ -342,14 +386,14 @@ def kernel_phase(torch, device, card: str) -> dict:
                 "max_abs_err_lse": errs["lse"]["max"],
                 "ms": ms,
                 "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                **bounds(ops, ew_ops, nbytes),
                 "library_ms": None,  # no single PyTorch call has the pair stream
             }
             print(f"kernel ipa_attention_fwd release: {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms "
                   f"({report['bound_by']}: {ops / 1e9:.3f} GFLOP, "
-                  f"{nbytes / 1e6:.2f} MB), warm L2 [{card}]")
+                  f"{nbytes / 1e6:.2f} MB), tensor-core bound "
+                  f"{report['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
     return report
 
 
@@ -433,20 +477,18 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
                                                "ipa_bwd") + "_plain")
         ms = time_ms(torch, lambda: kernel(*inputs, **kw), 50)
         plain_ms = time_ms(torch, lambda: plain(*inputs, **kw), 20)
-        ops, nbytes = costs[kname]
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ops, nbytes, ew_ops = costs[kname]
         rep = {
             "name": kname, "route": "cuda",
             "source": "dynamicpdb_tpu_torch/csrc/ipa_attention_bwd.cu",
             "replaces": replaces, "launches": None, **reports[kname],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ms": ms, "plain_ms": plain_ms, **bounds(ops, ew_ops, nbytes),
             "library_ms": None,  # no single PyTorch call computes it
         }
         print(f"kernel {kname} release: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
-              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), warm L2 "
-              f"[{card}]")
+              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), tensor-core "
+              f"bound {rep['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
         out.append(rep)
     return out
 
@@ -470,14 +512,18 @@ GEOM_BF16_RTOL = 2.0 ** -7
 
 
 def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
-                pad: int = 0):
+                pad: int = 0, *, B: int | None = None, masked_prefix: int = 0,
+                wdtype=None):
     """Seeded inputs of kernel ``kind`` at its release widths and length L:
-    x ~ N(0, 1) (a normalised activation), weights ~ N(0, 1/d), biases ~
-    N(0, 0.1^2), the attention bias ~ N(0, 1) with the last ``pad`` keys at
-    -1e9 (pad_safe padding); node_attention's key mask drops ~12% of the
-    keys of every row but the first (the pseudo-MSA's mask rate)."""
+    x ~ N(0, 1) (a normalised activation) in ``dtype``, weights ~ N(0, 1/d)
+    and biases ~ N(0, 0.1^2) in ``wdtype`` (default: ``dtype``), the
+    attention bias ~ N(0, 1) with the last ``pad`` keys at -1e9 (pad_safe
+    padding); node_attention's key mask drops ~12% of the keys of every row
+    but the first (the pseudo-MSA's mask rate), and row 1 also its first
+    ``masked_prefix`` keys. ``B`` overrides the release batch (B = L for
+    geom_attention)."""
     shp = GEOM_SHAPES[kind]
-    B = shp["B"] or L
+    B = B or shp["B"] or L
     R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -496,8 +542,9 @@ def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
     if kind == "node_attention":
         kmask = (torch.rand((B, L), generator=g, device=device) > 0.12).float()
         kmask[0] = 1.0
+        kmask[1, :masked_prefix] = 0.0
         x, bias = x[:, 0], bias[0]
-    w = {k: v.to(dtype) for k, v in w.items()}
+    w = {k: v.to(wdtype or dtype) for k, v in w.items()}
     return dict(x=x, bias=bias, kmask=kmask, **w)
 
 
@@ -524,26 +571,47 @@ def geom_error(got, want) -> tuple[float, float]:
 
 
 def geom_cost(kind: str, L: int, bytes_per_elem: int = 4):
-    """(operations, bytes) of one launch: the q|gate and k|v projections and
-    the two L x L x c contractions (2 per multiply-add), ~4 elementwise
-    operations per logit and ~4 per output; x read once, the bias, key
-    mask and weights once, the output written once."""
+    """(operations, bytes, elementwise operations) of one launch: the q|gate
+    and k|v projections and the two L x L x c contractions (2 per
+    multiply-add), ~4 elementwise operations per logit and ~4 per output; x
+    read once, the bias, key mask and weights once, the output written
+    once."""
     shp = GEOM_SHAPES[kind]
     B = shp["B"] or L
     R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
     G = R * H
-    ops = B * G * (2 * L * d * 4 * c + 4 * L * L * c + 4 * L * L + 4 * L * c)
+    ew_ops = B * G * (4 * L * L + 4 * L * c)
+    ops = B * G * (2 * L * d * 4 * c + 4 * L * L * c) + ew_ops
     nbytes = (bytes_per_elem * (B * R * L * d + B * G * L * c)
               + 4 * (G * L * L + 2 * G * d * 2 * c + 2 * G * 2 * c))
     if kind == "node_attention":
         nbytes += 4 * B * L
-    return ops, nbytes
+    return ops, nbytes, ew_ops
 
 
 GEOM_REPLACES = {
     "geom_attention": "dynamicpdb_tpu/ops/pallas/geom_attention.py:50",
     "node_attention": "dynamicpdb_tpu/ops/pallas/geom_attention.py:76",
 }
+
+
+def geom_kernel_ms(torch, mod, kind: str, inp: dict, reps: int) -> float:
+    """The time of kernel ``kind`` alone: its operands prepared once by the
+    wrapper's kernel_inputs, then ``reps`` launches (no counter moves). The
+    wrapper's own per-call work (checks, views, casts of bf16 weights) runs
+    on the host and is timed apart, through the public function."""
+    x, bias = inp["x"], inp["bias"]
+    if kind == "node_attention":
+        x, bias = x[:, None], bias[None]
+    B, R, L, d = x.shape
+    H = inp["qg_w"].shape[2]
+    ops = mod.kernel_inputs(kind, x, inp["qg_w"], inp["qg_b"], inp["kv_w"],
+                            inp["kv_b"], bias, inp["kmask"], GEOM_C)
+    out = torch.empty((B, R * H, L, GEOM_C), dtype=x.dtype, device=x.device)
+    lib, stream = mod._lib(), torch.cuda.current_stream().cuda_stream
+    return time_ms(torch, lambda: mod.launch(
+        lib, kind, ops, out, B, R, H, L, d, GEOM_C, GEOM_C ** -0.5,
+        x.device.index, stream), reps)
 
 
 def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
@@ -567,21 +635,34 @@ def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
     return time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 20)
 
 
+# the checks of phase 2b: (label, L, pad, batch rows, masked prefix). The
+# long ragged L spans three query chunks of 256 rows and five key chunks of
+# 128 (past what stays resident), each with a ragged last one; its batch is
+# cut for geom_attention so that the plain version's [B, 8, L, L] logits
+# stay small. Row 1 of node_attention's mask drops its first 64 keys: the
+# first two 32-key steps of that row are all masked.
+GEOM_CASES = (("release", 256, 0, None, 0), ("ragged", 203, 11, None, 0),
+              ("long", 611, 13, 32, 64))
+
+
 def geom_kernel_phase(torch, device, card: str) -> list[dict]:
     """Both GeoFormer attention kernels against their plain versions on the
-    card at the release shapes and at a ragged L = 203, in float32 and
-    bfloat16; then each kernel's time at the release shapes (float32, the
-    extraction's default) against its plain version, the SDPA core and its
-    bound."""
+    card at the release shapes, at a ragged L = 203 and at a long ragged L
+    = 611, in float32 and bfloat16; then each kernel's time at the release
+    shapes (float32, the extraction's default, and bfloat16; alone and
+    through its wrapper) against its plain version, the SDPA core and its
+    bounds."""
     from dynamicpdb_tpu_torch.ops import geom_attention as mod
 
     reports = {}
     for kind in GEOM_SHAPES:
         worst = 0.0
-        for label, L, pad in (("release", 256, 0), ("ragged", 203, 11)):
+        for label, L, pad, B, prefix in GEOM_CASES:
             for dtype in (torch.float32, torch.bfloat16):
                 inp = geom_inputs(torch, device, kind, L, dtype,
-                                  seed=L + (dtype == torch.bfloat16), pad=pad)
+                                  seed=L + (dtype == torch.bfloat16), pad=pad,
+                                  B=B if kind == "geom_attention" else None,
+                                  masked_prefix=prefix)
                 got = geom_call(mod, kind, inp, plain=False)
                 torch.cuda.synchronize()
                 want = geom_call(mod, kind, inp, plain=True)
@@ -598,29 +679,37 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
                       f"{err} out of tolerance")
                 if dtype == torch.float32:
                     worst = max(worst, err)
+                del inp, got, want
         inp = geom_inputs(torch, device, kind, 256, torch.float32, seed=7)
-        ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=False), 20)
+        ms = geom_kernel_ms(torch, mod, kind, inp, 20)
+        wrapper_ms = time_ms(
+            torch, lambda: geom_call(mod, kind, inp, plain=False), 20)
         plain_ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=True), 5)
         sdpa_ms = sdpa_core_ms(torch, mod, kind, inp)
-        ops, nbytes = geom_cost(kind, 256)
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        inp16 = geom_inputs(torch, device, kind, 256, torch.bfloat16, seed=7)
+        ms16 = geom_kernel_ms(torch, mod, kind, inp16, 20)
+        ops, nbytes, ew_ops = geom_cost(kind, 256)
         reports[kind] = {
             "name": kind, "route": "cuda",
             "source": "dynamicpdb_tpu_torch/csrc/geom_attention.cu",
             "replaces": GEOM_REPLACES[kind], "launches": None,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bounds(ops, ew_ops, nbytes),
             # torch's SDPA on the same q, k, v and bias: the attention core
             # only, without the projections and the gate the kernel fuses
             "library_ms": sdpa_ms,
             "library": "scaled_dot_product_attention (attention core only)",
+            "ms_wrapper": wrapper_ms,  # the public function, host work too
+            "ms_bfloat16": ms16,  # bf16 x and weights: one projection pass
         }
-        print(f"kernel {kind} release float32: {ms:.4f} ms, plain "
+        rep = reports[kind]
+        print(f"kernel {kind} release float32: {ms:.4f} ms alone, "
+              f"{wrapper_ms:.4f} ms through the wrapper, plain "
               f"{plain_ms:.4f} ms, SDPA core only {sdpa_ms:.4f} ms, bound "
-              f"{reports[kind]['bound_ms']:.4f} ms ({reports[kind]['bound_by']}"
-              f": {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), warm L2 "
-              f"[{card}]")
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
+              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), tensor-core "
+              f"bound {rep['tc_bound_ms']:.4f} ms ({rep['tc_bound_by']}); "
+              f"bfloat16 {ms16:.4f} ms; warm L2 [{card}]")
     return list(reports.values())
 
 
@@ -1155,6 +1244,12 @@ def main() -> int:
     for gname, shp in GEOM_SHAPES.items():
         print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
               f" bytes of dynamic shared memory per block at d={shp['d']}")
+    mma = sass_mma_counts(_build.nvcc(), built["geom_attention"].path)
+    for fn, n in sorted(mma.items()):
+        print(f"build: geom_attention.cu SASS: {n} tensor-core instructions "
+              f"in {fn}")
+    check(len(mma) == 6 and all(mma.values()), "geom_attention.cu: a "
+          f"kernel without tensor-core instructions: {mma}")
     print(f"build: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 2

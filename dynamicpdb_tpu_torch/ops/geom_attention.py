@@ -12,20 +12,31 @@ Two wrappers, each the counterpart of a JAX entry point of
       gated attention with a per-row key mask.
 
 Each computes, per (axis, head, row), q|gate = x Wqg + b, k|v = x Wkv + b,
-softmax(scale q k^T + bias [+ (kmask - 1) 1e9]) v * sigmoid(gate), in
-float32, returning the input's dtype (float32 or bfloat16). For a CUDA
-tensor each launches its hand-written kernel (``csrc/geom_attention.cu``,
+softmax(scale q k^T + bias [+ (kmask - 1) 1e9]) v * sigmoid(gate), to
+float32 accuracy, returning the input's dtype (float32 or bfloat16). For a
+CUDA tensor each launches its hand-written kernel (``csrc/geom_attention.cu``,
 built by ``nvcc``, loaded with ``ctypes``); for a CPU tensor it runs its
 plain version. Nothing falls back from one to the other: a CUDA call that
 the kernel cannot take raises. The kernels tile the keys, so unlike the
 TPU kernels they take every length L (no ``MAX_FLASH_RES``).
 
-Bounds on an H100 (float32 outside the tensor cores, 67 TFLOP/s): the
-geometric attention does ~35 GFLOP per launch at the release shapes against
-~137 MB, the node attention ~3.3 GFLOP against ~12 MB; arithmetic bounds
-both (chip_smoke.geom_cost). The kernels keep the projections and the logits on chip, so traffic
-stays near the compulsory bytes; they run on the CUDA cores in float32,
-the tensor cores are left for a later version.
+The kernels run all four products (the q|gate and k|v projections, q k^T
+and p v) on the TF32 tensor cores (``mma.sync`` m16n8k8) in a
+flash-attention layout: 32 query rows per warp (two 16-row mma tiles), 256
+per block, scores and output in accumulator fragments, k|v of 128 keys at
+a time resident in shared memory (projected once per head and batch row at
+L <= 256), x, weight and bias tiles brought in by double-buffered
+``cp.async``. One TF32 pass misses the float32 tolerance, so each float32
+operand is split into a TF32 high and low part and a product takes three
+passes (3xTF32); bfloat16 x needs two passes for the projections, bfloat16
+x with bfloat16 weights (the ``--dtype bfloat16`` path) one.
+
+Bounds on an H100 (chip_smoke.geom_cost): the geometric attention does
+34.4 GFLOP of products per launch at the release shapes against ~137 MB,
+the node attention 3.2 GFLOP against ~12 MB; arithmetic bounds both. On
+the CUDA cores (67 TFLOP/s float32) that is 0.52 and 0.049 ms; on the
+tensor cores, three TF32 passes at 495 TFLOP/s plus the elementwise work,
+~0.22 and ~0.020 ms (``tc_bound_ms`` in chip_smoke's reports).
 
 ``geom_launches`` and ``node_launches`` count the kernel launches of this
 process; a run that must show the kernels were on its path sets them to 0
@@ -90,9 +101,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("geom_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.geom_attention.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
+    lib.geom_attention.argtypes = [p] * 7 + [i] * 6 + [f, i, i, i, p]
     lib.geom_attention.restype = i
-    lib.node_attention.argtypes = [p] * 8 + [i] * 5 + [f, i, i, p]
+    lib.node_attention.argtypes = [p] * 8 + [i] * 5 + [f, i, i, i, p]
     lib.node_attention.restype = i
     lib.geom_attention_smem.argtypes = [i]
     lib.geom_attention_smem.restype = ctypes.c_longlong
@@ -103,10 +114,12 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
     """The kernel's operands from the wrapper's: x contiguous in its own
-    dtype (float32 or bfloat16); the weights as [R*H, d, 2c] and biases
+    dtype (float32 or bfloat16); the weights as [d, R*H, 2c] and biases
     [R*H, 2c] (g = axis * H + head, the TPU kernel's flattening), the bias
-    [R*H, L, L] and kmask, all float32 and contiguous. Raises on what the
-    kernel cannot take. x is [B, R, L, d]."""
+    [R*H, L, L] and kmask, all float32 and contiguous; ``w_bf16`` whether
+    both weights are bfloat16 (so their float32 copies are bf16 values and
+    one projection pass is exact). Raises on what the kernel cannot take.
+    x is [B, R, L, d]."""
     B, R, L, d = x.shape
     H = qg_w.shape[2]
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -114,8 +127,8 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
                         "bfloat16")
     if c != KERNEL_C:
         raise ValueError(f"{fn}: c={c}, the kernel is built for c={KERNEL_C}")
-    if d % 4:
-        raise ValueError(f"{fn}: d={d} is not a multiple of 4")
+    if d % 8:
+        raise ValueError(f"{fn}: d={d} is not a multiple of 8")
     expected = {"qg_w": (d, R, H, 2 * c), "kv_w": (d, R, H, 2 * c),
                 "qg_b": (R, H, 1, 2 * c), "kv_b": (R, H, 1, 2 * c),
                 "bias": (R, H, L, L)}
@@ -132,9 +145,9 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
     G = R * H
     ops = dict(
         x=x.contiguous(),
-        wqg=qg_w.to(f32).permute(1, 2, 0, 3).reshape(G, d, 2 * c).contiguous(),
+        wqg=qg_w.to(f32).reshape(d, G, 2 * c).contiguous(),
         bqg=qg_b.to(f32).reshape(G, 2 * c).contiguous(),
-        wkv=kv_w.to(f32).permute(1, 2, 0, 3).reshape(G, d, 2 * c).contiguous(),
+        wkv=kv_w.to(f32).reshape(d, G, 2 * c).contiguous(),
         bkv=kv_b.to(f32).reshape(G, 2 * c).contiguous(),
         bias=bias.to(f32).reshape(G, L, L).contiguous(),
     )
@@ -143,6 +156,8 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
     for name, t in ops.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+    ops["w_bf16"] = (qg_w.dtype == torch.bfloat16
+                     and kv_w.dtype == torch.bfloat16)
     return ops
 
 
@@ -155,13 +170,14 @@ def launch(lib, fn: str, ops: dict, out, B, R, H, L, d, c, scale, device,
     ptrs = [ops[n].data_ptr() for n in names] + [out.data_ptr()]
     dims = (B, R, H, L, d, c) if fn == "geom_attention" else (B, H, L, d, c)
     rc = getattr(lib, fn)(*ptrs, *dims, float(scale),
-                          int(ops["x"].dtype == torch.bfloat16), device,
-                          stream)
+                          int(ops["x"].dtype == torch.bfloat16),
+                          int(ops["w_bf16"]), device, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.geom_attention_error_string(rc).decode()} "
-                           f"(code {rc}; d={d}, {lib.geom_attention_smem(d)} "
-                           "bytes of shared memory)")
+                           f"(code {rc}; B={B}, R={R}, H={H}, L={L}, d={d}, "
+                           f"{lib.geom_attention_smem(d)} bytes of shared "
+                           "memory)")
 
 
 def _cuda_call(fn: str, x4, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale):

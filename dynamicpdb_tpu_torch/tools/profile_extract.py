@@ -39,8 +39,8 @@ from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
 
 # device kernels by what launches them (first match wins)
 GROUPS = (
-    ("geometric attention kernel", ("geom_attn_kernel<float, false>",
-                                    "geom_attn_kernel<__nv_bfloat16, false>")),
+    ("geometric attention kernel", ("geom_attn_kernel<float, false",
+                                    "geom_attn_kernel<__nv_bfloat16, false")),
     ("attention-with-edge-bias kernel", ("geom_attn_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "sm90", "bmm")),
     ("reduction / norm / softmax", ("reduce", "norm", "softmax")),

@@ -115,3 +115,88 @@ def test_mixed_devices_raise():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         mod.fused_gated_geom_attention_t(*args, c=C, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# why the CUDA kernels split float32 operands for the tensor cores
+# ---------------------------------------------------------------------------
+def _tf32(t):
+    """t rounded to TF32 (10 mantissa bits): round to nearest, ties away
+    from zero, on the 13 low bits, as cvt.rna.tf32.f32 does."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_one_pass(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_3xtf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _cut(t):
+    """t cut to TF32: the 13 low mantissa bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32_cut(a, b):
+    """The kernels' split: hi = a cut to TF32, lo = a - hi (exact), which
+    the tensor cores read cut to TF32 in turn."""
+    a_hi, b_hi = _cut(a), _cut(b)
+    a_lo, b_lo = _cut(a - a_hi), _cut(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _gated_attention_mm(x, qg_w, qg_b, kv_w, kv_b, bias, c, scale, mm):
+    """The kernels' arithmetic with every product through ``mm``: x
+    [B, R, L, d]; weights [d, R, H, 2c]; biases [R, H, 1, 2c]; bias
+    [R, H, L, L]. The probabilities enter p.v unnormalised, as in the
+    kernels' online softmax. Returns [B, R, H, L, c]."""
+    w_qg = qg_w.permute(1, 2, 0, 3)[None]  # [1, R, H, d, 2c]
+    w_kv = kv_w.permute(1, 2, 0, 3)[None]
+    xx = x[:, :, None]  # [B, R, 1, L, d]
+    qg, kv = mm(xx, w_qg) + qg_b, mm(xx, w_kv) + kv_b
+    q, gate, k, v = qg[..., :c] * scale, qg[..., c:], kv[..., :c], kv[..., c:]
+    s = mm(q, k.transpose(-1, -2)) + bias
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True) * torch.sigmoid(gate)
+
+
+@pytest.mark.parametrize("kind", ["geom", "node"])
+def test_tensor_core_precision_needs_3xtf32(kind):
+    """At the release widths (d = 128 with 2 axes x 4 heads, d = 256 with 8
+    heads; L = 256, c = 32; x ~ N(0, 1), two batch rows), every product
+    done in one TF32 pass misses the kernels' float32 tolerance (1e-4,
+    chip_smoke.GEOM_ATOL), while the 3xTF32 split (hi.hi + hi.lo + lo.hi)
+    stays within 1e-5 of the float32 plain version, with hi rounded to
+    nearest and with hi cut (the kernels' split, csrc/geom_attention.cu)."""
+    R, H, d = (2, 4, 128) if kind == "geom" else (1, 8, 256)
+    L, c = 256, 32
+    rng = np.random.default_rng(5)
+
+    def f32(*s, scale=1.0):
+        return torch.tensor((rng.normal(size=s) * scale).astype(np.float32))
+
+    x = f32(2, R, L, d)
+    w = dict(qg_w=f32(d, R, H, 2 * c, scale=d ** -0.5),
+             qg_b=f32(R, H, 1, 2 * c, scale=0.1),
+             kv_w=f32(d, R, H, 2 * c, scale=d ** -0.5),
+             kv_b=f32(R, H, 1, 2 * c, scale=0.1))
+    bias = f32(R, H, L, L)
+    scale = c ** -0.5
+    if kind == "geom":
+        want = mod.geom_attention_plain(x, *w.values(), bias, c=c,
+                                        scale=scale)
+    else:
+        want = mod.node_attention_plain(x[:, 0], *w.values(), bias[0],
+                                        torch.ones(2, L), c=c,
+                                        scale=scale)[:, None]
+    errs = {name: float((_gated_attention_mm(x, *w.values(), bias, c, scale,
+                                              mm) - want).abs().max())
+            for name, mm in (("one", _mm_one_pass), ("three", _mm_3xtf32),
+                             ("three_cut", _mm_3xtf32_cut))}
+    assert errs["three"] <= 1e-5 and errs["three_cut"] <= 1e-5, errs
+    assert errs["one"] > 1e-4, errs

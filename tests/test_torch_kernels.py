@@ -184,16 +184,31 @@ GEOM_COUNTERS = {"geom_attention": "geom_launches",
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L,pad", [(256, 0), (203, 11), (37, 5), (300, 0)],
-                         ids=["release", "ragged", "tiny", "two-query-chunks"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16",
+                                   "bfloat16-x-float32-weights"])
+@pytest.mark.parametrize(
+    "L,pad,B,prefix",
+    [(256, 0, None, 0), (203, 11, None, 0), (37, 5, None, 0),
+     (300, 0, None, 0), (5, 0, None, 0), (16, 0, None, 0),
+     (611, 13, 32, 64), (203, 0, None, 64)],
+    ids=["release", "ragged", "tiny", "two-query-chunks", "L5", "L16",
+         "long-ragged", "first-key-steps-masked"])
 @pytest.mark.parametrize("kind", list(GEOM_COUNTERS))
-def test_geom_kernels_match_plain(cuda, kind, L, pad, dtype):
+def test_geom_kernels_match_plain(cuda, kind, L, pad, B, prefix, dtype):
     """Each kernel against its plain version at its release widths, one
     launch each (tolerances and their reasons: chip_smoke.GEOM_ATOL,
-    GEOM_BF16_RTOL)."""
-    dtype = getattr(torch, dtype)
-    inp = chip_smoke.geom_inputs(torch, cuda, kind, L, dtype, seed=11, pad=pad)
+    GEOM_BF16_RTOL). L = 5 and 16 sit below one 16-row mma tile and one
+    32-key step; L = 611 spans three query chunks and five key chunks, with
+    ragged last ones (its geom_attention batch cut to 32 rows to keep the
+    plain version's logits small); ``prefix`` masks the first 64 keys of
+    node_attention's row 1, its first two 32-key steps. bfloat16 x runs one
+    projection pass with bfloat16 weights and two with float32 weights."""
+    wdtype = torch.float32 if dtype.endswith("float32-weights") else None
+    dtype = getattr(torch, dtype.split("-")[0])
+    inp = chip_smoke.geom_inputs(
+        torch, cuda, kind, L, dtype, seed=11, pad=pad,
+        B=B if kind == "geom_attention" else None, masked_prefix=prefix,
+        wdtype=wdtype)
     before = getattr(geom_mod, GEOM_COUNTERS[kind])
     got = chip_smoke.geom_call(geom_mod, kind, inp, plain=False)
     torch.cuda.synchronize()
@@ -219,3 +234,7 @@ def test_geom_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="bias has shape"):
         geom_mod.fused_gated_geom_attention_t(*args[:5], args[5][:, :, :8],
                                               c=32, scale=1.0)
+    with pytest.raises(ValueError, match="not a multiple of 8"):
+        geom_mod.fused_gated_geom_attention_t(
+            args[0][..., :124], args[1][:124], args[2], args[3][:124],
+            *args[4:], c=32, scale=1.0)
