@@ -636,11 +636,12 @@ def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
 
 
 # the checks of phase 2b: (label, L, pad, batch rows, masked prefix). The
-# long ragged L spans three query chunks of 256 rows and five key chunks of
-# 128 (past what stays resident), each with a ragged last one; its batch is
-# cut for geom_attention so that the plain version's [B, 8, L, L] logits
-# stay small. Row 1 of node_attention's mask drops its first 64 keys: the
-# first two 32-key steps of that row are all masked.
+# long ragged L spans several query chunks (geom_attention: three of 256
+# rows; node_attention: five of 128, padded to three clusters of two) and
+# key chunks (five of 128; ten of 64), past what stays resident, each with a
+# ragged last one; its batch is cut for geom_attention so that the plain
+# version's [B, 8, L, L] logits stay small. Row 1 of node_attention's mask
+# drops its first 64 keys: its whole first key chunk, two 32-key steps.
 GEOM_CASES = (("release", 256, 0, None, 0), ("ragged", 203, 11, None, 0),
               ("long", 611, 13, 32, 64))
 
@@ -649,9 +650,9 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
     """Both GeoFormer attention kernels against their plain versions on the
     card at the release shapes, at a ragged L = 203 and at a long ragged L
     = 611, in float32 and bfloat16; then each kernel's time at the release
-    shapes (float32, the extraction's default, and bfloat16; alone and
-    through its wrapper) against its plain version, the SDPA core and its
-    bounds."""
+    shapes (float32, the extraction's default, and bfloat16; through its
+    wrapper, ``ms`` as in every kernel report, and alone, ``ms_kernel``)
+    against its plain version, the SDPA core and its bounds."""
     from dynamicpdb_tpu_torch.ops import geom_attention as mod
 
     reports = {}
@@ -681,13 +682,14 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
                     worst = max(worst, err)
                 del inp, got, want
         inp = geom_inputs(torch, device, kind, 256, torch.float32, seed=7)
-        ms = geom_kernel_ms(torch, mod, kind, inp, 20)
-        wrapper_ms = time_ms(
-            torch, lambda: geom_call(mod, kind, inp, plain=False), 20)
+        kernel_ms = geom_kernel_ms(torch, mod, kind, inp, 20)
+        ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=False), 20)
         plain_ms = time_ms(torch, lambda: geom_call(mod, kind, inp, plain=True), 5)
         sdpa_ms = sdpa_core_ms(torch, mod, kind, inp)
         inp16 = geom_inputs(torch, device, kind, 256, torch.bfloat16, seed=7)
-        ms16 = geom_kernel_ms(torch, mod, kind, inp16, 20)
+        kernel_ms16 = geom_kernel_ms(torch, mod, kind, inp16, 20)
+        ms16 = time_ms(torch, lambda: geom_call(mod, kind, inp16, plain=False),
+                       20)
         ops, nbytes, ew_ops = geom_cost(kind, 256)
         reports[kind] = {
             "name": kind, "route": "cuda",
@@ -699,17 +701,19 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
             # only, without the projections and the gate the kernel fuses
             "library_ms": sdpa_ms,
             "library": "scaled_dot_product_attention (attention core only)",
-            "ms_wrapper": wrapper_ms,  # the public function, host work too
+            "ms_kernel": kernel_ms,  # the kernel alone, no host work
             "ms_bfloat16": ms16,  # bf16 x and weights: one projection pass
+            "ms_kernel_bfloat16": kernel_ms16,
         }
         rep = reports[kind]
-        print(f"kernel {kind} release float32: {ms:.4f} ms alone, "
-              f"{wrapper_ms:.4f} ms through the wrapper, plain "
+        print(f"kernel {kind} release float32: {ms:.4f} ms through the "
+              f"wrapper, {kernel_ms:.4f} ms alone, plain "
               f"{plain_ms:.4f} ms, SDPA core only {sdpa_ms:.4f} ms, bound "
               f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
               f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), tensor-core "
               f"bound {rep['tc_bound_ms']:.4f} ms ({rep['tc_bound_by']}); "
-              f"bfloat16 {ms16:.4f} ms; warm L2 [{card}]")
+              f"bfloat16 {ms16:.4f} ms ({kernel_ms16:.4f} alone); warm L2 "
+              f"[{card}]")
     return list(reports.values())
 
 
@@ -1241,9 +1245,10 @@ def main() -> int:
     for which, kname in enumerate(BWD_KERNELS):
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
               " bytes of dynamic shared memory per block at the release shapes")
-    for gname, shp in GEOM_SHAPES.items():
-        print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
-              f" bytes of dynamic shared memory per block at d={shp['d']}")
+    for gname in GEOM_SHAPES:
+        smem = geom_mod._lib().geom_attention_smem(gname == "node_attention")
+        print(f"build: {gname}: {smem} bytes of dynamic shared memory per "
+              "block")
     mma = sass_mma_counts(_build.nvcc(), built["geom_attention"].path)
     for fn, n in sorted(mma.items()):
         print(f"build: geom_attention.cu SASS: {n} tensor-core instructions "

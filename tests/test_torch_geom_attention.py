@@ -9,6 +9,8 @@ both compute in float32 from the same bf16 values and round the output to
 bf16, which may then differ by one bf16 step: 2^-7 of the value on top.
 The CUDA kernels are held against the plain versions in
 test_torch_kernels.py."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from dynamicpdb_tpu.ops.pallas.geom_attention import (
     fused_gated_node_attention as jax_node,
 )
 from dynamicpdb_tpu_torch.ops import geom_attention as mod
+from dynamicpdb_tpu_torch.tools import bench_geom
 
 torch.set_num_threads(1)
 
@@ -120,59 +123,19 @@ def test_mixed_devices_raise():
 # ---------------------------------------------------------------------------
 # why the CUDA kernels split float32 operands for the tensor cores
 # ---------------------------------------------------------------------------
-def _tf32(t):
-    """t rounded to TF32 (10 mantissa bits): round to nearest, ties away
-    from zero, on the 13 low bits, as cvt.rna.tf32.f32 does."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_one_pass(a, b):
-    return _tf32(a) @ _tf32(b)
-
-
-def _mm_3xtf32(a, b):
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-
-
-def _cut(t):
-    """t cut to TF32: the 13 low mantissa bits cleared."""
-    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_3xtf32_cut(a, b):
-    """The kernels' split: hi = a cut to TF32, lo = a - hi (exact), which
-    the tensor cores read cut to TF32 in turn."""
-    a_hi, b_hi = _cut(a), _cut(b)
-    a_lo, b_lo = _cut(a - a_hi), _cut(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-
-
-def _gated_attention_mm(x, qg_w, qg_b, kv_w, kv_b, bias, c, scale, mm):
-    """The kernels' arithmetic with every product through ``mm``: x
-    [B, R, L, d]; weights [d, R, H, 2c]; biases [R, H, 1, 2c]; bias
-    [R, H, L, L]. The probabilities enter p.v unnormalised, as in the
-    kernels' online softmax. Returns [B, R, H, L, c]."""
-    w_qg = qg_w.permute(1, 2, 0, 3)[None]  # [1, R, H, d, 2c]
-    w_kv = kv_w.permute(1, 2, 0, 3)[None]
-    xx = x[:, :, None]  # [B, R, 1, L, d]
-    qg, kv = mm(xx, w_qg) + qg_b, mm(xx, w_kv) + kv_b
-    q, gate, k, v = qg[..., :c] * scale, qg[..., c:], kv[..., :c], kv[..., c:]
-    s = mm(q, k.transpose(-1, -2)) + bias
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    return mm(p, v) / p.sum(-1, keepdim=True) * torch.sigmoid(gate)
-
-
 @pytest.mark.parametrize("kind", ["geom", "node"])
 def test_tensor_core_precision_needs_3xtf32(kind):
     """At the release widths (d = 128 with 2 axes x 4 heads, d = 256 with 8
     heads; L = 256, c = 32; x ~ N(0, 1), two batch rows), every product
     done in one TF32 pass misses the kernels' float32 tolerance (1e-4,
     chip_smoke.GEOM_ATOL), while the 3xTF32 split (hi.hi + hi.lo + lo.hi)
-    stays within 1e-5 of the float32 plain version, with hi rounded to
-    nearest and with hi cut (the kernels' split, csrc/geom_attention.cu)."""
+    with float32 sums rounded to nearest stays within 1e-5 of the float32
+    plain version, with hi rounded to nearest and with hi cut (the kernels'
+    split, csrc/geom_attention.cu). The kernels' split under a model of the
+    tensor cores' accumulators, each 8-deep step's sum rounded toward zero,
+    lands further off but inside the tolerance; that model, not the
+    nearest-rounded one, is what the kernels read on the card
+    (tools/bench_geom.py --precision)."""
     R, H, d = (2, 4, 128) if kind == "geom" else (1, 8, 256)
     L, c = 256, 32
     rng = np.random.default_rng(5)
@@ -194,9 +157,24 @@ def test_tensor_core_precision_needs_3xtf32(kind):
         want = mod.node_attention_plain(x[:, 0], *w.values(), bias[0],
                                         torch.ones(2, L), c=c,
                                         scale=scale)[:, None]
-    errs = {name: float((_gated_attention_mm(x, *w.values(), bias, c, scale,
-                                              mm) - want).abs().max())
-            for name, mm in (("one", _mm_one_pass), ("three", _mm_3xtf32),
-                             ("three_cut", _mm_3xtf32_cut))}
+    mms = {"one": bench_geom.mm_one_pass,
+           "three": functools.partial(bench_geom.mm_3xtf32, cut=False),
+           "three_cut": bench_geom.mm_3xtf32,
+           "three_cut_toward_zero": functools.partial(
+               bench_geom.mm_3xtf32, accumulate="toward_zero")}
+    errs = {name: float((bench_geom.gated_attention_mm(
+                x, *w.values(), bias, c, scale, mm) - want).abs().max())
+            for name, mm in mms.items()}
     assert errs["three"] <= 1e-5 and errs["three_cut"] <= 1e-5, errs
     assert errs["one"] > 1e-4, errs
+    assert (errs["three_cut"] < errs["three_cut_toward_zero"] <= 1e-4), errs
+
+
+def test_round_toward_zero():
+    """The accumulator model's rounding: float64 to the float32 neighbour
+    nearer zero, exact values kept."""
+    x = torch.tensor([1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30), 1.0 - 2.0 ** -30,
+                      0.5, -3.0, 0.0], dtype=torch.float64)
+    got = bench_geom.round_toward_zero(x)
+    want = torch.tensor([1.0, -1.0, 1.0 - 2.0 ** -24, 0.5, -3.0, 0.0])
+    assert got.dtype == torch.float32 and torch.equal(got, want)
