@@ -636,12 +636,11 @@ def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
 
 
 # the checks of phase 2b: (label, L, pad, batch rows, masked prefix). The
-# long ragged L spans several query chunks (geom_attention: three of 256
-# rows; node_attention: five of 128, padded to three clusters of two) and
-# key chunks (five of 128; ten of 64), past what stays resident, each with a
-# ragged last one; its batch is cut for geom_attention so that the plain
-# version's [B, 8, L, L] logits stay small. Row 1 of node_attention's mask
-# drops its first 64 keys: its whole first key chunk, two 32-key steps.
+# long ragged L spans three query chunks of 256 rows and five key chunks of
+# 128 (past what stays resident), each with a ragged last one; its batch is
+# cut for geom_attention so that the plain version's [B, 8, L, L] logits
+# stay small. Row 1 of node_attention's mask drops its first 64 keys: the
+# first two 32-key steps of that row are all masked.
 GEOM_CASES = (("release", 256, 0, None, 0), ("ragged", 203, 11, None, 0),
               ("long", 611, 13, 32, 64))
 
@@ -1245,10 +1244,9 @@ def main() -> int:
     for which, kname in enumerate(BWD_KERNELS):
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
               " bytes of dynamic shared memory per block at the release shapes")
-    for gname in GEOM_SHAPES:
-        smem = geom_mod._lib().geom_attention_smem(gname == "node_attention")
-        print(f"build: {gname}: {smem} bytes of dynamic shared memory per "
-              "block")
+    for gname, shp in GEOM_SHAPES.items():
+        print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
+              f" bytes of dynamic shared memory per block at d={shp['d']}")
     mma = sass_mma_counts(_build.nvcc(), built["geom_attention"].path)
     for fn, n in sorted(mma.items()):
         print(f"build: geom_attention.cu SASS: {n} tensor-core instructions "

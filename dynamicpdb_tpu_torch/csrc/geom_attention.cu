@@ -39,50 +39,46 @@
 //   exact. bfloat16 x with float32 weights takes the 3-pass instance, where
 //   x_lo = 0 adds nothing.
 //
-// Design. Blocks of 4 or 8 warps; the head is the fastest grid axis, so the
+// Design. One block of 8 warps per (head, query chunk of 256 rows, batch
+// row and axis), one block per SM; the head is the fastest grid axis, so the
 // blocks that read the same x[b, axis] run together and find it in L2. Each
-// warp owns MT 16-row mma tiles of query rows in a flash-attention layout:
-// q (as mma A fragments, hi and lo), the output and the scores live in mma
-// accumulator fragments, the online softmax reduces over each row's quad
-// with shuffles, and the row sums stay per thread until the end. Every B
-// fragment (k, v, W) a warp loads from shared memory serves its MT tiles.
-//   1. q | gate: a [rows x d] . [d x 64] product on the tensor cores, x and
+// warp owns 32 query rows, two 16-row mma tiles, in a flash-attention
+// layout: q (as mma A fragments, hi and lo), the output and the scores live
+// in mma accumulator fragments, the online softmax reduces over each row's
+// quad with shuffles, and the row sums stay per thread until the end. Every
+// B fragment (k, v, W) a warp loads from shared memory serves both tiles.
+//   1. q | gate: a [256 x d] . [d x 64] product on the tensor cores, x and
 //      Wqg staged in 32-wide slices of d by cp.async, double-buffered.
 //      The q columns come out of the accumulators already in A-fragment
 //      order (the c index is permuted inside each group of 8 channels, and
 //      the k fragments read with the same permutation), so they stay in
 //      registers; the gate waits in shared memory.
-//   2. For each chunk of keys: k | v of the chunk ([keys x d] . [d x 64],
+//   2. For each chunk of 128 keys: k | v of the chunk ([128 x d] . [d x 64],
 //      the same staged product) is split into hi and lo once and kept
 //      resident in shared memory (k as [key][c], v transposed), so every
 //      warp's q.k^T and p.v read B fragments with 64-bit loads and no
-//      conversion; past one chunk the chunks stream. Each 32-key step adds a
+//      conversion; past 128 keys the chunks stream. Each 32-key step adds a
 //      bias tile brought in by cp.async (coalesced 16-byte rows when L % 4
 //      == 0, 4-byte copies otherwise), double-buffered against the math, one
 //      block barrier a step. The probabilities go from the score
 //      accumulators straight into p.v's A fragments (keys permuted like the
 //      channels above).
 //   3. Epilogue: quad-sum the row sums, divide, gate, store.
-// Two layouts (Layout below), both with two 16-row tiles per warp:
-//   geom_attention: 8 warps, 256 query rows and 128 resident keys (k|v
-//     stored split) a block, one block (201,216 bytes of shared memory, up
-//     to 255 registers) per SM; at the release shapes 2,048 blocks fill the
-//     card, and at L <= 256 a block projects k | v once per (b, g).
-//   node_attention: its release grid has only M H = 128 (b, g) cells. So
-//     its blocks take 4 warps, 128 query rows and 128 resident keys stored
-//     whole (split as each fragment is read), two per SM (110,080 bytes),
-//     256 blocks at the release shapes; the two blocks of a (b, g) cell's
-//     query chunks form a cluster, and each projects half of every key
-//     chunk and stores its k | v into its own and its peer's shared memory
-//     (distributed shared memory), so k | v is still projected once per
-//     cell. Two cluster barriers a chunk: the peer is done with the last
-//     chunk before it is overwritten, and both halves are in place before
-//     the steps read them.
 // Keys past L are -inf; masked keys sit near -1e9 and get exactly zero
 // weight once any unmasked key has been seen (an all-masked first tile is
 // rescaled by exp(-1e9) = 0). Every L is taken: chunks and tiles are
 // zero-filled past L and past the last query row.
-#include <cooperative_groups.h>
+//
+// At L <= 256 a block holds every query row, so k | v is projected once per
+// (b, g); past that once per query chunk. 201,216 bytes of shared memory;
+// 256 threads, so a thread may hold up to 255 registers.
+//
+// node_attention's release grid is M H = 128 blocks for 132 SMs. Splitting
+// its query rows was measured and is slower: 128-row blocks of 4 warps, two
+// per SM, in two-block clusters that share each key chunk's k | v through
+// distributed shared memory, took 0.078-0.081 ms against 0.0755-0.0784 ms
+// for this layout on an H100 80GB HBM3 at 700 W (float32, release shapes;
+// tools/bench_geom.py; the other split layouts tried are in PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,20 +88,25 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kC = 32;             // head width c
 constexpr int kC2 = 2 * kC;        // q|gate and k|v widths
+constexpr int kWarps = 8;
+constexpr int kMT = 2;             // 16-row tiles per warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kMT * kWarps;  // query rows per block
+constexpr int kChunk = 128;        // keys whose k|v are resident at once
 constexpr int kTile = 32;          // keys per attention step
 constexpr int kDk = 32;            // depth of one staged slice of x and W
 constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
-constexpr int kSmSmem = 233472;    // bytes an SM has, 1024 of them per block
-                                   // reserved
+// the k|v product's warp tile: 16 kMT keys x kKvWN columns
+constexpr int kKvWN = kC2 * (kChunk / (16 * kMT)) / kWarps;
+static_assert(kKvWN == 32, "a k|v warp tile is all k or all v columns");
 
 // Row strides (floats) of the shared tiles. Each is 8 mod 32, so the 64-bit
 // fragment loads of a half-warp (rows g = 0..3, column pairs 2t) fall on 32
 // distinct banks; the x slice's 36 gives rows 4g + t for 32-bit loads.
 constexpr int kKS = kC + 8;        // sK [key][c]
+constexpr int kVS = kChunk + 8;    // sVt [c][key]
 constexpr int kBS = kTile + 8;     // bias tile [query row][key]
 constexpr int kWS = kC2 + 8;       // W slice [depth][column]
 
@@ -117,43 +118,14 @@ template <> struct Staged<__nv_bfloat16> { static constexpr int stride = kDk + 8
 __host__ __device__ constexpr size_t stage_bytes(int rows) {
   return (size_t)rows * (kDk + 4) * 4 + (size_t)kDk * kWS * 4;
 }
-
-// A block's layout: WARPS warps of MT 16-row tiles, so 16 MT WARPS query
-// rows; k|v of kChunk keys resident in shared memory, split into hi and lo
-// once (kKvSplit) or kept whole and split as each fragment is read; the CL
-// blocks of a cluster share each chunk's k|v, each projecting kKvRows of
-// its keys.
-template <int MT_, int WARPS_, int CL_>
-struct Layout {
-  static constexpr int MT = MT_, WARPS = WARPS_, CL = CL_;
-  static constexpr int kThreads = 32 * WARPS;
-  static constexpr int kRows = 16 * MT * WARPS;
-  static constexpr int kChunk = 128;
-  static constexpr bool kKvSplit = CL == 1;  // else the smem goes to 2 blocks
-  static constexpr int kKvParts = kKvSplit ? 2 : 1;
-  static constexpr int kKvRows = kChunk / CL;
-  // the k|v product's warp tile: 16 MT keys x kKvWN columns
-  static constexpr int kKvWN = kC2 * (kKvRows / (16 * MT)) / WARPS;
-  static constexpr int kVS = kChunk + 8;  // sVt [c][key]
-  static constexpr int kMinBlocks = 8 / WARPS;  // blocks per SM
-  static constexpr size_t kResidentBytes =
-      4 * (kKvParts * (kChunk * kKS + kC * kVS)  // sK, sVt (hi, lo)
-           + 16 * MT * kThreads                  // sGate
-           + kChunk);                            // sMask
-  static constexpr size_t kStageBytes = 2 * stage_bytes(kRows);
-  static constexpr size_t kSmemBytes = kResidentBytes + kStageBytes;
-  static_assert(CL == 1 || CL == 2, "a block has at most one peer");
-  static_assert(kC % kKvWN == 0, "a k|v warp tile is all k or all v columns");
-  static_assert(2 * (size_t)kRows * kBS * 4 <= kStageBytes, "bias tiles fit");
-  static_assert(kResidentBytes % 16 == 0, "the stage region is 16-byte aligned");
-  static_assert(kSmemBytes <= (size_t)kMaxSmem &&
-                    kMinBlocks * (kSmemBytes + 1024) <= (size_t)kSmSmem,
-                "kMinBlocks blocks fit one SM");
-};
-// geom_attention: 256-row blocks of 8 warps, one per SM; node_attention:
-// 128-row blocks of 4 warps in clusters of two, two per SM (see the header).
-template <bool MASKED>
-using LayoutFor = Layout<2, MASKED ? 4 : 8, MASKED ? 2 : 1>;
+constexpr size_t kResidentBytes =
+    4 * (2 * kChunk * kKS + 2 * kC * kVS   // sK hi/lo, sVt hi/lo
+         + 16 * kMT * kThreads             // sGate
+         + kChunk);                        // sMask
+constexpr size_t kStageBytes = 2 * stage_bytes(kRows);
+static_assert(2 * (size_t)kRows * kBS * 4 <= kStageBytes, "bias tiles fit");
+constexpr size_t kSmemBytes = kResidentBytes + kStageBytes;
+static_assert(kResidentBytes % 16 == 0, "the stage region is 16-byte aligned");
 
 // ---- PTX primitives --------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -188,33 +160,6 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The two halves of a cluster barrier: arrive publishes this thread's earlier
-// memory operations (release) to the cluster; wait returns once every thread
-// of every block of the cluster has arrived, and sees what they published
-// (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The shared::cluster address of the peer block's copy of `p` (a pointer
-// into this block's shared memory).
-__device__ __forceinline__ uint32_t peer_address(const void* p, int peer) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(s), "r"(peer));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -235,57 +180,6 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// A B fragment (two floats at hi + off) as hi and lo parts: read split, or
-// read whole and split here.
-template <bool SPLIT>
-__device__ __forceinline__ void b_frag(const float* hi, const float* lo,
-                                       int off, uint32_t (&bh)[2],
-                                       uint32_t (&bl)[2]) {
-  const float2 h = *reinterpret_cast<const float2*>(hi + off);
-  if constexpr (SPLIT) {
-    const float2 l = *reinterpret_cast<const float2*>(lo + off);
-    bh[0] = __float_as_uint(h.x);
-    bh[1] = __float_as_uint(h.y);
-    bl[0] = __float_as_uint(l.x);
-    bl[1] = __float_as_uint(l.y);
-  } else {
-    split(h.x, bh[0], bl[0]);
-    split(h.y, bh[1], bl[1]);
-  }
-}
-
-// A warp's k|v tile (acc + the biases bk) into shared memory: element (key,
-// channel) at dst[key KS + ch CS], hi there and lo lo_off floats on when
-// SPLIT, else whole; with a peer (PEER), whole at the same place of its
-// copy, whose shared::cluster address is peer_dst. key0 and ch0 are the
-// tile's first key and channel.
-template <int KS, int CS, bool SPLIT, bool PEER, int MT, int NT>
-__device__ __forceinline__ void store_kv(float* dst, int lo_off,
-                                         uint32_t peer_dst,
-                                         const float (&acc)[MT][NT][4],
-                                         const float* bk, int key0, int ch0,
-                                         int g, int t) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cn = 8 * nt + 2 * t + (j & 1);
-        const int at = (key0 + 16 * mt + g + 8 * (j >> 1)) * KS + (ch0 + cn) * CS;
-        const float v = acc[mt][nt][j] + bk[cn];
-        if constexpr (SPLIT) {
-          uint32_t hi, lo;
-          split(v, hi, lo);
-          dst[at] = __uint_as_float(hi);
-          dst[at + lo_off] = __uint_as_float(lo);
-        } else {
-          dst[at] = v;
-        }
-        if constexpr (PEER) st_cluster(peer_dst + 4 * at, v);
-      }
-}
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -299,20 +193,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // acc = x[row0 : row0 + ROWS] . W (rows past L read as 0), W [d][kC2] with
-// rows ws floats apart. ROWS / WM x kC2 / WN warps (WM = 16 MT); warp w
-// owns rows WM (w % (ROWS / WM)) + 0..WM-1, as MT 16-row tiles, and columns
+// rows ws floats apart. ROWS / WM x kC2 / WN warps (WM = 16 kMT); warp w
+// owns rows WM (w % (ROWS / WM)) + 0..WM-1, as kMT 16-row tiles, and columns
 // WN (w / (ROWS / WM)) + 0..WN-1, in C-fragment layout. x and W come
 // through `stage` in slices of kDk, double-buffered by cp.async. PP is the
 // pass count, 3 or 1 (see the header). Starts and ends with a block barrier.
-template <typename T, int ROWS, int WN, int PP, int MT, int WARPS>
-__device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
+template <typename T, int ROWS, int WN, int PP>
+__device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
                                         const T* __restrict__ xg, int row0,
                                         int L, int d,
                                         const float* __restrict__ w,
                                         int ws, char* stage) {
-  constexpr int WM = 16 * MT;  // rows of a warp tile
-  static_assert((ROWS / WM) * (kC2 / WN) == WARPS, "one tile per warp");
-  constexpr int kThreads = 32 * WARPS;
+  constexpr int WM = 16 * kMT;  // rows of a warp tile
+  static_assert((ROWS / WM) * (kC2 / WN) == kWarps, "one tile per warp");
   constexpr int XS = Staged<T>::stride;
   constexpr int XBYTES = ROWS * XS * (int)sizeof(T);
   constexpr int BUF = (int)stage_bytes(ROWS);
@@ -323,7 +216,7 @@ __device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
   const int wm = warp % (ROWS / WM), wn = warp / (ROWS / WM);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < WN / 8; ++nt)
 #pragma unroll
@@ -364,9 +257,9 @@ __device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
         reinterpret_cast<const float*>(stage + (sl & 1) * BUF + XBYTES);
 #pragma unroll
     for (int ks = 0; ks < kDk / 8; ++ks) {
-      uint32_t ah[MT][4], al[MT][4];
+      uint32_t ah[kMT][4], al[kMT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
         const T* xa = sx + (WM * wm + 16 * mt + g) * XS + 8 * ks + t;
         const float a[4] = {to_float(xa[0]), to_float(xa[8 * XS]),
                             to_float(xa[4]), to_float(xa[8 * XS + 4])};
@@ -391,7 +284,7 @@ __device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
             split(b[j], bh[j], bl[j]);
         }
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < kMT; ++mt) {
           if (PP == 3) {
             mma(acc[mt][nt], al[mt], bh);
             mma(acc[mt][nt], ah[mt], bl);
@@ -404,22 +297,21 @@ __device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
   }
 }
 
-// The bias tile [ROWS query rows][kTile keys] at (row0, j0) into sb; rows
+// The bias tile [kRows query rows][kTile keys] at (row0, j0) into sb; rows
 // and keys past L are zero-filled (and never used).
-template <int ROWS, int kThreads>
 __device__ __forceinline__ void fetch_bias(float* sb,
                                            const float* __restrict__ bias_g,
                                            int row0, int j0, int L, bool vec) {
   const int tid = threadIdx.x;
   if (vec) {  // L % 4 == 0: 16-byte aligned rows, whole 4-key groups
-    for (int e = tid; e < ROWS * (kTile / 4); e += kThreads) {
+    for (int e = tid; e < kRows * (kTile / 4); e += kThreads) {
       const int r = e / (kTile / 4), j = j0 + 4 * (e % (kTile / 4));
       const bool ok = row0 + r < L && j < L;
       cp_async16(sb + r * kBS + (j - j0),
                  ok ? bias_g + (size_t)(row0 + r) * L + j : bias_g, ok);
     }
   } else {
-    for (int e = tid; e < ROWS * kTile; e += kThreads) {
+    for (int e = tid; e < kRows * kTile; e += kThreads) {
       const int r = e / kTile, j = j0 + e % kTile;
       const bool ok = row0 + r < L && j < L;
       cp_async4(sb + r * kBS + (j - j0),
@@ -430,26 +322,19 @@ __device__ __forceinline__ void fetch_bias(float* sb,
 }
 
 template <typename T, bool MASKED, int PP>
-__global__ void __launch_bounds__(LayoutFor<MASKED>::kThreads,
-                                  LayoutFor<MASKED>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
 geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
                  const float* __restrict__ bqg, const float* __restrict__ wkv,
                  const float* __restrict__ bkv, const float* __restrict__ bias,
                  const float* __restrict__ kmask, T* __restrict__ out,
                  int n_axis, int H, int L, int d, float scale) {
-  using Ly = LayoutFor<MASKED>;
-  constexpr int MT = Ly::MT, CL = Ly::CL, kRows = Ly::kRows;
-  constexpr int WARPS = Ly::WARPS, kThreads = Ly::kThreads;
-  constexpr int kChunk = Ly::kChunk, kVS = Ly::kVS;
   extern __shared__ float4 smem4[];
-  constexpr bool kSplit = Ly::kKvSplit;
-  constexpr int kParts = Ly::kKvParts;
   float* sKh = reinterpret_cast<float*>(smem4);  // [kChunk][kKS]
-  float* sKl = sKh + (kParts - 1) * kChunk * kKS;
-  float* sVh = sKh + kParts * kChunk * kKS;      // [kC][kVS], v transposed
-  float* sVl = sVh + (kParts - 1) * kC * kVS;
-  float* sGate = sVh + kParts * kC * kVS;        // [16 MT][kThreads]
-  float* sMask = sGate + 16 * MT * kThreads;     // [kChunk]
+  float* sKl = sKh + kChunk * kKS;
+  float* sVh = sKl + kChunk * kKS;               // [kC][kVS], v transposed
+  float* sVl = sVh + kC * kVS;
+  float* sGate = sVl + kC * kVS;                 // [16 kMT][kThreads]
+  float* sMask = sGate + 16 * kMT * kThreads;    // [kChunk]
   char* stage = reinterpret_cast<char*>(sMask + kChunk);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -463,31 +348,17 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
   const T* xg = x + (size_t)ba * L * d;
   const float* bias_g = bias + (size_t)gi * L * L;
   const bool vec = (L % 4) == 0;
-  const int wrow = 16 * MT * warp;               // this warp's first row
-
-  // In a cluster, this block projects the keys kKvRows rank + 0.. of every
-  // chunk and stores their k|v into its peer's sK and sVt too (pK, pV:
-  // their shared::cluster addresses). Arriving here for the first chunk's
-  // barrier also tells the peer that this block runs, before it writes
-  // into this block's memory.
-  int rank = 0;
-  uint32_t pK = 0, pV = 0;
-  if constexpr (CL > 1) {
-    rank = (int)cg::this_cluster().block_rank();
-    pK = peer_address(sKh, rank ^ 1);
-    pV = peer_address(sVh, rank ^ 1);
-    cluster_arrive();
-  }
+  const int wrow = 16 * kMT * warp;              // this warp's first row
 
   // ---- 1. q | gate of the block's rows ---------------------------------
-  uint32_t qh[MT][4][4], ql[MT][4][4];  // A fragments per 8-channel step
+  uint32_t qh[kMT][4][4], ql[kMT][4][4];  // A fragments per 8-channel step
   {
-    float acc[MT][8][4];
-    project<T, kRows, kC2, PP, MT, WARPS>(acc, xg, row0, L, d, wqg + gi * kC2,
-                                   G * kC2, stage);
+    float acc[kMT][8][4];
+    project<T, kRows, kC2, PP>(acc, xg, row0, L, d, wqg + gi * kC2, G * kC2,
+                               stage);
     const float* bq = bqg + (size_t)gi * kC2;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         float q[4];
@@ -512,16 +383,16 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
   }
 
   // ---- 2. key chunks: k|v resident, 32-key steps of online softmax ------
-  float o[MT][4][4];
+  float o[kMT][4][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[mt][n][j] = 0.f;
-  float m_run[MT][2], l_run[MT][2];
+  float m_run[kMT][2], l_run[kMT][2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       m_run[mt][h] = -INFINITY;
@@ -532,32 +403,35 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
 
   for (int kc0 = 0; kc0 < L; kc0 += kChunk) {
     {
-      constexpr int KR = Ly::kKvRows, KWN = Ly::kKvWN, WM = 16 * MT;
-      float acc[MT][KWN / 8][4];
-      project<T, KR, KWN, PP, MT, WARPS>(acc, xg, kc0 + KR * rank, L, d,
-                                  wkv + gi * kC2, G * kC2, stage);
-      const int wm = warp % (KR / WM), wn = warp / (KR / WM);
-      const int col0 = KWN * wn;  // a warp's columns are all k or all v
-      const int key0 = KR * rank + WM * wm;
-      const float* bk = bkv + (size_t)gi * kC2 + col0;
-      // the peer is done with the last chunk's k|v, which this overwrites
-      if constexpr (CL > 1) cluster_wait();
-      if (col0 < kC)
-        store_kv<kKS, 1, kSplit, (CL > 1)>(sKh, sKl - sKh, pK, acc, bk, key0,
-                                           col0, g, t);
-      else
-        store_kv<1, kVS, kSplit, (CL > 1)>(sVh, sVl - sVh, pV, acc, bk, key0,
-                                           col0 - kC, g, t);
-      if (MASKED)
-        for (int e = tid; e < kChunk; e += kThreads)
-          sMask[e] = kc0 + e < L ? kmask[(size_t)b * L + kc0 + e] : 0.f;
+      float acc[kMT][kKvWN / 8][4];
+      project<T, kChunk, kKvWN, PP>(acc, xg, kc0, L, d, wkv + gi * kC2,
+                                    G * kC2, stage);
+      constexpr int WM = 16 * kMT;
+      const int wm = warp % (kChunk / WM), wn = warp / (kChunk / WM);
+      const float* bk = bkv + (size_t)gi * kC2 + kKvWN * wn;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kKvWN / 8; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = WM * wm + 16 * mt + g + 8 * (j >> 1);
+            const int ch = 8 * nt + 2 * t + (j & 1);
+            uint32_t hi, lo;
+            split(acc[mt][nt][j] + bk[ch], hi, lo);
+            if (wn == 0) {
+              sKh[key * kKS + ch] = __uint_as_float(hi);
+              sKl[key * kKS + ch] = __uint_as_float(lo);
+            } else {
+              sVh[ch * kVS + key] = __uint_as_float(hi);
+              sVl[ch * kVS + key] = __uint_as_float(lo);
+            }
+          }
+      if (MASKED && tid < kChunk)
+        sMask[tid] = kc0 + tid < L ? kmask[(size_t)b * L + kc0 + tid] : 0.f;
     }
     const int n_tiles = (min(kChunk, L - kc0) + kTile - 1) / kTile;
-    fetch_bias<kRows, kThreads>(sb[0], bias_g, row0, kc0, L, vec);
-    if constexpr (CL > 1) {  // both halves of the chunk's k|v are in place
-      cluster_arrive();
-      cluster_wait();
-    }
+    fetch_bias(sb[0], bias_g, row0, kc0, L, vec);
     for (int jt = 0; jt < n_tiles; ++jt) {
       cp_async_wait<0>();
       // the bias tile jt has landed (and k|v and the mask, at jt == 0), and
@@ -565,15 +439,15 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // which now takes tile jt + 1 while this step computes
       __syncthreads();
       if (jt + 1 < n_tiles)
-        fetch_bias<kRows, kThreads>(sb[(jt + 1) & 1], bias_g, row0,
-                          kc0 + (jt + 1) * kTile, L, vec);
+        fetch_bias(sb[(jt + 1) & 1], bias_g, row0, kc0 + (jt + 1) * kTile, L,
+                   vec);
       const int kl0 = jt * kTile;  // first key of the step, in the chunk
       const int j0 = kc0 + kl0;
 
-      // s = q . k^T, 3xTF32; each k fragment serves the warp's MT tiles
-      float s[MT][4][4];
+      // s = q . k^T, 3xTF32; each k fragment serves the warp's kMT tiles
+      float s[kMT][4][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -582,11 +456,13 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          uint32_t bh[2], bl[2];
-          b_frag<kSplit>(sKh, sKl, (kl0 + 8 * nt + g) * kKS + 8 * ks + 2 * t,
-                         bh, bl);
+          const int off = (kl0 + 8 * nt + g) * kKS + 8 * ks + 2 * t;
+          const float2 kh = *reinterpret_cast<const float2*>(sKh + off);
+          const float2 kl = *reinterpret_cast<const float2*>(sKl + off);
+          const uint32_t bh[2] = {__float_as_uint(kh.x), __float_as_uint(kh.y)};
+          const uint32_t bl[2] = {__float_as_uint(kl.x), __float_as_uint(kl.y)};
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
+          for (int mt = 0; mt < kMT; ++mt) {
             mma(s[mt][nt], ql[mt][ks], bh);
             mma(s[mt][nt], qh[mt][ks], bl);
             mma(s[mt][nt], qh[mt][ks], bh);
@@ -596,7 +472,7 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // + bias (+ mask); keys past L get -inf
       const float* sbt = sb[jt & 1];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -616,7 +492,7 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // online softmax over the quad's 32 keys, rows g and g + 8 of each
       // tile
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float mx = -INFINITY;
@@ -647,9 +523,9 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // key 2t at column t and 2t + 1 at column t + 4, v read the same way
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        uint32_t ph[MT][4], pl[MT][4];
+        uint32_t ph[kMT][4], pl[kMT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < kMT; ++mt) {
           split(s[mt][ks][0], ph[mt][0], pl[mt][0]);
           split(s[mt][ks][2], ph[mt][1], pl[mt][1]);
           split(s[mt][ks][1], ph[mt][2], pl[mt][2]);
@@ -657,11 +533,13 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
         }
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
-          uint32_t bh[2], bl[2];
-          b_frag<kSplit>(sVh, sVl, (8 * n + g) * kVS + kl0 + 8 * ks + 2 * t,
-                         bh, bl);
+          const int off = (8 * n + g) * kVS + kl0 + 8 * ks + 2 * t;
+          const float2 vh = *reinterpret_cast<const float2*>(sVh + off);
+          const float2 vl = *reinterpret_cast<const float2*>(sVl + off);
+          const uint32_t bh[2] = {__float_as_uint(vh.x), __float_as_uint(vh.y)};
+          const uint32_t bl[2] = {__float_as_uint(vl.x), __float_as_uint(vl.y)};
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
+          for (int mt = 0; mt < kMT; ++mt) {
             mma(o[mt][n], pl[mt], bh);
             mma(o[mt][n], ph[mt], bl);
             mma(o[mt][n], ph[mt], bh);
@@ -669,16 +547,12 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
         }
       }
     }
-    // the next chunk's project() starts with a barrier before it restages;
-    // in a cluster, the peer may overwrite this chunk's k|v once every
-    // thread here is done with it
-    if constexpr (CL > 1)
-      if (kc0 + kChunk < L) cluster_arrive();
+    // the next chunk's project() starts with a barrier before it restages
   }
 
   // ---- 3. normalise, gate, store ----------------------------------------
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float l = quad_sum(l_run[mt][h]);
@@ -704,39 +578,20 @@ int launch(const void* x, const float* wqg, const float* bqg, const float* wkv,
            const float* bkv, const float* bias, const float* kmask, void* out,
            int B, int n_axis, int H, int L, int d, int c, float scale,
            int device, cudaStream_t stream) {
-  using Ly = LayoutFor<MASKED>;
-  const long long n_rows = ((L + Ly::kRows - 1) / Ly::kRows + Ly::CL - 1) /
-                           Ly::CL * Ly::CL;  // query chunks, whole clusters
   if (B < 1 || n_axis < 1 || H < 1 || L < 1 || d < 8 || d % 8 != 0 ||
-      c != kC || (long long)B * n_axis > 65535 || H > 65535 || n_rows > 65535)
+      c != kC || (long long)B * n_axis > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  static_assert(kSmemBytes <= (size_t)kMaxSmem, "fits one block");
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const auto kernel = geom_attn_kernel<T, MASKED, PP>;
-  err = cudaFuncSetAttribute(kernel,
+  err = cudaFuncSetAttribute(geom_attn_kernel<T, MASKED, PP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Ly::kSmemBytes);
+                             (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(H, (unsigned)n_rows, B * n_axis);
-  cfg.blockDim = dim3(Ly::kThreads);
-  cfg.dynamicSmemBytes = Ly::kSmemBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = Ly::CL;  // the query chunks of one (b, g)
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), wqg, bqg,
-                           wkv, bkv, bias, kmask, static_cast<T*>(out),
-                           n_axis, H, L, d, scale);
-  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, (L + kRows - 1) / kRows, B * n_axis);
+  geom_attn_kernel<T, MASKED, PP><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const T*>(x), wqg, bqg, wkv, bkv, bias, kmask,
+      static_cast<T*>(out), n_axis, H, L, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -759,6 +614,7 @@ int dispatch(const void* x, const float* wqg, const float* bqg,
 }
 
 }  // namespace
+
 // Both launchers run on `stream` and return cudaGetLastError() (0 = the
 // launch was accepted). Layouts: x [B, n_axis, L, d] (node_attention: node
 // [M, L, d], n_axis = 1) in float32 (bf16 = 0) or bfloat16 (bf16 = 1);
@@ -787,11 +643,10 @@ extern "C" int node_attention(const void* x, const float* wqg, const float* bqg,
                         d, c, scale, bf16, w_bf16, device, stream);
 }
 
-// Dynamic shared memory per block (bytes) of geom_attention (masked = 0) or
-// node_attention (masked = 1); the same for every d.
-extern "C" long long geom_attention_smem(int masked) {
-  return (long long)(masked ? LayoutFor<true>::kSmemBytes
-                            : LayoutFor<false>::kSmemBytes);
+// Dynamic shared memory per block (bytes); the same for every d.
+extern "C" long long geom_attention_smem(int d) {
+  (void)d;
+  return (long long)kSmemBytes;
 }
 
 extern "C" const char* geom_attention_error_string(int code) {

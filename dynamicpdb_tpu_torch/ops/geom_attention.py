@@ -22,18 +22,14 @@ TPU kernels they take every length L (no ``MAX_FLASH_RES``).
 
 The kernels run all four products (the q|gate and k|v projections, q k^T
 and p v) on the TF32 tensor cores (``mma.sync`` m16n8k8) in a
-flash-attention layout: scores and output in accumulator fragments, k|v of
-a chunk of keys resident in shared memory, x, weight and bias tiles
-brought in by double-buffered ``cp.async``. The geometric attention takes
-256 query rows and 128 resident keys a block (k|v projected once per head
-and batch row at L <= 256). The node attention, whose release grid has
-only 128 (row, head) cells, takes 128 query rows (4 warps) a block, two
-blocks per SM; the two blocks of a cell form a thread-block cluster and
-each projects half of every 128-key chunk into both blocks' shared memory,
-so k|v is still projected once. One TF32 pass misses the float32
-tolerance, so each float32 operand is split into a TF32 high and low part
-and a product takes three passes (3xTF32); the projections take one pass
-when x and the weights are both bfloat16 (the ``--dtype bfloat16`` path).
+flash-attention layout: 32 query rows per warp (two 16-row mma tiles), 256
+per block, scores and output in accumulator fragments, k|v of 128 keys at
+a time resident in shared memory (projected once per head and batch row at
+L <= 256), x, weight and bias tiles brought in by double-buffered
+``cp.async``. One TF32 pass misses the float32 tolerance, so each float32
+operand is split into a TF32 high and low part and a product takes three
+passes (3xTF32); the projections take one pass when x and the weights are
+both bfloat16 (the ``--dtype bfloat16`` path).
 
 Bounds on an H100 (chip_smoke.geom_cost): the geometric attention does
 34.4 GFLOP of products per launch at the release shapes against ~137 MB,
@@ -169,9 +165,8 @@ def launch(lib, fn: str, ops: dict, out, B, R, H, L, d, c, scale, device,
            stream):
     """Launch ``fn`` (geom_attention or node_attention) of ``lib`` on the
     operands of ``kernel_inputs``; raises if the launch is refused."""
-    kmask_given = fn == "node_attention"
     names = ("x", "wqg", "bqg", "wkv", "bkv", "bias") + (
-        ("kmask",) if kmask_given else ())
+        ("kmask",) if fn == "node_attention" else ())
     ptrs = [ops[n].data_ptr() for n in names] + [out.data_ptr()]
     dims = (B, R, H, L, d, c) if fn == "geom_attention" else (B, H, L, d, c)
     rc = getattr(lib, fn)(*ptrs, *dims, float(scale),
@@ -181,8 +176,8 @@ def launch(lib, fn: str, ops: dict, out, B, R, H, L, d, c, scale, device,
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.geom_attention_error_string(rc).decode()} "
                            f"(code {rc}; B={B}, R={R}, H={H}, L={L}, d={d}, "
-                           f"{lib.geom_attention_smem(int(kmask_given))} "
-                           "bytes of shared memory)")
+                           f"{lib.geom_attention_smem(d)} bytes of shared "
+                           "memory)")
 
 
 def _cuda_call(fn: str, x4, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale):

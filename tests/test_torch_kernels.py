@@ -198,13 +198,11 @@ def test_geom_kernels_match_plain(cuda, kind, L, pad, B, prefix, dtype):
     """Each kernel against its plain version at its release widths, one
     launch each (tolerances and their reasons: chip_smoke.GEOM_ATOL,
     GEOM_BF16_RTOL). L = 5 and 16 sit below one 16-row mma tile and one
-    32-key step; L = 37, 300 and 611 leave node_attention's second block of
-    a cluster with rows past L or none at all; L = 611 spans several query
-    and key chunks, with ragged last ones (its geom_attention batch cut to
-    32 rows to keep the plain version's logits small); ``prefix`` masks the
-    first 64 keys of node_attention's row 1, its first two 32-key steps and
-    its whole first key chunk. bfloat16 x runs one projection pass with
-    bfloat16 weights and three with float32 weights."""
+    32-key step; L = 611 spans three query chunks and five key chunks, with
+    ragged last ones (its geom_attention batch cut to 32 rows to keep the
+    plain version's logits small); ``prefix`` masks the first 64 keys of
+    node_attention's row 1, its first two 32-key steps. bfloat16 x runs one
+    projection pass with bfloat16 weights and three with float32 weights."""
     wdtype = torch.float32 if dtype.endswith("float32-weights") else None
     dtype = getattr(torch, dtype.split("-")[0])
     inp = chip_smoke.geom_inputs(
