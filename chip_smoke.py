@@ -7,11 +7,12 @@ Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
   1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
      each, all started together, with ptxas's registers and spills; the
-     GeoFormer kernels' machine code must hold tensor-core instructions
-     (cuobjdump -sass);
+     machine code of the GeoFormer kernels, the IPA forward and the IPA dq
+     kernel must hold tensor-core instructions (cuobjdump -sass);
   2. kernels: the IPA forward and its three backward kernels against their
-     plain PyTorch versions on the card, at the release shapes and at a
-     ragged N (the backward with cotangents zero on pad rows and with
+     plain PyTorch versions on the card, at the release widths and N = 5,
+     16, 203, 256 and 611, at the tiny width, and with the first key tile
+     all pad (the backward with cotangents zero on pad rows and with
      cotangents everywhere), the autograd Function against dense autograd,
      with errors, tolerances and times;
   3. serve: the release-width model with seeded random weights is saved,
@@ -144,7 +145,9 @@ def sass_mma_counts(nvcc: str, library: str) -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def ipa_inputs(torch, device, *, F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32,
-               masked=56, seed=0):
+               masked=56, lead_masked=0, seed=0):
+    """Seeded IPA inputs; the last ``masked`` and the first ``lead_masked``
+    residues are pad (mask 0)."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -153,6 +156,7 @@ def ipa_inputs(torch, device, *, F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32,
     mask = torch.ones((F, N), device=device)
     if masked:
         mask[:, N - masked:] = 0.0
+    mask[:, :lead_masked] = 0.0
     args = (rnd(F, N, H, C), rnd(F, N, H, C), rnd(F, N, H, C),
             rnd(F, N, H, Pq, 3, scale=2.0), rnd(F, N, H, Pq, 3, scale=2.0),
             rnd(F, N, H, Pv, 3, scale=2.0), rnd(N, N, H), rnd(N, N, Dz), mask,
@@ -296,6 +300,47 @@ def ipa_bwd_errors(got: dict, want: dict, pad_scale: dict | None) -> dict:
     return out
 
 
+# launcher -> its output shapes from (F, N, H, C, P3q, P3v, Dz), as the
+# wrappers allocate them; kept here so that ipa_kernel_ms also times
+# another checkout's package (tools/bench_ipa.py --package)
+IPA_BWD_OUT_SHAPES = {
+    "ipa_attention_bwd_dq": lambda F, N, H, C, P3q, P3v, Dz: (
+        (F, N, H, C), (F, N, H, P3q), (F, H, N)),
+    "ipa_attention_bwd_dkv": lambda F, N, H, C, P3q, P3v, Dz: (
+        (F, N, H, C), (F, N, H, P3q), (F, N, H, C), (F, N, H, P3v)),
+    "ipa_attention_bwd_pair": lambda F, N, H, C, P3q, P3v, Dz: (
+        (N, N, H), (N, N, Dz)),
+}
+
+
+def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
+                  reps: int) -> float:
+    """The time of IPA kernel ``kind`` (``ipa_attention_fwd`` on the
+    forward's 10 inputs, or a backward launcher on the 15 backward inputs)
+    alone: outputs allocated once, then ``reps`` launches straight through
+    the library of ``mod`` (no checks, no counter moves)."""
+    q = operands[0]
+    F, N, H, C = q.shape
+    Dz = operands[7].shape[-1]
+    if kind == "ipa_attention_fwd":
+        Pq, Pv = operands[3].shape[-2], operands[5].shape[-2]
+        shapes = ((F, N, H, C), (F, N, H, Pv, 3), (F, N, H, Dz), (F, H, N))
+        lib = mod._lib("ipa_attention_fwd")
+    else:
+        Pq, Pv = operands[3].shape[-1] // 3, operands[5].shape[-1] // 3
+        shapes = IPA_BWD_OUT_SHAPES[kind](F, N, H, C, 3 * Pq, 3 * Pv, Dz)
+        lib = mod._lib("ipa_attention_bwd")
+    outs = [torch.empty(s, dtype=torch.float32, device=q.device)
+            for s in shapes]
+    ptrs = [t.data_ptr() for t in tuple(operands) + tuple(outs)]
+    fn = getattr(lib, kind)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (*ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, math.sqrt(1.0 / 3), 1e5,
+            q.device.index or 0, stream)
+    check(fn(*args) == 0, f"{kind}: launch refused")
+    return time_ms(torch, lambda: fn(*args), reps)
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -340,14 +385,26 @@ def ipa_errors(got, want, args) -> dict:
     return out
 
 
+# the IPA kernels' cases of phase 2, at the release widths unless stated:
+# N = 5 and 16 sit inside one 32-row block and one 16-key step, 203 and 611
+# end in ragged ones; "tiny" is a small width (C = 8: one 8-channel tile a
+# warp); "first-tile-pad" masks the first 40 residues, so that every row's
+# first key steps are all pad and its running max starts near -1e5 before
+# the online softmax rescales it away
+IPA_CASES = (("release", dict(N=256, masked=56)),
+             ("ragged", dict(N=203, masked=11)),
+             ("N5", dict(N=5, masked=1)),
+             ("N16", dict(N=16, masked=3)),
+             ("long", dict(N=611, masked=13)),
+             ("tiny", dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=5)),
+             ("first-tile-pad", dict(N=203, masked=5, lead_masked=40)))
+
+
 def kernel_phase(torch, device, card: str) -> dict:
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     report = None
-    for label, shape in (
-        ("release", dict(N=256, masked=56)),
-        ("ragged", dict(N=203, masked=11)),
-    ):
+    for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=len(label), **shape)
         got = ipa_mod.ipa_attention_fwd(*args, c_qk)
         torch.cuda.synchronize()
@@ -370,6 +427,8 @@ def kernel_phase(torch, device, card: str) -> dict:
             Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
             ms = time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(*args, c_qk),
                          50)
+            kernel_ms = ipa_kernel_ms(torch, ipa_mod, "ipa_attention_fwd",
+                                      args, c_qk, 50)
             plain_ms = time_ms(
                 torch, lambda: ipa_mod.ipa_attention_plain(*args, c_qk), 20)
             ops, nbytes, ew_ops = ipa_cost(F, N, H, C, Pq, Pv, Dz)
@@ -385,11 +444,13 @@ def kernel_phase(torch, device, card: str) -> dict:
                 "max_abs_err_pad_rows": max(e["pad"] for e in streams),
                 "max_abs_err_lse": errs["lse"]["max"],
                 "ms": ms,
+                "ms_kernel": kernel_ms,  # the kernel alone, no host work
                 "plain_ms": plain_ms,
                 **bounds(ops, ew_ops, nbytes),
                 "library_ms": None,  # no single PyTorch call has the pair stream
             }
-            print(f"kernel ipa_attention_fwd release: {ms:.4f} ms, plain "
+            print(f"kernel ipa_attention_fwd release: {ms:.4f} ms through "
+                  f"the wrapper, {kernel_ms:.4f} ms alone, plain "
                   f"{plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms "
                   f"({report['bound_by']}: {ops / 1e9:.3f} GFLOP, "
                   f"{nbytes / 1e6:.2f} MB), tensor-core bound "
@@ -408,16 +469,15 @@ BWD_KERNELS = {  # kernel -> (replaced TPU kernel, its gradients)
 
 
 def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
-    """The three backward kernels against their plain versions at the
-    release shapes (last 56 residues masked) and at a ragged N = 203, with
-    cotangents zeroed on pad rows and with cotangents everywhere; then the
-    autograd Function's backward against autograd of the plain forward on
-    the card; then each kernel's time against its plain version."""
+    """The three backward kernels against their plain versions at every
+    case of IPA_CASES, with cotangents zeroed on pad rows and with
+    cotangents everywhere, and there the autograd Function's backward
+    against autograd of the plain forward on the card; then each kernel's
+    time (through its wrapper and alone) against its plain version."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     reports = {}
-    for label, shape in (("release", dict(N=256, masked=56)),
-                         ("ragged", dict(N=203, masked=11))):
+    for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=10 + len(label), **shape)
         for zero_pad in (True, False):
             case = "pad cotangents 0" if zero_pad else "pad cotangents random"
@@ -476,16 +536,19 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
         plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
                                                "ipa_bwd") + "_plain")
         ms = time_ms(torch, lambda: kernel(*inputs, **kw), 50)
+        kernel_ms = ipa_kernel_ms(torch, ipa_mod, kname, inputs, c_qk, 50)
         plain_ms = time_ms(torch, lambda: plain(*inputs, **kw), 20)
         ops, nbytes, ew_ops = costs[kname]
         rep = {
             "name": kname, "route": "cuda",
             "source": "dynamicpdb_tpu_torch/csrc/ipa_attention_bwd.cu",
             "replaces": replaces, "launches": None, **reports[kname],
-            "ms": ms, "plain_ms": plain_ms, **bounds(ops, ew_ops, nbytes),
+            "ms": ms, "ms_kernel": kernel_ms, "plain_ms": plain_ms,
+            **bounds(ops, ew_ops, nbytes),
             "library_ms": None,  # no single PyTorch call computes it
         }
-        print(f"kernel {kname} release: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"kernel {kname} release: {ms:.4f} ms through the wrapper, "
+              f"{kernel_ms:.4f} ms alone, plain {plain_ms:.4f} ms, "
               f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
               f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), tensor-core "
               f"bound {rep['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
@@ -1240,6 +1303,10 @@ def main() -> int:
                 print(f"build: {b.name}: {line.strip()}")
     print(f"build: {len(built)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s")
+    fwd_smem = ipa_mod._lib("ipa_attention_fwd").ipa_attention_fwd_smem(
+        256, 8, 12, 32)
+    print(f"build: ipa_attention_fwd: {fwd_smem} bytes of dynamic shared "
+          "memory per block at the release shapes")
     lib = ipa_mod._lib("ipa_attention_bwd")
     for which, kname in enumerate(BWD_KERNELS):
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
@@ -1253,6 +1320,15 @@ def main() -> int:
               f"in {fn}")
     check(len(mma) == 6 and all(mma.values()), "geom_attention.cu: a "
           f"kernel without tensor-core instructions: {mma}")
+    for src_name, kernel in (("ipa_attention_fwd", "ipa_attn_fwd_kernel"),
+                             ("ipa_attention_bwd", "ipa_bwd_dq_kernel")):
+        mma = {fn: n for fn, n in sass_mma_counts(
+            _build.nvcc(), built[src_name].path).items() if kernel in fn}
+        for fn, n in sorted(mma.items()):
+            print(f"build: {src_name}.cu SASS: {n} tensor-core instructions "
+                  f"in {fn}")
+        check(len(mma) > 0 and all(mma.values()), f"{src_name}.cu: "
+              f"{kernel} without tensor-core instructions: {mma}")
     print(f"build: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 2

@@ -86,6 +86,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"  // cp.async, mma, split, quad shuffles
+
 namespace {
 
 constexpr int kC = 32;             // head width c
@@ -126,59 +128,6 @@ constexpr size_t kStageBytes = 2 * stage_bytes(kRows);
 static_assert(2 * (size_t)kRows * kBS * 4 <= kStageBytes, "bias tiles fit");
 constexpr size_t kSmemBytes = kResidentBytes + kStageBytes;
 static_assert(kResidentBytes % 16 == 0, "the stage region is 16-byte aligned");
-
-// ---- PTX primitives --------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D += A . B on the tensor cores, m16n8k8, TF32 in, float32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-// ---- end of PTX primitives -------------------------------------------------
-
-// x = hi + lo: hi is x cut to TF32 (its 13 low mantissa bits cleared, one
-// LOP3), lo = x - hi is exact in float32 and reaches the tensor cores cut to
-// TF32 in turn (its lost bits are below 2^-20 |x|). Two instructions, no
-// conversion.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

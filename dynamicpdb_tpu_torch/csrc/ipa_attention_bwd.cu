@@ -1,4 +1,5 @@
-// Invariant Point Attention backward, flash style, for sm_90a.
+// Invariant Point Attention backward, flash style, for sm_90a; kernel A (dq)
+// on the TF32 tensor cores.
 //
 // Replaces the three Pallas TPU kernels of
 // dynamicpdb_tpu/ops/pallas/ipa_attention.py that the custom VJP
@@ -32,43 +33,70 @@
 //   C, per (i, j):     dbias_ijh = c_b sum_f dl_ij          (for every h)
 //                      dpz_ij    = sum_{f,h} a_ij g_pair_i
 //
-// The logit is built in the same order of operations as the forward kernel
-// (ipa_attention_fwd.cu), so a_ij agrees with the forward's softmax to the
-// last bit the two compilations allow.
+// The logit is built in the same order of operations in all four IPA kernels
+// (ipa_tile.cuh ipa_logit; element() below), so the a_ij recomputed here
+// agrees with the forward's softmax as far as the two computations of q.k
+// and qp.kp do: A computes both with the forward's own tensor-core code, to
+// the bit; B and C on the CUDA cores, to float32 rounding.
 //
 // Bound on an H100 (2 FLOP per multiply-add): the tile recompute costs
 // about 1,220 FLOP per (f, h, i, j) element (q.k and g_o.v over C, the
 // point and pair terms); A adds about 560, B about 1,150, C about 65. At
 // the release shapes (F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32) that is
-// 1.87, 2.48 and 1.35 GFLOP, against 30-40 MB of compulsory traffic each:
-// float32 arithmetic bounds all three (about 28, 37 and 20 us at 67 TFLOP/s
-// outside the tensor cores; the bytes take 9-12 us).
+// 1.87, 2.48 and 1.35 GFLOP, against 30-40 MB of compulsory traffic each.
+// On the CUDA cores (67 TFLOP/s float32) about 28, 37 and 20 us. With the
+// products on the TF32 tensor cores (495 TFLOP/s) in three passes and the
+// rest on the CUDA cores: 11.5, 15.2 and 12.0 us (the last the bytes;
+// chip_smoke.ipa_bwd_cost, bounds).
 //
-// Design (first version; correctness first, no tensor cores yet). On the
-// TPU the last grid axis runs in order and the kernels accumulate in
+// On the TPU the last grid axis runs in order and the kernels accumulate in
 // scratch across it. Here that axis becomes a loop inside one block, so
 // every output element is written by exactly one block: no atomics, and
 // the result is the same from run to run.
-//   * Every kernel works on 16 x 16 element tiles with one thread per
-//     (query row, key) element: 256 threads. The 16 query rows (q, g_o,
-//     their points, g_pair, lse, D) and the 16 key rows (k, v, their
-//     points) are staged in shared memory, rows padded to C+4 floats so the
-//     float4 reads of a quarter warp fall on distinct banks.
-//   * A: one block per (16 query rows, head, frame), looping over key
-//     tiles; dq accumulates in shared memory, the row sums in registers.
+//
+// Kernel A (dq) runs on the tensor cores in the forward's layout
+// (ipa_tile.cuh; its header below). Passes: q.k^T, g_o.v^T and dl.k (C
+// wide, 86% of A's operations), qp.kp^T (24), g_opt.vp^T (36) and dl.kp
+// (24) all in three TF32 passes (3xTF32: every operand is float32; at the
+// release widths one pass misses BWD_RTOL x max|dq| = 3.3e-4 by 8x, three
+// land at 1.4e-5, tests/test_torch_ipa_precision.py); the pair term
+// g_pair_i.pz_ij, a different matrix per query row, on the CUDA cores. What
+// the layout does about the CUDA-core version's limits:
+//   1. one thread per (row, key) element with two 256-long dot products
+//      alone: the three C-wide products are mma tiles, the A fragments of q
+//      and g_o held in registers, dl straight from its accumulators;
+//   2. dq += dl.k on the CUDA cores: on the tensor cores;
+//   3. synchronous loads: k, v, their points, the key mask and the bias
+//      tile come by cp.async into the other of two buffers, one block
+//      barrier a step; pair_z by cp.async in the warp that reads it;
+//   4. strided bias reads: the head is the fastest grid axis, so the H
+//      blocks of a query tile share each sector of the [N, N, H] bias in L2;
+//   5. spills: dq lives in mma accumulators, 32 registers a warp; ptxas
+//      250 registers at C = 256 (168 at C <= 32), no spills; 184,192 bytes
+//      of shared memory, one block of 8 warps an SM.
+//
+// Kernels B and C are the first version (correctness first, CUDA cores):
+//   * Both work on 16 x 16 element tiles with one thread per (query row,
+//     key) element: 256 threads. The 16 query rows (q, g_o, their points,
+//     g_pair, lse, D) and the 16 key rows (k, v, their points) are staged
+//     in shared memory, rows padded to C+4 floats so the float4 reads of a
+//     quarter warp fall on distinct banks.
 //   * B: one block per (16 keys, head, frame), looping over query tiles;
 //     dk, dv and the point sums accumulate in shared memory.
 //   * C: one block per (16 query rows, 16 keys), looping over heads and,
 //     inside, frames; the tile's pair_z rows are staged once, dpz
 //     accumulates in shared memory per element, dbias in a register per
 //     head.
-//   * Rows and keys past N (the ragged last tile) are loaded as zeros and
-//     their elements forced to a = dl = 0, so N need not divide the tile.
-//     Pad rows (mask 0) are computed exactly as the reference does.
+// In all three, rows and keys past N (the ragged last tile) are loaded as
+// zeros and their elements forced to a = dl = 0, so N need not divide the
+// tile. Pad rows (mask 0) are computed exactly as the reference does.
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "ipa_tile.cuh"  // kernel A's layout; cp.async, mma, split
 
 namespace {
 
@@ -86,19 +114,7 @@ struct Dims {
   float c_qk, c_b, inf;
 };
 
-// Bump allocator over dynamic shared memory. With a null base it only
-// counts, so the host sizes a launch with the same code the kernel carves
-// with. Every buffer starts on a 16-byte boundary.
-struct Carver {
-  float* base;
-  size_t n = 0;
-  __host__ __device__ explicit Carver(float* b) : base(b) {}
-  __host__ __device__ float* take(size_t count) {
-    float* p = base ? base + n : nullptr;
-    n += (count + 3) & ~size_t(3);
-    return p;
-  }
-};
+using ipa_tc::Carver;  // bump allocator over dynamic shared memory
 
 // 16 query rows of one (frame, head): the operands of the element and of
 // the row-side sums.
@@ -267,112 +283,305 @@ __device__ inline float sum16(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// kernel A: dq, dqp, dhw rows. grid (ceil(N/16), H, F)
+// kernel A: dq, dqp, dhw rows, on the tensor cores. grid (H, F, ceil(N/32))
 // ---------------------------------------------------------------------------
+// The forward's layout (ipa_tile.cuh): a block of eight warps owns 32 query
+// rows of one (f, h), four warps per 16-row tile splitting its C channels in
+// quarters. A warp keeps its quarter of q and of g_o as A fragments (32
+// registers each at C = 256; the query points and g_opt wait in shared
+// memory) and per 16-key step computes its quarter of q.k^T and of g_o.v^T
+// (3xTF32); quarter 0 adds qp.kp^T (dist), quarter 1
+// g_opt.vp^T, quarters 2 and 3 the pair term g_pair_i.pz_ij of rows g and
+// g + 8 on the CUDA cores (lane (g, t) sums its pair channels t + 4m for all
+// 16 keys, then a reduce-scatter over the quad hands each lane the keys of
+// its fragment). After the exchange all four warps hold a and dl of the
+// tile; dl leaves its accumulators as the A fragment of dq += dl.k (each
+// warp its quarter of the channels, 3xTF32) and, in quarter 1, of dl.kp;
+// quarter 0 keeps the row sums of dl and of -0.5 dist dl.
 struct SmemA {
-  RowTile rt;
-  KeyTile kt;
-  float *dl;     // [16][17]
-  float *dq;     // [16][C]
-  float *dlkp;   // [16][P3q]
-  float *rowsum; // [16]
-  __host__ __device__ size_t carve(float* base, const Dims& d) {
-    Carver c(base);
-    rt.carve(c, d);
-    kt.carve(c, d);
-    dl = c.take(kTile * (kTile + 1));
-    dq = c.take(kTile * d.C);
-    dlkp = c.take(kTile * d.P3q);
-    rowsum = c.take(kTile);
-    return c.n;
+  ipa_tc::Common c;
+  float* qp;      // [kRows][kP3qs]: the block's query points
+  float* gopt;    // [kRows][kP3vs]: and their cotangents
+  float* rowsum;  // [kRows]
+  __host__ __device__ size_t carve(float* base, const ipa_tc::Layout& L) {
+    ipa_tc::Carver cv(base);
+    c.carve(cv, L);
+    qp = cv.take((size_t)ipa_tc::kRows * ipa_tc::kP3qs);
+    gopt = cv.take((size_t)ipa_tc::kRows * ipa_tc::kP3vs);
+    rowsum = cv.take(ipa_tc::kRows);
+    return cv.n;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-ipa_bwd_dq_kernel(Inputs in, Dims d, float* __restrict__ dq,
+template <int NT>
+__global__ void __launch_bounds__(ipa_tc::kThreads, 1)
+ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
                   float* __restrict__ dqp, float* __restrict__ dhw_rows) {
+  namespace tc = ipa_tc;
+  using tc::kKeys;
+  using tc::kKQ;
+  using tc::kNV;
   extern __shared__ float4 smem4[];
   SmemA s;
-  s.carve(reinterpret_cast<float*>(smem4), d);
-  const int i0 = blockIdx.x * kTile, h = blockIdx.y, f = blockIdx.z;
-  const int tid = threadIdx.x;
+  s.carve(reinterpret_cast<float*>(smem4), L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = warp >> 2, qt = warp & 3;  // query tile, channel quarter
+  const int h = blockIdx.x, f = blockIdx.y, i0 = blockIdx.z * tc::kRows;
+  const int r0 = i0 + 16 * tile;
+  const int col = qt * L.CQ;
+  const int rr = qt & 1;  // quarters 2, 3: pair rows g + 8 rr
+  const bool pair_warp = qt >= 2;
   const float w = in.hw[h];
-  const int C4 = d.C / 4;
+  const int n_steps = (L.N + kKeys - 1) / kKeys;
+  float* xch = s.c.xch + tile * tc::kXchFloats;
+  float* sksq = s.c.ksq + tile * kKeys;
+  float* spz = s.c.pz + (16 * tile + 8 * rr) * tc::kPZs;
 
-  load_row_tile(s.rt, in, d, f, h, i0);
-  for (int e = tid; e < kTile * d.C; e += kThreads) s.dq[e] = 0.f;
-  for (int e = tid; e < kTile * d.P3q; e += kThreads) s.dlkp[e] = 0.f;
-  __syncthreads();
-  tile_norms(&s.rt, nullptr, d);
+  const float* sqp = s.qp + 16 * tile * tc::kP3qs;  // this tile's rows
+  const float* sgopt = s.gopt + 16 * tile * tc::kP3vs;
 
-  const int r = tid / kTile, jr = tid % kTile, i = i0 + r;
-  float rowsum = 0.f, dhw = 0.f;
-  for (int j0 = 0; j0 < d.N; j0 += kTile) {
-    load_key_tile(s.kt, in, d, f, h, j0);
-    __syncthreads();
-    tile_norms(nullptr, &s.kt, d);
-    __syncthreads();
-    const int j = j0 + jr;
-    const bool valid = i < d.N && j < d.N;
-    const size_t ij = valid ? (size_t)i * d.N + j : 0;
-    const Elem e = element(s.rt, s.kt, r, jr, valid,
-                           valid ? in.bias[ij * d.H + h] : 0.f,
-                           in.pz + ij * d.Dz, w, d);
-    rowsum += e.dl;
-    dhw += -0.5f * e.dist * e.dl;
-    s.dl[r * (kTile + 1) + jr] = e.dl;
-    __syncthreads();
-    // dq += dl . k: a work item is 4 rows x 4 channels
-    for (int it = tid; it < (kTile / kWide) * C4; it += kThreads) {
-      const int rg = it / C4, c4 = it % C4;
-      float4 acc[kWide];
+  tc::zero_padding(s.c, L);
+  // the block's query points and their cotangents join the first group
+  tc::fetch_rows(s.qp, tc::kP3qs, tc::kMaxP3q, in.qp, f, h, i0, L.P3q, L);
+  tc::fetch_rows(s.gopt, tc::kP3vs, tc::kMaxP3v, in.gopt, f, h, i0, L.P3v, L);
+  tc::fetch_keys(s.c.tile(0, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias,
+                 f, h, i0, 0, true, L);
+  if (pair_warp) tc::fetch_pz(spz, in.pz, r0 + 8 * rr, 0, L);
+
+  // the tile's rows in registers
+  float qa[NT][4], goa[NT][4];
 #pragma unroll
-      for (int rr = 0; rr < kWide; ++rr)
-        acc[rr] = reinterpret_cast<const float4*>(s.dq + (rg * kWide + rr) * d.C)[c4];
-      for (int jj = 0; jj < kTile; ++jj) {
-        const float4 kk = reinterpret_cast<const float4*>(s.kt.k + jj * d.Cs)[c4];
+  for (int ks = 0; ks < NT; ++ks) {
+    tc::load_afrag(qa[ks], in.q, L, f, h, r0, L.C, col + 8 * ks, L.C);
+    tc::load_afrag(goa[ks], in.go, L, f, h, r0, L.C, col + 8 * ks, L.C);
+  }
+  float gp[tc::kMaxDz / 4];  // zeros past Dz
+  if (pair_warp) {
+    const int i = r0 + g + 8 * rr;
 #pragma unroll
-        for (int rr = 0; rr < kWide; ++rr) {
-          const float p = s.dl[(rg * kWide + rr) * (kTile + 1) + jj];
-          acc[rr].x = fmaf(p, kk.x, acc[rr].x);
-          acc[rr].y = fmaf(p, kk.y, acc[rr].y);
-          acc[rr].z = fmaf(p, kk.z, acc[rr].z);
-          acc[rr].w = fmaf(p, kk.w, acc[rr].w);
+    for (int m = 0; m < tc::kMaxDz / 4; ++m) {
+      const int d = t + 4 * m;
+      gp[m] = (i < L.N && d < L.Dz) ? in.gpair[tc::at(L, f, i, h, L.Dz, d)]
+                                    : 0.f;
+    }
+  }
+  float qm[2], lse[2], dvec[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    const bool ok = i < L.N;
+    qm[r] = ok ? in.mask[(size_t)f * L.N + i] : 0.f;
+    lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.N + i] : 0.f;
+    dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.N + i] : 0.f;
+  }
+
+  float acc[NT][4], dlkp[kKQ][4];
+  float rowsum[2] = {0.f, 0.f}, dhw[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kKQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dlkp[n][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int j0 = step * kKeys;
+    const tc::KeyTile kt = s.c.tile(step & 1, L);
+    if (pair_warp)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    tc::fetch_keys(s.c.tile((step + 1) & 1, L), in.k, in.v, in.kp, in.vp,
+                   in.mask, in.bias, f, h, i0, j0 + kKeys, step + 1 < n_steps,
+                   L);
+
+    // each warp's share of the products into the exchange
+    {
+      float x[2][4];
+      tc::qk_partial<NT>(
+          x,
+          [&](int ks, float (&a)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+          },
+          kt.k, col, L);
+      tc::xput(xch, tc::kQK + qt, x);
+      tc::qk_partial<NT>(
+          x,
+          [&](int ks, float (&a)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = goa[ks][e];
+          },
+          kt.v, col, L);
+      tc::xput(xch, tc::kGV + qt, x);
+    }
+    if (qt == 0) {
+      float qpa[kKQ][4], qsq[2], dist[2][4];
+#pragma unroll
+      for (int ks = 0; ks < kKQ; ++ks)
+        tc::smem_afrag(qpa[ks], sqp, tc::kP3qs, 8 * ks);
+      tc::row_norms(qsq, qpa);
+      tc::key_norms(sksq, kt, L);
+      __syncwarp();
+      tc::point_dist(dist, qpa, qsq, sksq, kt, L);
+      tc::xput(xch, tc::kDist, dist);
+    } else if (qt == 1) {
+      // g_opt . vp^T, 3xTF32
+      float gvp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gvp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kNV; ++ks) {  // zeros past Pv*3
+        float a[4];
+        tc::smem_afrag(a, sgopt, tc::kP3vs, 8 * ks);
+        uint32_t ah[4], al[4];
+        tc::split4(a, ah, al);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t bh[2], bl[2];
+          tc::bfrag_rows(kt.vp, tc::kP3vs, n, 8 * ks, bh, bl);
+          mma3(gvp[n], ah, al, bh, bl);
         }
       }
+      tc::xput(xch, tc::kGVP, gvp);
+    } else {
+      // g_pair_i . pz_ij of row g + 8 rr: sums over this lane's pair
+      // channels, then a reduce-scatter over the quad: keys (jj & 7) < 4 to
+      // lanes t < 2 and the rest to t >= 2, then odd key pairs to odd t
+      cp_async_wait<1>();  // this step's pair_z rows (the key tile may wait)
+      __syncwarp();
+      float part[kKeys];
+      const float* z = spz + g * tc::kPZs + t;  // zeros past Dz
 #pragma unroll
-      for (int rr = 0; rr < kWide; ++rr)
-        reinterpret_cast<float4*>(s.dq + (rg * kWide + rr) * d.C)[c4] = acc[rr];
+      for (int jj = 0; jj < kKeys; ++jj) {
+        float a = 0.f;
+#pragma unroll
+        for (int m = 0; m < tc::kMaxDz / 4; ++m)
+          a = fmaf(gp[m], z[jj * tc::kMaxDz + 4 * m], a);
+        part[jj] = a;
+      }
+      __syncwarp();  // every lane has read the rows
+      if (step + 1 < n_steps)
+        tc::fetch_pz(spz, in.pz, r0 + 8 * rr, j0 + kKeys, L);
+      const bool lo2 = t < 2, even = (t & 1) == 0;
+      float hf[8];
+#pragma unroll
+      for (int sl = 0; sl < 8; ++sl) {
+        const int kl = sl < 4 ? sl : sl + 4, kh = kl + 4;
+        const float send = lo2 ? part[kh] : part[kl];
+        const float recv = __shfl_xor_sync(0xffffffffu, send, 2);
+        hf[sl] = (lo2 ? part[kl] : part[kh]) + recv;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int sl = u < 2 ? u : u + 2, sh = sl + 2;
+        const float send = even ? hf[sh] : hf[sl];
+        const float recv = __shfl_xor_sync(0xffffffffu, send, 1);
+        // key 8 (u / 2) + 2 t + u % 2 of row g + 8 rr
+        tc::xset(xch, tc::kGPZ, u >> 1, 2 * rr + (u & 1),
+                 (even ? hf[sl] : hf[sh]) + recv);
+      }
     }
-    for (int it = tid; it < kTile * d.P3q; it += kThreads) {
-      const int rr = it / d.P3q, x = it % d.P3q;
-      float acc = s.dlkp[it];
-      for (int jj = 0; jj < kTile; ++jj)
-        acc = fmaf(s.dl[rr * (kTile + 1) + jj], s.kt.kp[jj * d.P3qs + x], acc);
-      s.dlkp[it] = acc;
+    bar_sync(1 + tile, 128);
+
+    // a and dl of rows g, g + 8 and keys 8 n + 2 t + {0, 1}; the four warps
+    // of the tile read the same operands from the exchange and compute the
+    // same values
+    float dl[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * n + 2 * t + (e & 1);
+        const bool valid = r0 + g + 8 * r < L.N && j0 + c < L.N;
+        const float dist = tc::xval(xch, tc::kDist, n, e);
+        const float l = tc::ipa_logit(
+            tc::xsum4(xch, tc::kQK, n, e),
+            kt.bias[(16 * tile + g + 8 * r) * tc::kBS + c], dist, qm[r],
+            kt.km[c], w, L);
+        const float a = expf(l - lse[r]);
+        const float v = a * ((tc::xsum4(xch, tc::kGV, n, e) +
+                              tc::xval(xch, tc::kGVP, n, e) +
+                              tc::xval(xch, tc::kGPZ, n, e)) -
+                             dvec[r]);
+        dl[n][e] = valid ? v : 0.f;
+        if (qt == 0) {
+          rowsum[r] += dl[n][e];
+          dhw[r] += -0.5f * dist * dl[n][e];
+        }
+      }
+
+    // dq += dl . k over this warp's channels, 3xTF32
+    uint32_t dh[2][4], dlo[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) tc::split_ctile(dl[ks], dh[ks], dlo[ks]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh[2], bl[2];
+        tc::bfrag_cols(kt.k, L.Cs, ks, col + 8 * n, bh, bl);
+        mma3(acc[n], dh[ks], dlo[ks], bh, bl);
+      }
     }
-    __syncthreads();  // the key tile and dl are rewritten by the next tile
-  }
-  rowsum = sum16(rowsum);
-  dhw = sum16(dhw);
-  if (jr == 0) {
-    s.rowsum[r] = rowsum;
-    if (i < d.N) dhw_rows[((size_t)f * d.H + h) * d.N + i] = dhw;
-  }
-  __syncthreads();
-  for (int e = tid; e < kTile * C4; e += kThreads) {
-    const int rr = e / C4, c4 = e % C4, ii = i0 + rr;
-    if (ii < d.N) {
-      const float4 a = reinterpret_cast<const float4*>(s.dq + rr * d.C)[c4];
-      reinterpret_cast<float4*>(dq + at(d, f, ii, h, d.C, 0))[c4] =
-          make_float4(d.c_qk * a.x, d.c_qk * a.y, d.c_qk * a.z, d.c_qk * a.w);
+    if (qt == 1) {
+      // sum_j dl_ij kp_j, 3xTF32 (zeros past Pq*3)
+#pragma unroll
+      for (int n = 0; n < kKQ; ++n) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bh[2], bl[2];
+          tc::bfrag_cols(kt.kp, tc::kP3qs, ks, 8 * n, bh, bl);
+          mma3(dlkp[n], dh[ks], dlo[ks], bh, bl);
+        }
+      }
     }
   }
-  for (int e = tid; e < kTile * d.P3q; e += kThreads) {
-    const int rr = e / d.P3q, x = e % d.P3q, ii = i0 + rr;
-    if (ii < d.N)
-      dqp[at(d, f, ii, h, d.P3q, x)] =
-          -w * (s.rowsum[rr] * s.rt.qp[rr * d.P3qs + x] - s.dlkp[e]);
+
+  // epilogue: rows g, g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (qt == 0) {
+      const float rs = quad_sum(rowsum[r]), hw = quad_sum(dhw[r]);
+      if (t == 0) {
+        s.rowsum[16 * tile + g + 8 * r] = rs;
+        if (i < L.N) dhw_rows[((size_t)f * L.H + h) * L.N + i] = hw;
+      }
+    }
+    if (i >= L.N) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = col + 8 * n + 2 * t;
+      if (c < L.C)
+        *reinterpret_cast<float2*>(dq + tc::at(L, f, i, h, L.C, c)) =
+            make_float2(L.c_qk * acc[n][2 * r], L.c_qk * acc[n][2 * r + 1]);
+    }
+  }
+  bar_sync(1 + tile, 128);  // the row sums are in shared memory
+  if (qt == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + g + 8 * r;
+      if (i >= L.N) continue;
+      const float rs = s.rowsum[16 * tile + g + 8 * r];
+#pragma unroll
+      for (int n = 0; n < kKQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < L.P3q) {
+            const size_t x = tc::at(L, f, i, h, L.P3q, c);
+            dqp[x] = -w * (rs * in.qp[x] - dlkp[n][2 * r + e]);
+          }
+        }
+    }
   }
 }
 
@@ -585,6 +794,11 @@ ipa_bwd_pair_kernel(Inputs in, Dims d, float* __restrict__ dbias,
   }
 }
 
+size_t smem_bytes_a(const ipa_tc::Layout& L) {
+  SmemA s;
+  return s.carve(nullptr, L) * sizeof(float);
+}
+
 template <typename Smem>
 size_t smem_bytes(const Dims& d) {
   Smem s;
@@ -626,7 +840,7 @@ int set_smem(Kernel kernel, size_t bytes) {
 // A dq like q, dqp like q_pts, dhw_rows [F, H, N]; B dk, dv like k, dkp
 // like k_pts, dvp like v_pts; C dbias [N, N, H], dpz [N, N, Dz]. All
 // float32 and contiguous; the C-wide tensors 16-byte aligned, C divisible
-// by 4.
+// by 4; for A also C <= 256, Pq*3 <= 32, Pv*3 <= 48 and Dz <= 32.
 #define IPA_BWD_INPUTS                                                       \
   const float *q, const float *k, const float *v, const float *q_pts,        \
       const float *k_pts, const float *v_pts, const float *bias,             \
@@ -646,10 +860,19 @@ int set_smem(Kernel kernel, size_t bytes) {
 extern "C" int ipa_attention_bwd_dq(IPA_BWD_INPUTS, float* dq, float* dqp,
                                     float* dhw_rows, IPA_BWD_SHAPES) {
   IPA_BWD_PACK
-  const size_t smem = smem_bytes<SmemA>(d);
-  if ((err = set_smem(ipa_bwd_dq_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, H, F);
-  ipa_bwd_dq_kernel<<<grid, kThreads, smem, stream>>>(in, d, dq, dqp, dhw_rows);
+  if (!ipa_tc::layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz))
+    return (int)cudaErrorInvalidValue;
+  const ipa_tc::Layout L =
+      ipa_tc::make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,
+                          (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);
+  const size_t smem = smem_bytes_a(L);
+  if (smem > (size_t)ipa_tc::kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = ipa_tc::tiles_for(C) == ipa_tc::kMaxNT
+                    ? ipa_bwd_dq_kernel<ipa_tc::kMaxNT>
+                    : ipa_bwd_dq_kernel<1>;
+  if ((err = set_smem(kernel, smem))) return err;
+  const dim3 grid(H, F, (N + ipa_tc::kRows - 1) / ipa_tc::kRows);
+  kernel<<<grid, ipa_tc::kThreads, smem, stream>>>(in, L, dq, dqp, dhw_rows);
   return (int)cudaGetLastError();
 }
 
@@ -678,7 +901,9 @@ extern "C" long long ipa_attention_bwd_smem(int which, int C, int Pq, int Pv,
                                             int Dz) {
   const Dims d = make_dims(1, 1, 1, C, Pq, Pv, Dz, 0.f, 0.f, 0.f);
   switch (which) {
-    case 0: return (long long)smem_bytes<SmemA>(d);
+    case 0:
+      return (long long)smem_bytes_a(ipa_tc::make_layout(
+          1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f, true));
     case 1: return (long long)smem_bytes<SmemB>(d);
     case 2: return (long long)smem_bytes<SmemC>(d);
     default: return -1;

@@ -1,4 +1,5 @@
-// Invariant Point Attention forward, flash style, for sm_90a.
+// Invariant Point Attention forward, flash style, for sm_90a, on the TF32
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel dynamicpdb_tpu/ops/pallas/ipa_attention.py
 // _ipa_attn_kernel (:39). For every frame f, head h and query row i:
@@ -17,269 +18,296 @@
 // and no key is skipped. Only keys past the end of the array (j >= N, the
 // ragged last tile) are excluded.
 //
-// Bound on an H100: about 1.2 kFLOP per (f, h, i, j), 1.28 GFLOP at the
-// release shapes (F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32), against
-// about 30 MB of compulsory traffic: float32 arithmetic bounds it (~19 us
-// at 67 TFLOP/s outside the tensor cores, ~9 us for the bytes).
+// Bound on an H100 at the release shapes (F=2, N=256, H=8, C=256, Pq=8,
+// Pv=12, Dz=32): 1.28 GFLOP, 84% of it in q.k^T and p.v, against ~30 MB of
+// compulsory traffic. Every operation on the CUDA cores (67 TFLOP/s
+// float32): 0.019 ms. The products on the TF32 tensor cores (495 TFLOP/s)
+// in the three passes below: 0.007 ms of arithmetic, so the bytes bound it,
+// 0.009 ms at 3.35 TB/s (chip_smoke.ipa_cost, bounds).
 //
-// Design (first version; correctness first, no tensor cores yet): one block
-// of 256 threads per (16 query rows, head, frame). The block walks the keys
-// in tiles of 32: a K tile and the key points are staged in shared memory,
-// each thread computes two logits of one row with float4 loads from rows
-// padded to C+4 floats (conflict-free across a quarter warp), the 16 threads
-// of a row reduce max and sum with shuffles, and the same shared buffer is
-// then refilled with the V tile for the value streams. All accumulators live
-// in shared memory, so any C divisible by 4 works. The pair stream reads
-// pair_z straight from global memory with consecutive threads on consecutive
-// channels (coalesced); at the release shapes pair_z (8 MB) stays in L2
-// across the F*H blocks that read it.
+// Passes. Every product runs on the tensor cores (mma.sync m16n8k8, TF32 in,
+// float32 accumulators) in three passes, lo.hi + hi.lo + hi.hi of operands
+// split into a TF32 high and low part (tf32_mma.cuh split): q.k^T (q, k
+// float32 inputs), qp.kp^T (24 wide), p.v and p.vp (36 wide; p is a float32
+// result). One pass misses IPA_ATOL = 1e-4 by 14-32x on o, o_pt, o_pair;
+// three passes with the tensor cores' truncating accumulation land at
+// 3e-6 to 1.4e-5 (tests/test_torch_ipa_precision.py emulates both). The pair
+// stream sum_j a_ij pz_ij is a different matrix per query row, no product
+// within one (f, h); it runs on the CUDA cores in float32.
+//
+// Layout (ipa_tile.cuh): one block of eight warps per (head, frame, 32
+// query rows), head fastest on the grid; each 16-row tile is owned by four
+// warps that split its C channels in quarters. A warp keeps its quarter of
+// q as A fragments (32 registers at C = 256) and of o as accumulators (32);
+// the logits and the online softmax (quad shuffles) are computed by all
+// four warps of a tile from the exchanged quarters of q.k^T, and the
+// probabilities leave the score accumulators as p.v's A fragments. Quarter
+// 0 adds the point distances (qp.kp^T) before the exchange, quarter 1 p.vp
+// after it, quarters 2 and 3 the pair stream of rows g and g + 8. ptxas:
+// 255 registers at C = 256 (205 at C <= 32), no spills; 172,800 bytes of
+// shared memory, one block an SM. What this does about the CUDA-core
+// version's limits:
+//   1. no tensor cores: q.k^T, p.v and the point products run on them;
+//   2. no overlap: every key step (k, v, points, mask, bias) comes by
+//      cp.async into the other of two buffers while the block computes, one
+//      block barrier a step; each pair warp's pair_z rows by cp.async, the
+//      next step's fetched as soon as this step's are read;
+//   3. strided bias reads: the head is the fastest grid axis, so the H
+//      blocks of a query tile read the 32-byte sectors of the [N, N, H] bias
+//      together, one DRAM read each, the other heads' floats from L2;
+//   4. pair_z re-read per block: the F H blocks of a query tile run
+//      together and share each pair_z tile in L2 (one DRAM read per call);
+//      a block reads its rows' tile once, 16-byte copies at Dz = 32;
+//   5. small tiles: 8 warps on 32 rows, two on each scheduler, 128 blocks
+//      at the release shapes.
+// Every loop runs to a compile-time bound (no branch in the tile code):
+// channels past C, point columns past Pq*3 and Pv*3, pair channels past Dz
+// are zeros, keys past N get -inf. C % 4 == 0 up to 256, Pq*3 <= 32,
+// Pv*3 <= 48, Dz <= 32 and every N run. The alternatives measured are in
+// PERF.md (PR 9): four warps of half the channels, q in shared memory, a
+// third key-tile buffer, loop bounds known only at run time.
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "ipa_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 16;     // query rows per block
-constexpr int kKeys = 32;     // keys per tile
-constexpr int kThreads = 256;
-constexpr int kRowThreads = kThreads / kRows;    // threads per row: 16
-constexpr int kKeysPerThread = kKeys / kRowThreads;  // 2
-constexpr float kNegInit = -1e30f;  // running-max start, as the TPU kernel
+using namespace ipa_tc;
 
-static_assert(kRowThreads == 16, "row reductions use 16-lane shuffles");
-static_assert(kKeys % kRowThreads == 0, "keys split evenly over a row");
-
-__host__ __device__ inline int padded_c(int C) { return C + 4; }
-__host__ __device__ inline int padded_p(int p) { return p | 1; }
-
-__host__ inline size_t smem_floats(int C, int P3q, int P3v, int Dz) {
-  const int Cs = padded_c(C), P3qs = padded_p(P3q);
-  return (size_t)kRows * Cs + (size_t)kKeys * Cs + (size_t)kRows * C +
-         (size_t)kRows * P3qs + (size_t)kKeys * P3qs + (size_t)kKeys * P3v +
-         2 * kRows + 2 * kKeys + (size_t)kRows * (kKeys + 1) + 3 * kRows +
-         (size_t)kRows * P3v + (size_t)kRows * Dz;
+__host__ __device__ size_t carve_fwd(Common& c, float* base,
+                                     const Layout& L) {
+  Carver cv(base);
+  c.carve(cv, L);
+  return cv.n;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-ipa_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ qp,
-                    const float* __restrict__ kp, const float* __restrict__ vp,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ pz,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ head_w, float* __restrict__ o,
-                    float* __restrict__ o_pt, float* __restrict__ o_pair,
-                    float* __restrict__ lse, int N, int H, int C, int P3q,
-                    int P3v, int Dz, float c_qk, float c_b, float inf) {
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+ipa_attn_fwd_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ qp,
+                         const float* __restrict__ kp,
+                         const float* __restrict__ vp,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ pz,
+                         const float* __restrict__ mask,
+                         const float* __restrict__ head_w,
+                         float* __restrict__ o, float* __restrict__ o_pt,
+                         float* __restrict__ o_pair, float* __restrict__ lse,
+                         Layout L) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int Cs = padded_c(C), P3qs = padded_p(P3q), C4 = C / 4;
-  // float4-addressed buffers first: every offset stays a multiple of 4
-  float* sQ = smem;                    // [kRows][Cs]
-  float* sKV = sQ + kRows * Cs;        // [kKeys][Cs]: K tile, then V tile
-  float* sO = sKV + kKeys * Cs;        // [kRows][C] accumulator
-  float* sQP = sO + kRows * C;         // [kRows][P3qs]
-  float* sKP = sQP + kRows * P3qs;     // [kKeys][P3qs]
-  float* sVP = sKP + kKeys * P3qs;     // [kKeys][P3v]
-  float* sQsq = sVP + kKeys * P3v;     // [kRows] |qp|^2
-  float* sQm = sQsq + kRows;           // [kRows] query mask
-  float* sKsq = sQm + kRows;           // [kKeys] |kp|^2
-  float* sKm = sKsq + kKeys;           // [kKeys] key mask
-  float* sP = sKm + kKeys;             // [kRows][kKeys + 1] probabilities
-  float* sM = sP + kRows * (kKeys + 1);  // [kRows] running max
-  float* sL = sM + kRows;              // [kRows] running denominator
-  float* sA = sL + kRows;              // [kRows] rescale of this tile
-  float* sOpt = sA + kRows;            // [kRows][P3v] accumulator
-  float* sOpair = sOpt + kRows * P3v;  // [kRows][Dz] accumulator
-
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int f = blockIdx.z;
+  Common s;
+  carve_fwd(s, reinterpret_cast<float*>(smem4), L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = warp >> 2, qt = warp & 3;  // query tile, channel quarter
+  const int h = blockIdx.x, f = blockIdx.y, i0 = blockIdx.z * kRows;
+  const int r0 = i0 + 16 * tile;  // first query row of this warp's tile
+  const int col = qt * L.CQ;      // first channel of this warp
+  const int rr = qt & 1;          // quarters 2, 3: pair rows g + 8 rr
+  const bool pair_warp = qt >= 2;
   const float w = head_w[h];
-  // element (f, n, h, d) of a [F, N, H, D] tensor: ((f*N + n)*H + h)*D + d
-  auto row = [&](int n) { return ((size_t)f * N + n) * H + h; };
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int n_steps = (L.N + kKeys - 1) / kKeys;
+  float* xch = s.xch + tile * kXchFloats;
+  float* sksq = s.ksq + tile * kKeys;
+  float* spz = s.pz + (16 * tile + 8 * rr) * kPZs;  // quarters 2, 3
 
-  for (int e = tid; e < kRows * C4; e += kThreads) {
-    const int r = e / C4, c4 = e % C4, i = i0 + r;
-    reinterpret_cast<float4*>(sQ + r * Cs)[c4] =
-        i < N ? reinterpret_cast<const float4*>(q + row(i) * C)[c4] : zero4;
-    reinterpret_cast<float4*>(sO + r * C)[c4] = zero4;
-  }
-  for (int e = tid; e < kRows * P3q; e += kThreads) {
-    const int r = e / P3q, x = e % P3q, i = i0 + r;
-    sQP[r * P3qs + x] = i < N ? qp[row(i) * P3q + x] : 0.f;
-  }
-  for (int e = tid; e < kRows * P3v; e += kThreads) sOpt[e] = 0.f;
-  for (int e = tid; e < kRows * Dz; e += kThreads) sOpair[e] = 0.f;
-  if (tid < kRows) {
-    const int i = i0 + tid;
-    sQm[tid] = i < N ? mask[(size_t)f * N + i] : 0.f;
-    sM[tid] = kNegInit;
-    sL[tid] = 0.f;
-  }
-  __syncthreads();
-  if (tid < kRows) {
-    float s = 0.f;
-    for (int x = 0; x < P3q; ++x) s += sQP[tid * P3qs + x] * sQP[tid * P3qs + x];
-    sQsq[tid] = s;
-  }
+  zero_padding(s, L);
+  fetch_keys(s.tile(0, L), k, v, kp, vp, mask, bias, f, h, i0, 0, true, L);
+  if (pair_warp) fetch_pz(spz, pz, r0 + 8 * rr, 0, L);
 
-  // logits phase: thread -> (row r, keys cg + 16 m)
-  const int r = tid / kRowThreads;
-  const int cg = tid % kRowThreads;
-  const int i = i0 + r;
-
-  for (int j0 = 0; j0 < N; j0 += kKeys) {
-    const int nk = min(kKeys, N - j0);  // valid keys in this tile
-    for (int e = tid; e < kKeys * C4; e += kThreads) {
-      const int jr = e / C4, c4 = e % C4;
-      reinterpret_cast<float4*>(sKV + jr * Cs)[c4] =
-          jr < nk ? reinterpret_cast<const float4*>(k + row(j0 + jr) * C)[c4]
-                  : zero4;
-    }
-    for (int e = tid; e < kKeys * P3q; e += kThreads) {
-      const int jr = e / P3q, x = e % P3q;
-      sKP[jr * P3qs + x] = jr < nk ? kp[row(j0 + jr) * P3q + x] : 0.f;
-    }
-    for (int e = tid; e < kKeys * P3v; e += kThreads) {
-      const int jr = e / P3v, x = e % P3v;
-      sVP[jr * P3v + x] = jr < nk ? vp[row(j0 + jr) * P3v + x] : 0.f;
-    }
-    if (tid < kKeys) sKm[tid] = tid < nk ? mask[(size_t)f * N + j0 + tid] : 0.f;
-    __syncthreads();
-    if (tid < kKeys) {
-      float s = 0.f;
-      for (int x = 0; x < P3q; ++x) s += sKP[tid * P3qs + x] * sKP[tid * P3qs + x];
-      sKsq[tid] = s;
-    }
-    __syncthreads();
-
-    float logit[kKeysPerThread];
+  // this warp's q channels as A fragments, the query points, the masks
+  float qa[NT][4];
 #pragma unroll
-    for (int m = 0; m < kKeysPerThread; ++m) logit[m] = 0.f;
-    const float4* q4 = reinterpret_cast<const float4*>(sQ + r * Cs);
-    for (int c4 = 0; c4 < C4; ++c4) {
-      const float4 a = q4[c4];
+  for (int ks = 0; ks < NT; ++ks)
+    load_afrag(qa[ks], q, L, f, h, r0, L.C, col + 8 * ks, L.C);
+  float qpa[kKQ][4], qsq[2];
+  if (qt == 0) {
 #pragma unroll
-      for (int m = 0; m < kKeysPerThread; ++m) {
-        const float4 b = reinterpret_cast<const float4*>(
-            sKV + (cg + kRowThreads * m) * Cs)[c4];
-        logit[m] = fmaf(a.x, b.x, logit[m]);
-        logit[m] = fmaf(a.y, b.y, logit[m]);
-        logit[m] = fmaf(a.z, b.z, logit[m]);
-        logit[m] = fmaf(a.w, b.w, logit[m]);
+    for (int ks = 0; ks < kKQ; ++ks)
+      load_afrag(qpa[ks], qp, L, f, h, r0, L.P3q, 8 * ks, L.P3q);
+    row_norms(qsq, qpa);
+  }
+  float qm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    qm[r] = i < L.N ? mask[(size_t)f * L.N + i] : 0.f;
+  }
+
+  float o_acc[NT][4], opt[kNV][4], opair[kMaxDz / 4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) opt[n][e] = 0.f;
+#pragma unroll
+  for (int m = 0; m < kMaxDz / 4; ++m) opair[m] = 0.f;
+  float m_run[2] = {kNegInit, kNegInit}, l_run[2] = {0.f, 0.f};
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int j0 = step * kKeys;
+    const KeyTile kt = s.tile(step & 1, L);
+    // this step's key tile has landed (quarters 2, 3 may still wait for
+    // pair_z), and every warp is done with the last step and so with the
+    // other buffer, which now takes the next step's tile
+    if (pair_warp)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    fetch_keys(s.tile((step + 1) & 1, L), k, v, kp, vp, mask, bias, f, h, i0,
+               j0 + kKeys, step + 1 < n_steps, L);
+
+    // each warp's share of the logits' products into the exchange
+    if (qt == 0) {
+      float dist[2][4];
+      key_norms(sksq, kt, L);
+      __syncwarp();
+      point_dist(dist, qpa, qsq, sksq, kt, L);
+      xput(xch, kDist, dist);
+    }
+    float sc[2][4];
+    qk_partial<NT>(
+        sc,
+        [&](int ks, float (&a)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+        },
+        kt.k, col, L);
+    xput(xch, kQK + qt, sc);
+    bar_sync(1 + tile, 128);
+
+    // logits of rows g, g + 8 and keys 8 n + 2 t + {0, 1}, then the online
+    // softmax; the four warps of the tile read the same operands from the
+    // exchange and compute the same values
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * n + 2 * t + (e & 1);
+        const float l = ipa_logit(
+            xsum4(xch, kQK, n, e), kt.bias[(16 * tile + g + 8 * r) * kBS + c],
+            xval(xch, kDist, n, e), qm[r], kt.km[c], w, L);
+        sc[n][e] = j0 + c < L.N ? l : -INFINITY;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                       fmaxf(sc[1][2 * r], sc[1][2 * r + 1]));
+      // finite: key j0 is real
+      const float m_new = fmaxf(m_run[r], quad_max(mx));
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = expf(sc[n][e] - m_new);  // 0 past N
+          sc[n][e] = p;
+          l_run[r] += p;
+        }
+    }
+
+    if (pair_warp) {
+      // o_pair of row g + 8 rr += sum_j p_ij pz_ij: lane (g, t) owns pair
+      // channels t + 4 m; each key's p comes from its quad by shuffle. The
+      // tile is read first in the step, so that its refetch has the rest.
+      const float a_rr = rr ? alpha[1] : alpha[0];
+#pragma unroll
+      for (int m = 0; m < kMaxDz / 4; ++m) opair[m] *= a_rr;
+      cp_async_wait<1>();  // this step's pair_z rows (the key tile may wait)
+      __syncwarp();
+      const float* z = spz + g * kPZs + t;  // zeros past Dz
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const int n = jj >> 3, e = jj & 1;
+        const float mine = rr ? sc[n][2 + e] : sc[n][e];
+        const float pv = __shfl_sync(0xffffffffu, mine,
+                                     (lane & ~3) | ((jj & 7) >> 1));
+#pragma unroll
+        for (int m = 0; m < kMaxDz / 4; ++m)
+          opair[m] = fmaf(pv, z[jj * kMaxDz + 4 * m], opair[m]);
+      }
+      __syncwarp();  // every lane has read the rows
+      if (step + 1 < n_steps) fetch_pz(spz, pz, r0 + 8 * rr, j0 + kKeys, L);
+    }
+
+    // o += p . v over this warp's channels, 3xTF32
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) split_ctile(sc[ks], ph[ks], pl[ks]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh[2], bl[2];
+        bfrag_cols(kt.v, L.Cs, ks, col + 8 * n, bh, bl);
+        mma3(o_acc[n], ph[ks], pl[ks], bh, bl);
       }
     }
-    float tile_max = -INFINITY;
+    if (qt == 1) {
+      // o_pt += p . vp, 3xTF32 (zeros past Pv*3)
 #pragma unroll
-    for (int m = 0; m < kKeysPerThread; ++m) {
-      const int jr = cg + kRowThreads * m, j = j0 + jr;
-      float cross = 0.f;
-      for (int x = 0; x < P3q; ++x)
-        cross = fmaf(sQP[r * P3qs + x], sKP[jr * P3qs + x], cross);
-      float l = c_qk * logit[m];
-      l += c_b * ((i < N && jr < nk) ? bias[((size_t)i * N + j) * H + h] : 0.f);
-      l += -0.5f * w * (sQsq[r] + sKsq[jr] - 2.f * cross);
-      l += inf * (sQm[r] * sKm[jr] - 1.f);
-      logit[m] = jr < nk ? l : -INFINITY;
-      tile_max = fmaxf(tile_max, logit[m]);
-    }
-    for (int off = kRowThreads / 2; off > 0; off >>= 1)
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-    const float m_prev = sM[r];
-    const float m_new = fmaxf(m_prev, tile_max);
-    float psum = 0.f;
+      for (int n = 0; n < kNV; ++n) {
 #pragma unroll
-    for (int m = 0; m < kKeysPerThread; ++m) {
-      const float p = expf(logit[m] - m_new);
-      sP[r * (kKeys + 1) + cg + kRowThreads * m] = p;
-      psum += p;
-    }
-    for (int off = kRowThreads / 2; off > 0; off >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    __syncthreads();  // every read of sM and of the K tile is done
-    if (cg == 0) {
-      const float alpha = expf(m_prev - m_new);
-      sA[r] = alpha;
-      sM[r] = m_new;
-      sL[r] = sL[r] * alpha + psum;
-    }
-    for (int e = tid; e < kKeys * C4; e += kThreads) {
-      const int jr = e / C4, c4 = e % C4;
-      reinterpret_cast<float4*>(sKV + jr * Cs)[c4] =
-          jr < nk ? reinterpret_cast<const float4*>(v + row(j0 + jr) * C)[c4]
-                  : zero4;
-    }
-    __syncthreads();
-
-    // o: a work item is 4 rows x 4 channels, so one V load feeds 16 FMAs
-    for (int e = tid; e < (kRows / 4) * C4; e += kThreads) {
-      const int rg = e / C4, c4 = e % C4;
-      float4 acc[4];
+        for (int e = 0; e < 4; ++e) opt[n][e] *= alpha[e >> 1];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const int rw = rg * 4 + rr;
-        const float a = sA[rw];
-        const float4 cur = reinterpret_cast<const float4*>(sO + rw * C)[c4];
-        acc[rr] = make_float4(cur.x * a, cur.y * a, cur.z * a, cur.w * a);
-      }
-      for (int jr = 0; jr < nk; ++jr) {
-        const float4 vv = reinterpret_cast<const float4*>(sKV + jr * Cs)[c4];
-#pragma unroll
-        for (int rr = 0; rr < 4; ++rr) {
-          const float p = sP[(rg * 4 + rr) * (kKeys + 1) + jr];
-          acc[rr].x = fmaf(p, vv.x, acc[rr].x);
-          acc[rr].y = fmaf(p, vv.y, acc[rr].y);
-          acc[rr].z = fmaf(p, vv.z, acc[rr].z);
-          acc[rr].w = fmaf(p, vv.w, acc[rr].w);
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bh[2], bl[2];
+          bfrag_cols(kt.vp, kP3vs, ks, 8 * n, bh, bl);
+          mma3(opt[n], ph[ks], pl[ks], bh, bl);
         }
       }
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        reinterpret_cast<float4*>(sO + (rg * 4 + rr) * C)[c4] = acc[rr];
     }
-    for (int e = tid; e < kRows * P3v; e += kThreads) {
-      const int rw = e / P3v, x = e % P3v;
-      float acc = sOpt[e] * sA[rw];
-      for (int jr = 0; jr < nk; ++jr)
-        acc = fmaf(sP[rw * (kKeys + 1) + jr], sVP[jr * P3v + x], acc);
-      sOpt[e] = acc;
-    }
-    for (int e = tid; e < kRows * Dz; e += kThreads) {
-      const int rw = e / Dz, d = e % Dz, ii = i0 + rw;
-      float acc = sOpair[e] * sA[rw];
-      if (ii < N) {
-        const float* pzr = pz + ((size_t)ii * N + j0) * Dz + d;
-        for (int jr = 0; jr < nk; ++jr)
-          acc = fmaf(sP[rw * (kKeys + 1) + jr], pzr[(size_t)jr * Dz], acc);
-      }
-      sOpair[e] = acc;
-    }
-    __syncthreads();  // sKV, sP and sA are rewritten by the next tile
   }
 
-  for (int e = tid; e < kRows * C4; e += kThreads) {
-    const int rw = e / C4, c4 = e % C4, ii = i0 + rw;
-    if (ii < N) {
-      const float inv = 1.f / sL[rw];
-      const float4 a = reinterpret_cast<const float4*>(sO + rw * C)[c4];
-      reinterpret_cast<float4*>(o + row(ii) * C)[c4] =
-          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  // epilogue: normalise and store rows g, g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const float inv = 1.f / l;
+    const int i = r0 + g + 8 * r;
+    if (i >= L.N) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = col + 8 * n + 2 * t;
+      if (c < L.C)
+        *reinterpret_cast<float2*>(o + at(L, f, i, h, L.C, c)) =
+            make_float2(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
+    }
+    if (qt == 0 && t == 0)
+      lse[((size_t)f * L.H + h) * L.N + i] = m_run[r] + logf(l);
+    if (qt == 1) {
+#pragma unroll
+      for (int n = 0; n < kNV; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < L.P3v)
+            o_pt[at(L, f, i, h, L.P3v, c)] = opt[n][2 * r + e] * inv;
+        }
+    }
+    if (pair_warp && r == rr) {
+#pragma unroll
+      for (int m = 0; m < kMaxDz / 4; ++m) {
+        const int d = t + 4 * m;
+        if (d < L.Dz) o_pair[at(L, f, i, h, L.Dz, d)] = opair[m] * inv;
+      }
     }
   }
-  for (int e = tid; e < kRows * P3v; e += kThreads) {
-    const int rw = e / P3v, x = e % P3v, ii = i0 + rw;
-    if (ii < N) o_pt[row(ii) * P3v + x] = sOpt[e] * (1.f / sL[rw]);
-  }
-  for (int e = tid; e < kRows * Dz; e += kThreads) {
-    const int rw = e / Dz, d = e % Dz, ii = i0 + rw;
-    if (ii < N) o_pair[row(ii) * Dz + d] = sOpair[e] * (1.f / sL[rw]);
-  }
-  if (tid < kRows && i0 + tid < N)
-    lse[((size_t)f * H + h) * N + i0 + tid] = sM[tid] + logf(sL[tid]);
 }
 
 }  // namespace
@@ -289,7 +317,8 @@ ipa_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q_pts, k_pts [F, N, H, Pq, 3]; v_pts [F, N, H, Pv, 3]; bias [N, N, H];
 // pair_z [N, N, Dz]; mask [F, N]; head_weights [H]; outputs o [F, N, H, C],
 // o_pt [F, N, H, Pv, 3], o_pair [F, N, H, Dz], lse [F, H, N]. All float32,
-// contiguous; q, k, v and o 16-byte aligned, C divisible by 4.
+// contiguous; q, k, v and o 16-byte aligned; C divisible by 4 and at most
+// 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32.
 extern "C" int ipa_attention_fwd(
     const float* q, const float* k, const float* v, const float* q_pts,
     const float* k_pts, const float* v_pts, const float* bias,
@@ -297,21 +326,36 @@ extern "C" int ipa_attention_fwd(
     float* o, float* o_pt, float* o_pair, float* lse, int F, int N, int H,
     int C, int Pq, int Pv, int Dz, float c_qk, float c_b, float inf,
     int device, cudaStream_t stream) {
-  if (F < 1 || N < 1 || H < 1 || C < 4 || C % 4 != 0 || Pq < 1 || Pv < 1 ||
-      Dz < 1 || H > 65535 || F > 65535)
+  if (F < 1 || F > 65535 || !layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz) ||
+      (N + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
+  const Layout L =
+      make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,
+                  (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);
+  Common none;
+  const size_t smem = carve_fwd(none, nullptr, L) * sizeof(float);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_floats(C, 3 * Pq, 3 * Pv, Dz) * sizeof(float);
-  err = cudaFuncSetAttribute(ipa_attn_fwd_kernel,
+  auto kernel = tiles_for(C) == kMaxNT ? ipa_attn_fwd_kernel<kMaxNT>
+                                       : ipa_attn_fwd_kernel<1>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kRows - 1) / kRows, H, F);
-  ipa_attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, F, (N + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
       q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights, o, o_pt,
-      o_pair, lse, N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf);
+      o_pair, lse, L);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block (bytes) at these widths.
+extern "C" long long ipa_attention_fwd_smem(int C, int Pq, int Pv, int Dz) {
+  const Layout L = make_layout(1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f,
+                               true);
+  Common none;
+  return (long long)(carve_fwd(none, nullptr, L) * sizeof(float));
 }
 
 extern "C" const char* ipa_attention_error_string(int code) {

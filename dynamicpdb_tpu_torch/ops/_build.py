@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and includes
 no PyTorch or CUTLASS header, so one ``nvcc`` call compiles it into a shared
 library in seconds; ``ctypes`` loads it. Libraries are cached in ``build/``
-inside the package under a digest of the source and the flags, so an edit
-rebuilds and an unchanged source is compiled once per checkout. Several
-sources build in parallel, one ``nvcc`` process each.
+inside the package under a digest of the source, of every ``csrc/`` header
+it includes (directly or through another header) and of the flags, so an
+edit to any of them rebuilds and an unchanged source is compiled once per
+checkout. Several sources build in parallel, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,9 +47,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[str]:
+    """``<name>.cu`` and the ``csrc/`` headers it includes, directly or
+    through another header, each once, in the order they are reached."""
+    order, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        path = os.path.join(CSRC_DIR, rel)
+        if rel in order or not os.path.exists(path):
+            continue
+        order.append(rel)
+        with open(path, "rb") as f:
+            todo.extend(m.decode() for m in _INCLUDE.findall(f.read()))
+    return order
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for rel in sources(name):
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

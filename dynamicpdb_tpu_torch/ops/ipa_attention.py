@@ -24,10 +24,13 @@ Bounds on an H100 (float32 outside the tensor cores, 67 TFLOP/s): the
 forward does about 1.2 kFLOP per (frame, head, query, key), the three
 backward kernels about 1.8, 2.4 and 1.3 kFLOP, each against 30-40 MB of
 compulsory traffic at the release shapes, so arithmetic bounds all four
-(about 19, 28, 37 and 20 us). The kernels keep every N x N quantity in
-shared memory and registers, so traffic stays near the compulsory bytes;
-they run on the CUDA cores in float32, the tensor cores are left for a
-later version.
+(about 19, 28, 37 and 20 us); with the products on the TF32 tensor cores
+in three passes, about 9 (the bytes), 12, 15 and 12 us. The kernels keep
+every N x N quantity in shared memory and registers, so traffic stays near
+the compulsory bytes. The forward and dq run their products on the tensor
+cores (3xTF32, float32 accuracy), which bounds their widths: C <= 256,
+Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``; the wrappers raise
+past them); dk/dv and the pair kernel run on the CUDA cores in float32.
 
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
 ``bwd_pair_launches`` count the kernel launches of this process; a run
@@ -157,6 +160,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.ipa_attention_fwd.restype = i
         lib.ipa_attention_error_string.argtypes = [i]
         lib.ipa_attention_error_string.restype = ctypes.c_char_p
+        lib.ipa_attention_fwd_smem.argtypes = [i] * 4
+        lib.ipa_attention_fwd_smem.restype = ctypes.c_longlong
     else:
         for fn, n_out in (("ipa_attention_bwd_dq", 3),
                           ("ipa_attention_bwd_dkv", 4),
@@ -192,6 +197,18 @@ def _check_kernel_inputs(fn: str, named: dict, expected: dict, C: int):
             raise ValueError(f"{fn}: {name} is not contiguous")
     if C % 4:
         raise ValueError(f"{fn}: C={C} is not a multiple of 4")
+
+
+# the widest operands the tensor-core kernels (forward, dq) take: C, Pq*3,
+# Pv*3 and Dz (csrc/ipa_tile.cuh kMaxC, kMaxP3q, kMaxP3v, kMaxDz)
+TILE_LIMITS = {"C": 256, "Pq*3": 32, "Pv*3": 48, "Dz": 32}
+
+
+def _check_tile_limits(fn: str, C: int, P3q: int, P3v: int, Dz: int):
+    for name, val in zip(TILE_LIMITS, (C, P3q, P3v, Dz)):
+        if val > TILE_LIMITS[name]:
+            raise ValueError(f"{fn}: {name}={val} is above "
+                             f"{TILE_LIMITS[name]}, the most the kernel takes")
 
 
 def _launch(lib, fn: str, error_string, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk,
@@ -233,6 +250,7 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     }
     _check_kernel_inputs("ipa_attention", dict(zip(INPUT_NAMES, args)),
                          expected, C)
+    _check_tile_limits("ipa_attention", C, 3 * Pq, 3 * Pv, Dz)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("ipa_attention: q, k and v must be 16-byte aligned")
 
@@ -251,10 +269,12 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
 BWD_INPUT_NAMES = INPUT_NAMES + ("lse", "dvec", "g_o", "g_opt", "g_pair")
 
 
-def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
+def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf,
+              tiled=False):
     """Run backward kernel ``fn`` (or ``plain`` on the CPU) on the 15
     backward inputs (points flattened to P*3); ``out_shapes(F, N, H, C,
-    P3q, P3v, Dz)`` gives the shapes of its outputs."""
+    P3q, P3v, Dz)`` gives the shapes of its outputs; ``tiled``: the kernel
+    has the tensor-core kernels' width limits."""
     device = _device_of(fn, inputs)
     if device.type == "cpu":
         return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf)
@@ -273,6 +293,8 @@ def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
     }
     named = dict(zip(BWD_INPUT_NAMES, inputs))
     _check_kernel_inputs(fn, named, expected, C)
+    if tiled:
+        _check_tile_limits(fn, C, P3q, P3v, Dz)
     if any(named[n].data_ptr() % 16 for n in ("q", "k", "v", "g_o")):
         raise ValueError(f"{fn}: q, k, v and g_o must be 16-byte aligned")
     outs = [torch.empty(shape, dtype=torch.float32, device=device)
@@ -292,7 +314,7 @@ def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
         "ipa_attention_bwd_dq", ipa_bwd_dq_plain,
         lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
                                           (F, H, N)),
-        inputs, c_qk, c_b, inf)
+        inputs, c_qk, c_b, inf, tiled=True)
     if inputs[0].is_cuda:
         bwd_dq_launches += 1
     return out

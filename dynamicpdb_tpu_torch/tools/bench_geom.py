@@ -111,14 +111,14 @@ def gated_attention_mm(x, qg_w, qg_b, kv_w, kv_b, bias, c, scale, mm,
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-def _load(package: str):
-    """(chip_smoke of this checkout, geom_attention of ``package``)."""
+def _load(package: str, module: str = "geom_attention"):
+    """(chip_smoke of this checkout, ops.``module`` of ``package``)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sys.path.insert(0, os.path.abspath(package))
-    mod = importlib.import_module("dynamicpdb_tpu_torch.ops.geom_attention")
+    mod = importlib.import_module(f"dynamicpdb_tpu_torch.ops.{module}")
     return smoke, mod
 
 

@@ -19,7 +19,8 @@ NAMES = ("q", "k", "v", "q_pts", "k_pts", "v_pts", "bias", "pair_z", "mask",
          "head_weights")
 
 
-def make_inputs(seed, F=2, N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3):
+def make_inputs(seed, F=2, N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3,
+                lead_masked=0):
     rng = np.random.default_rng(seed)
 
     def f32(*s):
@@ -28,6 +29,7 @@ def make_inputs(seed, F=2, N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3):
     mask = np.ones((F, N), np.float32)
     if masked:
         mask[:, N - masked:] = 0.0
+    mask[:, :lead_masked] = 0.0
     d = dict(
         q=f32(F, N, H, C), k=f32(F, N, H, C), v=f32(F, N, H, C),
         q_pts=f32(F, N, H, Pq, 3), k_pts=f32(F, N, H, Pq, 3),
@@ -59,12 +61,29 @@ def cuda():
     return torch.device("cuda")
 
 
+# The IPA kernels' shapes, forward and backward alike: the release widths
+# at N = 256 (the last 56 residues pad), a ragged 203, N = 5 and 16 (inside
+# one 32-row block and one 16-key step) and a long ragged 611; the tiny
+# width (C = 8) with and without pad rows; and the first 40 residues pad, so
+# that every row's first key steps are all pad and its online softmax
+# starts from a running max near -1e5.
+RELEASE_WIDTHS = dict(H=8, C=256, Pq=8, Pv=12, Dz=32)
+IPA_SHAPES = {
+    "release": dict(N=256, masked=56, **RELEASE_WIDTHS),
+    "ragged": dict(N=203, masked=11, **RELEASE_WIDTHS),
+    "N5": dict(N=5, masked=1, **RELEASE_WIDTHS),
+    "N16": dict(N=16, masked=3, **RELEASE_WIDTHS),
+    "long-ragged": dict(N=611, masked=13, **RELEASE_WIDTHS),
+    "tiny": dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=0),
+    "tiny-masked": dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=5),
+    "first-key-tile-pad": dict(N=203, masked=5, lead_masked=40,
+                               **RELEASE_WIDTHS),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    dict(N=256, H=8, C=256, Pq=8, Pv=12, Dz=32, masked=56),  # release
-    dict(N=203, H=8, C=256, Pq=8, Pv=12, Dz=32, masked=11),  # ragged
-    dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=0),  # tiny
-])
+@pytest.mark.parametrize("shape", list(IPA_SHAPES.values()),
+                         ids=list(IPA_SHAPES))
 def test_kernel_matches_plain(cuda, shape):
     d, c_qk = make_inputs(3, F=2, **shape)
     args = _torch(d, cuda)
@@ -86,6 +105,12 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     d, c_qk = make_inputs(4, C=6)  # C not a multiple of 4
     with pytest.raises(ValueError, match="multiple of 4"):
         ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
+    # past the tensor-core kernels' widths (ops.ipa_attention.TILE_LIMITS)
+    for over, name in ((dict(C=260), "C=260"), (dict(Pq=11), r"Pq\*3=33"),
+                       (dict(Pv=17), r"Pv\*3=51"), (dict(Dz=33), "Dz=33")):
+        d, c_qk = make_inputs(4, **over)
+        with pytest.raises(ValueError, match=f"{name} is above"):
+            ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
     d, c_qk = make_inputs(4)
     args = _torch(d, cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -95,18 +120,11 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
                               .transpose(0, 1), *args[1:], c_qk)
 
 
-BWD_SHAPES = [
-    dict(N=256, H=8, C=256, Pq=8, Pv=12, Dz=32, masked=56),  # release
-    dict(N=203, H=8, C=256, Pq=8, Pv=12, Dz=32, masked=11),  # ragged
-    dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=5),  # tiny
-]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("zero_pad", [True, False],
                          ids=["pad-cotangents-zero", "pad-cotangents-random"])
-@pytest.mark.parametrize("shape", BWD_SHAPES,
-                         ids=["release", "ragged", "tiny"])
+@pytest.mark.parametrize("shape", list(IPA_SHAPES.values()),
+                         ids=list(IPA_SHAPES))
 def test_backward_kernels_match_plain(cuda, shape, zero_pad):
     """Each backward kernel against its plain version on the same inputs
     (tolerances and their reasons: chip_smoke.BWD_RTOL, BWD_PAD_RTOL)."""
@@ -174,6 +192,16 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     bad[6] = bad[6].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
+    # dq runs on the tensor cores: C at most 256 (dk/dv and pair take it)
+    args, c_qk = chip_smoke.ipa_inputs(torch, cuda, N=16, H=2, C=260, Pq=4,
+                                       Pv=6, Dz=4, masked=3, seed=9)
+    outs = (torch.zeros_like(args[0]), torch.zeros_like(args[5]),
+            torch.zeros((2, 16, 2, 4), device=cuda),
+            torch.zeros((2, 2, 16), device=cuda))
+    inputs = ipa_mod.backward_inputs(tuple(args) + outs,
+                                     *(torch.zeros_like(o) for o in outs[:3]))
+    with pytest.raises(ValueError, match="C=260 is above"):
+        ipa_mod.ipa_attention_bwd_dq(*inputs, c_qk=c_qk)
 
 
 # ---------------------------------------------------------------------------
