@@ -64,7 +64,7 @@
 // channels past C, point columns past Pq*3 and Pv*3, pair channels past Dz
 // are zeros, keys past N get -inf. C % 4 == 0 up to 256, Pq*3 <= 32,
 // Pv*3 <= 48, Dz <= 32 and every N run. The alternatives measured are in
-// PERF.md (PR 9): four warps of half the channels, q in shared memory, a
+// PERF.md §6: four warps of half the channels, q in shared memory, a
 // third key-tile buffer, loop bounds known only at run time.
 #include <cuda_runtime.h>
 

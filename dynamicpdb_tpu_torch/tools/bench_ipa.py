@@ -15,7 +15,7 @@ line per kernel. Inputs, timer and loader are ``chip_smoke.py``'s and
 
 ``--package DIR`` times the ``dynamicpdb_tpu_torch`` package under DIR
 instead of this checkout's, so that two versions of the kernels can be
-timed on one card in one session: run this script (as a script, not with
+timed on one card in one run: run this script (as a script, not with
 ``-m``) once against each, e.g. parent, change, change, parent.
 
 ``--ablate`` builds copies of this checkout's forward kernel with one part
@@ -159,7 +159,8 @@ def errors_vs_float64(fwd_args, bwd_inputs, c_qk, results: dict) -> dict:
 def emulations() -> dict:
     """The float32 schemes: one TF32 pass, 3xTF32 with the accumulator
     rounded toward zero after each 8-deep step (the model of the tensor
-    cores that PR 7's measurements fitted), and plain float32."""
+    cores' accumulation that tools/bench_geom.py --precision fitted to the
+    GeoFormer kernels), and plain float32."""
     return {
         "one_pass": bench_geom.mm_one_pass,
         "3xtf32_toward_zero": lambda a, b: bench_geom.mm_3xtf32(
