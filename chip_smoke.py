@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
   1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
      each, all started together, with ptxas's registers and spills; the
-     machine code of the GeoFormer kernels, the IPA forward and the IPA dq
-     kernel must hold tensor-core instructions (cuobjdump -sass);
+     machine code of the GeoFormer kernels, the IPA forward and the three
+     IPA backward kernels must hold tensor-core instructions (cuobjdump
+     -sass);
   2. kernels: the IPA forward and its three backward kernels against their
      plain PyTorch versions on the card, at the release widths and N = 5,
      16, 203, 256 and 611, at the tiny width, and with the first key tile
@@ -1320,10 +1321,13 @@ def main() -> int:
               f"in {fn}")
     check(len(mma) == 6 and all(mma.values()), "geom_attention.cu: a "
           f"kernel without tensor-core instructions: {mma}")
+    ipa_sass = {src: sass_mma_counts(_build.nvcc(), built[src].path)
+                for src in ("ipa_attention_fwd", "ipa_attention_bwd")}
     for src_name, kernel in (("ipa_attention_fwd", "ipa_attn_fwd_kernel"),
-                             ("ipa_attention_bwd", "ipa_bwd_dq_kernel")):
-        mma = {fn: n for fn, n in sass_mma_counts(
-            _build.nvcc(), built[src_name].path).items() if kernel in fn}
+                             ("ipa_attention_bwd", "ipa_bwd_dq_kernel"),
+                             ("ipa_attention_bwd", "ipa_bwd_dkv_kernel"),
+                             ("ipa_attention_bwd", "ipa_bwd_pair_kernel")):
+        mma = {fn: n for fn, n in ipa_sass[src_name].items() if kernel in fn}
         for fn, n in sorted(mma.items()):
             print(f"build: {src_name}.cu SASS: {n} tensor-core instructions "
                   f"in {fn}")

@@ -1,4 +1,4 @@
-// Invariant Point Attention backward, flash style, for sm_90a; kernel A (dq)
+// Invariant Point Attention backward, flash style, for sm_90a: three kernels
 // on the TF32 tensor cores.
 //
 // Replaces the three Pallas TPU kernels of
@@ -33,337 +33,203 @@
 //   C, per (i, j):     dbias_ijh = c_b sum_f dl_ij          (for every h)
 //                      dpz_ij    = sum_{f,h} a_ij g_pair_i
 //
-// The logit is built in the same order of operations in all four IPA kernels
-// (ipa_tile.cuh ipa_logit; element() below), so the a_ij recomputed here
-// agrees with the forward's softmax as far as the two computations of q.k
-// and qp.kp do: A computes both with the forward's own tensor-core code, to
-// the bit; B and C on the CUDA cores, to float32 rounding.
+// One logit: all three build it with the forward's code (ipa_tile.cuh:
+// qk_partial, point_dist or its transposed twin, row_norms, norms16,
+// ipa_logit, the quarters summed by xsum4), so a_ij is the forward's. On the
+// TPU the last grid axis runs in order and the kernels accumulate in scratch
+// across it. Here that axis becomes a loop inside one block, so every output
+// element is written by exactly one block: no atomics, the same bits from
+// run to run, and no buffer beyond the outputs (shared memory and registers
+// hold every N x N quantity).
 //
 // Bound on an H100 (2 FLOP per multiply-add): the tile recompute costs
 // about 1,220 FLOP per (f, h, i, j) element (q.k and g_o.v over C, the
 // point and pair terms); A adds about 560, B about 1,150, C about 65. At
 // the release shapes (F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32) that is
 // 1.87, 2.48 and 1.35 GFLOP, against 30-40 MB of compulsory traffic each.
-// On the CUDA cores (67 TFLOP/s float32) about 28, 37 and 20 us. With the
+// On the CUDA cores (67 TFLOP/s float32) 28, 37 and 20 us. With the
 // products on the TF32 tensor cores (495 TFLOP/s) in three passes and the
 // rest on the CUDA cores: 11.5, 15.2 and 12.0 us (the last the bytes;
 // chip_smoke.ipa_bwd_cost, bounds).
 //
-// On the TPU the last grid axis runs in order and the kernels accumulate in
-// scratch across it. Here that axis becomes a loop inside one block, so
-// every output element is written by exactly one block: no atomics, and
-// the result is the same from run to run.
+// Passes. Every float32 product on the tensor cores (mma.sync m16n8k8, TF32
+// in, float32 accumulators) runs in three passes of operands split into a
+// TF32 high and low part (3xTF32, tf32_mma.cuh split, mma3): at the release
+// widths one pass misses BWD_RTOL x each gradient's largest magnitude by
+// 6-9x, three land 23-45x inside it (tests/test_torch_ipa_precision.py).
+//   A: q.k^T, g_o.v^T, dl.k (C wide, 86% of A's operations), qp.kp^T (24
+//      wide), g_opt.vp^T (36), dl.kp (24);
+//   B: k.q^T, v.g_o^T, dl^T.q, a^T.g_o (C wide, 87% of B's operations),
+//      kp.qp^T, vp.g_opt^T, dl^T.qp, a^T.g_opt;
+//   C: q.k^T, g_o.v^T (C wide, 80% of C's operations), qp.kp^T,
+//      g_opt.vp^T.
+// On the CUDA cores in float32: the pair terms (a different matrix per
+// query row, no product within one (f, h)): g_pair_i.pz_ij in all three, and
+// in C dpz += a_ij g_pair_i, a rank-1 update a (f, h) in registers.
 //
-// Kernel A (dq) runs on the tensor cores in the forward's layout
-// (ipa_tile.cuh; its header below). Passes: q.k^T, g_o.v^T and dl.k (C
-// wide, 86% of A's operations), qp.kp^T (24), g_opt.vp^T (36) and dl.kp
-// (24) all in three TF32 passes (3xTF32: every operand is float32; at the
-// release widths one pass misses BWD_RTOL x max|dq| = 3.3e-4 by 8x, three
-// land at 1.4e-5, tests/test_torch_ipa_precision.py); the pair term
-// g_pair_i.pz_ij, a different matrix per query row, on the CUDA cores. What
-// the layout does about the CUDA-core version's limits:
-//   1. one thread per (row, key) element with two 256-long dot products
-//      alone: the three C-wide products are mma tiles, the A fragments of q
-//      and g_o held in registers, dl straight from its accumulators;
-//   2. dq += dl.k on the CUDA cores: on the tensor cores;
-//   3. synchronous loads: k, v, their points, the key mask and the bias
-//      tile come by cp.async into the other of two buffers, one block
-//      barrier a step; pair_z by cp.async in the warp that reads it;
-//   4. strided bias reads: the head is the fastest grid axis, so the H
-//      blocks of a query tile share each sector of the [N, N, H] bias in L2;
-//   5. spills: dq lives in mma accumulators, 32 registers a warp; ptxas
-//      250 registers at C = 256 (168 at C <= 32), no spills; 184,192 bytes
-//      of shared memory, one block of 8 warps an SM.
+// Limits: C % 4 == 0 up to 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32, every N
+// (rows and keys past N are zero-filled and their elements get a = dl = 0;
+// pad rows, mask 0, are computed exactly as the reference does). Every loop
+// of the tile code runs to a compile-time bound (ipa_tile.cuh Layout).
 //
-// Kernels B and C are the first version (correctness first, CUDA cores):
-//   * Both work on 16 x 16 element tiles with one thread per (query row,
-//     key) element: 256 threads. The 16 query rows (q, g_o, their points,
-//     g_pair, lse, D) and the 16 key rows (k, v, their points) are staged
-//     in shared memory, rows padded to C+4 floats so the float4 reads of a
-//     quarter warp fall on distinct banks.
-//   * B: one block per (16 keys, head, frame), looping over query tiles;
-//     dk, dv and the point sums accumulate in shared memory.
-//   * C: one block per (16 query rows, 16 keys), looping over heads and,
-//     inside, frames; the tile's pair_z rows are staged once, dpz
-//     accumulates in shared memory per element, dbias in a register per
-//     head.
-// In all three, rows and keys past N (the ragged last tile) are loaded as
-// zeros and their elements forced to a = dl = 0, so N need not divide the
-// tile. Pad rows (mask 0) are computed exactly as the reference does.
+// Kernel A (dq): the forward's row-stationary layout (ipa_tile.cuh), 32
+// query rows of one (f, h) a block, grid (H, F, ceil(N/32)); per 16-key step
+// the tile recompute (tile_products, tile_a_dl), then dq += dl.k from dl's
+// accumulators. ptxas 250 registers at C = 256 (168 at C <= 32), no
+// spills; 184,192 bytes of shared memory, one block of 8 warps an SM.
+//
+// Kernel B (dk/dv): key-stationary, 32 keys of one (f, h) a block (two
+// 16-key tiles, four channel-quarter warps each), head fastest on the grid
+// (H, F, ceil(N/32)): 128 blocks at the release shapes. The block's v rows
+// and key points stay in shared memory, its k as raw A fragments in
+// registers (each warp its quarter); 16 query rows a step arrive by
+// cp.async. Per step a warp computes its quarter of the transposed tile
+// k.q^T and v.g_o^T (keys x rows, M = keys), quarter 0 the point
+// distances, quarter 1 vp.g_opt^T, quarters 2 and 3 the pair term of keys
+// g + 8 rr; after the exchange a^T and dl^T sit in mma accumulators in the
+// layout of the next products' A fragments (rows as the permuted depth), so
+// dk += dl^T.q and dv += a^T.g_o take them without a trip through shared
+// memory, each warp its channel quarter; quarter 0 adds dl^T.qp and the
+// column sums, quarter 1 a^T.g_opt. What this does about the first
+// version's limits:
+//   1. one thread per (row, key) with two 256-long dot products alone: the
+//      four C-wide products are mma tiles, k's fragments held, v's read;
+//   2. dk and dv rewritten in shared memory on every row tile on the CUDA
+//      cores: in mma accumulators, 64 registers a lane;
+//   3. synchronous loads, four block barriers a tile: q, g_o, their points,
+//      g_pair, lse, D, the row mask and the bias tile [16 rows][32 keys]
+//      come by cp.async into the other of two buffers, one block barrier a
+//      step; each pair warp's pair_z tile [16 rows][8 keys][Dz] by cp.async
+//      (16-byte copies at Dz = 32, stored XOR-swizzled so the 16-byte reads
+//      of a quarter warp meet 8 distinct bank groups), refetched once read;
+//   4. strided bias and pair_z reads: the bias tile by 4-byte cp.async, the
+//      H blocks of a key block (head fastest) sharing each [N, N, H] sector
+//      and each pair_z tile in L2.
+// Departures from a literal double-buffered key-stationary design: a block
+// has 227 KB; v (33 KB), two row steps (87 KB), the pair tiles (64 KB) and
+// the exchange (22 KB) fill it, so k waits in registers, not shared memory,
+// and pair_z is single-buffered per warp, as in A. The tile is computed
+// transposed, not in the forward's orientation with a and dl passed through
+// shared memory: the same products, each element's passes in the same
+// order (mma3t), without that round trip. ptxas 255 registers at C = 256
+// (161 at C <= 32), no spills; 220,416 bytes of shared memory at the
+// release widths, one block an SM.
+//
+// Kernel C (pair): row-stationary, the (i, j) tile of 32 rows and 16 keys a
+// block, grid (ceil(N/16), ceil(N/32)): 128 blocks at the release shapes;
+// inside, the (head, frame) loop of the TPU kernel's grid. Per (h, f) it
+// runs A's tile recompute (tile_products, tile_a_dl: the same code) on
+// that (f, h)'s key tile, double-buffered by cp.async with the rows' points;
+// q and g_o arrive as A fragments straight from L2 into registers, the next
+// (f, h)'s loaded as soon as this one's products have read them. Quarter 0
+// keeps dbias over the frames in registers and writes it once per head;
+// every warp keeps dpz of its 8 elements for 8 pair channels (its quarter
+// of Dz) in registers, 64 a lane, rank-1 updates on the CUDA cores. The
+// tile's pair_z (64 KB at Dz = 32) is fetched once. What this does about
+// the first version's limits:
+//   1. the attention recomputed per element on the CUDA cores: A's tensor-
+//      core tile code;
+//   2. both tiles restaged with two block barriers for every (h, f): k, v,
+//      their points and the bias by cp.async into the other buffer while
+//      the block computes, one block barrier an (h, f); q and g_o not staged
+//      at all;
+//   3. dpz as rank-1 updates in shared memory per element: in registers.
+// Departure: a_ij of every (f, h) kept in shared memory for one dpz product
+// at the end would fit at the release shapes (32 KB more, 228,096 bytes)
+// but bounds F H at 16 or needs chunks; the rank-1 updates in registers
+// take any F and H, and cost 0.012 of the kernel's 0.169 ms, the most the
+// other design could save (PERF.md section 6). ptxas 255 registers at
+// C = 256 (225 at C <= 32), no spills; 195,328 bytes of shared memory at
+// the release widths, one block an SM.
+//
+// Times on the card, the A/B against the CUDA-core versions and where the
+// time goes (tools/bench_ipa.py --ablate): PERF.md section 6.
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "ipa_tile.cuh"  // kernel A's layout; cp.async, mma, split
+#include "ipa_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 16;                  // query rows and keys per tile
-constexpr int kThreads = kTile * kTile;    // one thread per element
-constexpr int kWide = 4;                   // rows per work item of the C-wide sums
-
-static_assert(kTile == 16, "row reductions use 16-lane shuffles");
-
-__host__ __device__ inline int padded_c(int C) { return C + 4; }
-__host__ __device__ inline int padded_odd(int p) { return p | 1; }
-
-struct Dims {
-  int F, N, H, C, Cs, P3q, P3qs, P3v, P3vs, Dz, Dzs;
-  float c_qk, c_b, inf;
-};
-
-using ipa_tc::Carver;  // bump allocator over dynamic shared memory
-
-// 16 query rows of one (frame, head): the operands of the element and of
-// the row-side sums.
-struct RowTile {
-  float *q, *go;           // [16][Cs]
-  float *qp;               // [16][P3qs]
-  float *gopt;             // [16][P3vs]
-  float *gpair;            // [16][Dzs]
-  float *qsq, *qm, *lse, *dvec;  // [16]
-  __host__ __device__ void carve(Carver& c, const Dims& d) {
-    q = c.take(kTile * d.Cs);
-    go = c.take(kTile * d.Cs);
-    qp = c.take(kTile * d.P3qs);
-    gopt = c.take(kTile * d.P3vs);
-    gpair = c.take(kTile * d.Dzs);
-    qsq = c.take(kTile);
-    qm = c.take(kTile);
-    lse = c.take(kTile);
-    dvec = c.take(kTile);
-  }
-};
-
-// 16 key rows of one (frame, head).
-struct KeyTile {
-  float *k, *v;            // [16][Cs]
-  float *kp;               // [16][P3qs]
-  float *vp;               // [16][P3vs]
-  float *ksq, *km;         // [16]
-  __host__ __device__ void carve(Carver& c, const Dims& d) {
-    k = c.take(kTile * d.Cs);
-    v = c.take(kTile * d.Cs);
-    kp = c.take(kTile * d.P3qs);
-    vp = c.take(kTile * d.P3vs);
-    ksq = c.take(kTile);
-    km = c.take(kTile);
-  }
-};
+using namespace ipa_tc;
 
 struct Inputs {
   const float *q, *k, *v, *qp, *kp, *vp, *bias, *pz, *mask, *hw, *lse, *dvec,
       *go, *gopt, *gpair;
 };
 
-// element (f, n, h, x) of a [F, N, H, D] tensor
-__device__ inline size_t at(const Dims& d, int f, int n, int h, int D, int x) {
-  return (((size_t)f * d.N + n) * d.H + h) * D + x;
-}
-
-// rows n0..n0+15 of a [F, N, H, D] tensor at (f, h) into dst[r * ds + x],
-// zeros past N; float4 copies (D divisible by 4, 16-byte aligned rows)
-__device__ void load_rows4(float* dst, int ds, const float* src, const Dims& d,
-                           int f, int h, int n0, int D) {
-  const int D4 = D / 4;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = threadIdx.x; e < kTile * D4; e += kThreads) {
-    const int r = e / D4, x4 = e % D4, n = n0 + r;
-    reinterpret_cast<float4*>(dst + r * ds)[x4] =
-        n < d.N ? reinterpret_cast<const float4*>(src + at(d, f, n, h, D, 0))[x4]
-                : zero4;
-  }
-}
-
-__device__ void load_rows(float* dst, int ds, const float* src, const Dims& d,
-                          int f, int h, int n0, int D) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, x = e % D, n = n0 + r;
-    dst[r * ds + x] = n < d.N ? src[at(d, f, n, h, D, x)] : 0.f;
-  }
-}
-
-__device__ float sum_sq(const float* p, int n) {
-  float s = 0.f;
-  for (int x = 0; x < n; ++x) s += p[x] * p[x];
-  return s;
-}
-
-// Stage the query rows i0.. of (f, h). The caller synchronises.
-__device__ void load_row_tile(RowTile& t, const Inputs& in, const Dims& d,
-                              int f, int h, int i0) {
-  load_rows4(t.q, d.Cs, in.q, d, f, h, i0, d.C);
-  load_rows4(t.go, d.Cs, in.go, d, f, h, i0, d.C);
-  load_rows(t.qp, d.P3qs, in.qp, d, f, h, i0, d.P3q);
-  load_rows(t.gopt, d.P3vs, in.gopt, d, f, h, i0, d.P3v);
-  load_rows(t.gpair, d.Dzs, in.gpair, d, f, h, i0, d.Dz);
-  if (threadIdx.x < kTile) {
-    const int r = threadIdx.x, i = i0 + r;
-    const bool ok = i < d.N;
-    t.qm[r] = ok ? in.mask[(size_t)f * d.N + i] : 0.f;
-    t.lse[r] = ok ? in.lse[((size_t)f * d.H + h) * d.N + i] : 0.f;
-    t.dvec[r] = ok ? in.dvec[((size_t)f * d.H + h) * d.N + i] : 0.f;
-  }
-}
-
-__device__ void load_key_tile(KeyTile& t, const Inputs& in, const Dims& d,
-                              int f, int h, int j0) {
-  load_rows4(t.k, d.Cs, in.k, d, f, h, j0, d.C);
-  load_rows4(t.v, d.Cs, in.v, d, f, h, j0, d.C);
-  load_rows(t.kp, d.P3qs, in.kp, d, f, h, j0, d.P3q);
-  load_rows(t.vp, d.P3vs, in.vp, d, f, h, j0, d.P3v);
-  if (threadIdx.x < kTile) {
-    const int j = j0 + threadIdx.x;
-    t.km[threadIdx.x] = j < d.N ? in.mask[(size_t)f * d.N + j] : 0.f;
-  }
-}
-
-// |qp|^2 and |kp|^2 of the staged rows; after a sync that follows the loads.
-__device__ void tile_norms(RowTile* rt, KeyTile* kt, const Dims& d) {
-  const int t = threadIdx.x;
-  if (rt && t < kTile) rt->qsq[t] = sum_sq(rt->qp + t * d.P3qs, d.P3q);
-  if (kt && t >= 32 && t < 32 + kTile)
-    kt->ksq[t - 32] = sum_sq(kt->kp + (t - 32) * d.P3qs, d.P3q);
-}
-
-struct Elem {
-  float a, dl, dist;
-};
-
-// The (row r, key jr) element of the staged tiles; pz_ij points at the
-// Dz pair channels of (i, j) (global or shared memory).
-__device__ Elem element(const RowTile& rt, const KeyTile& kt, int r, int jr,
-                        bool valid, float bias_ij, const float* pz_ij,
-                        float w, const Dims& d) {
-  Elem e{0.f, 0.f, 0.f};
-  if (!valid) return e;
-  const float4* q4 = reinterpret_cast<const float4*>(rt.q + r * d.Cs);
-  const float4* k4 = reinterpret_cast<const float4*>(kt.k + jr * d.Cs);
-  const float4* g4 = reinterpret_cast<const float4*>(rt.go + r * d.Cs);
-  const float4* v4 = reinterpret_cast<const float4*>(kt.v + jr * d.Cs);
-  float qk = 0.f, gv = 0.f;
-  for (int c4 = 0; c4 < d.C / 4; ++c4) {
-    const float4 a = q4[c4], b = k4[c4];
-    qk = fmaf(a.x, b.x, qk);
-    qk = fmaf(a.y, b.y, qk);
-    qk = fmaf(a.z, b.z, qk);
-    qk = fmaf(a.w, b.w, qk);
-    const float4 g = g4[c4], vv = v4[c4];
-    gv = fmaf(g.x, vv.x, gv);
-    gv = fmaf(g.y, vv.y, gv);
-    gv = fmaf(g.z, vv.z, gv);
-    gv = fmaf(g.w, vv.w, gv);
-  }
-  float cross = 0.f;
-  for (int x = 0; x < d.P3q; ++x)
-    cross = fmaf(rt.qp[r * d.P3qs + x], kt.kp[jr * d.P3qs + x], cross);
-  float gvp = 0.f;
-  for (int x = 0; x < d.P3v; ++x)
-    gvp = fmaf(rt.gopt[r * d.P3vs + x], kt.vp[jr * d.P3vs + x], gvp);
-  float gpz = 0.f;
-  for (int x = 0; x < d.Dz; ++x)
-    gpz = fmaf(rt.gpair[r * d.Dzs + x], pz_ij[x], gpz);
-  // the forward kernel's order of operations
-  e.dist = rt.qsq[r] + kt.ksq[jr] - 2.f * cross;
-  float l = d.c_qk * qk;
-  l += d.c_b * bias_ij;
-  l += -0.5f * w * e.dist;
-  l += d.inf * (rt.qm[r] * kt.km[jr] - 1.f);
-  e.a = expf(l - rt.lse[r]);
-  e.dl = e.a * ((gv + gvp + gpz) - rt.dvec[r]);
-  return e;
-}
-
-__device__ inline float sum16(float x) {
-  for (int off = kTile / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
-// kernel A: dq, dqp, dhw rows, on the tensor cores. grid (H, F, ceil(N/32))
+// kernel A: dq, dqp, dhw rows. grid (H, F, ceil(N/32))
 // ---------------------------------------------------------------------------
-// The forward's layout (ipa_tile.cuh): a block of eight warps owns 32 query
-// rows of one (f, h), four warps per 16-row tile splitting its C channels in
-// quarters. A warp keeps its quarter of q and of g_o as A fragments (32
-// registers each at C = 256; the query points and g_opt wait in shared
-// memory) and per 16-key step computes its quarter of q.k^T and of g_o.v^T
-// (3xTF32); quarter 0 adds qp.kp^T (dist), quarter 1
-// g_opt.vp^T, quarters 2 and 3 the pair term g_pair_i.pz_ij of rows g and
-// g + 8 on the CUDA cores (lane (g, t) sums its pair channels t + 4m for all
-// 16 keys, then a reduce-scatter over the quad hands each lane the keys of
-// its fragment). After the exchange all four warps hold a and dl of the
-// tile; dl leaves its accumulators as the A fragment of dq += dl.k (each
+// A warp keeps its quarter of q and of g_o as A fragments (32 registers each
+// at C = 256; the query points and g_opt wait in shared memory); after the
+// exchange dl leaves its accumulators as the A fragment of dq += dl.k (each
 // warp its quarter of the channels, 3xTF32) and, in quarter 1, of dl.kp;
 // quarter 0 keeps the row sums of dl and of -0.5 dist dl.
 struct SmemA {
-  ipa_tc::Common c;
+  Common c;
   float* qp;      // [kRows][kP3qs]: the block's query points
   float* gopt;    // [kRows][kP3vs]: and their cotangents
   float* rowsum;  // [kRows]
-  __host__ __device__ size_t carve(float* base, const ipa_tc::Layout& L) {
-    ipa_tc::Carver cv(base);
+  __host__ __device__ size_t carve(float* base, const Layout& L) {
+    Carver cv(base);
     c.carve(cv, L);
-    qp = cv.take((size_t)ipa_tc::kRows * ipa_tc::kP3qs);
-    gopt = cv.take((size_t)ipa_tc::kRows * ipa_tc::kP3vs);
-    rowsum = cv.take(ipa_tc::kRows);
+    qp = cv.take((size_t)kRows * kP3qs);
+    gopt = cv.take((size_t)kRows * kP3vs);
+    rowsum = cv.take(kRows);
     return cv.n;
   }
 };
 
 template <int NT>
-__global__ void __launch_bounds__(ipa_tc::kThreads, 1)
-ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
+__global__ void __launch_bounds__(kThreads, 1)
+ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
                   float* __restrict__ dqp, float* __restrict__ dhw_rows) {
-  namespace tc = ipa_tc;
-  using tc::kKeys;
-  using tc::kKQ;
-  using tc::kNV;
   extern __shared__ float4 smem4[];
   SmemA s;
   s.carve(reinterpret_cast<float*>(smem4), L);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int tile = warp >> 2, qt = warp & 3;  // query tile, channel quarter
-  const int h = blockIdx.x, f = blockIdx.y, i0 = blockIdx.z * tc::kRows;
+  const int h = blockIdx.x, f = blockIdx.y, i0 = blockIdx.z * kRows;
   const int r0 = i0 + 16 * tile;
   const int col = qt * L.CQ;
   const int rr = qt & 1;  // quarters 2, 3: pair rows g + 8 rr
   const bool pair_warp = qt >= 2;
   const float w = in.hw[h];
   const int n_steps = (L.N + kKeys - 1) / kKeys;
-  float* xch = s.c.xch + tile * tc::kXchFloats;
+  float* xch = s.c.xch + tile * kXchFloats;
   float* sksq = s.c.ksq + tile * kKeys;
-  float* spz = s.c.pz + (16 * tile + 8 * rr) * tc::kPZs;
+  float* spz = s.c.pz + (16 * tile + 8 * rr) * kPZs;
 
-  const float* sqp = s.qp + 16 * tile * tc::kP3qs;  // this tile's rows
-  const float* sgopt = s.gopt + 16 * tile * tc::kP3vs;
+  const float* sqp = s.qp + 16 * tile * kP3qs;  // this tile's rows
+  const float* sgopt = s.gopt + 16 * tile * kP3vs;
 
-  tc::zero_padding(s.c, L);
+  zero_padding(s.c, L);
   // the block's query points and their cotangents join the first group
-  tc::fetch_rows(s.qp, tc::kP3qs, tc::kMaxP3q, in.qp, f, h, i0, L.P3q, L);
-  tc::fetch_rows(s.gopt, tc::kP3vs, tc::kMaxP3v, in.gopt, f, h, i0, L.P3v, L);
-  tc::fetch_keys(s.c.tile(0, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias,
-                 f, h, i0, 0, true, L);
-  if (pair_warp) tc::fetch_pz(spz, in.pz, r0 + 8 * rr, 0, L);
+  fetch_rows(s.qp, kP3qs, kMaxP3q, in.qp, f, h, i0, L.P3q, L);
+  fetch_rows(s.gopt, kP3vs, kMaxP3v, in.gopt, f, h, i0, L.P3v, L);
+  fetch_keys(s.c.tile(0, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias, f,
+             h, i0, 0, true, L);
+  if (pair_warp) fetch_pz(spz, in.pz, r0 + 8 * rr, 0, L);
 
   // the tile's rows in registers
   float qa[NT][4], goa[NT][4];
 #pragma unroll
   for (int ks = 0; ks < NT; ++ks) {
-    tc::load_afrag(qa[ks], in.q, L, f, h, r0, L.C, col + 8 * ks, L.C);
-    tc::load_afrag(goa[ks], in.go, L, f, h, r0, L.C, col + 8 * ks, L.C);
+    load_afrag(qa[ks], in.q, L, f, h, r0, L.C, col + 8 * ks, L.C);
+    load_afrag(goa[ks], in.go, L, f, h, r0, L.C, col + 8 * ks, L.C);
   }
-  float gp[tc::kMaxDz / 4];  // zeros past Dz
+  float gp[kMaxDz / 4];  // zeros past Dz
   if (pair_warp) {
     const int i = r0 + g + 8 * rr;
 #pragma unroll
-    for (int m = 0; m < tc::kMaxDz / 4; ++m) {
+    for (int m = 0; m < kMaxDz / 4; ++m) {
       const int d = t + 4 * m;
-      gp[m] = (i < L.N && d < L.Dz) ? in.gpair[tc::at(L, f, i, h, L.Dz, d)]
-                                    : 0.f;
+      gp[m] = (i < L.N && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)] : 0.f;
     }
   }
   float qm[2], lse[2], dvec[2];
@@ -389,144 +255,45 @@ ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
 
   for (int step = 0; step < n_steps; ++step) {
     const int j0 = step * kKeys;
-    const tc::KeyTile kt = s.c.tile(step & 1, L);
+    const KeyTile kt = s.c.tile(step & 1, L);
     if (pair_warp)
       cp_async_wait<1>();
     else
       cp_async_wait<0>();
     __syncthreads();
-    tc::fetch_keys(s.c.tile((step + 1) & 1, L), in.k, in.v, in.kp, in.vp,
-                   in.mask, in.bias, f, h, i0, j0 + kKeys, step + 1 < n_steps,
-                   L);
+    fetch_keys(s.c.tile((step + 1) & 1, L), in.k, in.v, in.kp, in.vp,
+               in.mask, in.bias, f, h, i0, j0 + kKeys, step + 1 < n_steps, L);
 
-    // each warp's share of the products into the exchange
-    {
-      float x[2][4];
-      tc::qk_partial<NT>(
-          x,
-          [&](int ks, float (&a)[4]) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
-          },
-          kt.k, col, L);
-      tc::xput(xch, tc::kQK + qt, x);
-      tc::qk_partial<NT>(
-          x,
-          [&](int ks, float (&a)[4]) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] = goa[ks][e];
-          },
-          kt.v, col, L);
-      tc::xput(xch, tc::kGV + qt, x);
-    }
+    tile_products<NT>(xch, sksq, qa, goa, sqp, sgopt, spz, gp, kt, col, qt,
+                      [&] {
+                        if (step + 1 < n_steps)
+                          fetch_pz(spz, in.pz, r0 + 8 * rr, j0 + kKeys, L);
+                      },
+                      [](int) {}, L);
+    bar_sync(1 + tile, 128);
+
+    float a[2][4], dl[2][4], dist[2][4];
+    tile_a_dl(a, dl, dist, xch, kt, tile, qm, lse, dvec, w, r0, j0, L);
     if (qt == 0) {
-      float qpa[kKQ][4], qsq[2], dist[2][4];
-#pragma unroll
-      for (int ks = 0; ks < kKQ; ++ks)
-        tc::smem_afrag(qpa[ks], sqp, tc::kP3qs, 8 * ks);
-      tc::row_norms(qsq, qpa);
-      tc::key_norms(sksq, kt, L);
-      __syncwarp();
-      tc::point_dist(dist, qpa, qsq, sksq, kt, L);
-      tc::xput(xch, tc::kDist, dist);
-    } else if (qt == 1) {
-      // g_opt . vp^T, 3xTF32
-      float gvp[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) gvp[n][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kNV; ++ks) {  // zeros past Pv*3
-        float a[4];
-        tc::smem_afrag(a, sgopt, tc::kP3vs, 8 * ks);
-        uint32_t ah[4], al[4];
-        tc::split4(a, ah, al);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          uint32_t bh[2], bl[2];
-          tc::bfrag_rows(kt.vp, tc::kP3vs, n, 8 * ks, bh, bl);
-          mma3(gvp[n], ah, al, bh, bl);
+        for (int e = 0; e < 4; ++e) {
+          rowsum[e >> 1] += dl[n][e];
+          dhw[e >> 1] += -0.5f * dist[n][e] * dl[n][e];
         }
-      }
-      tc::xput(xch, tc::kGVP, gvp);
-    } else {
-      // g_pair_i . pz_ij of row g + 8 rr: sums over this lane's pair
-      // channels, then a reduce-scatter over the quad: keys (jj & 7) < 4 to
-      // lanes t < 2 and the rest to t >= 2, then odd key pairs to odd t
-      cp_async_wait<1>();  // this step's pair_z rows (the key tile may wait)
-      __syncwarp();
-      float part[kKeys];
-      const float* z = spz + g * tc::kPZs + t;  // zeros past Dz
-#pragma unroll
-      for (int jj = 0; jj < kKeys; ++jj) {
-        float a = 0.f;
-#pragma unroll
-        for (int m = 0; m < tc::kMaxDz / 4; ++m)
-          a = fmaf(gp[m], z[jj * tc::kMaxDz + 4 * m], a);
-        part[jj] = a;
-      }
-      __syncwarp();  // every lane has read the rows
-      if (step + 1 < n_steps)
-        tc::fetch_pz(spz, in.pz, r0 + 8 * rr, j0 + kKeys, L);
-      const bool lo2 = t < 2, even = (t & 1) == 0;
-      float hf[8];
-#pragma unroll
-      for (int sl = 0; sl < 8; ++sl) {
-        const int kl = sl < 4 ? sl : sl + 4, kh = kl + 4;
-        const float send = lo2 ? part[kh] : part[kl];
-        const float recv = __shfl_xor_sync(0xffffffffu, send, 2);
-        hf[sl] = (lo2 ? part[kl] : part[kh]) + recv;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int sl = u < 2 ? u : u + 2, sh = sl + 2;
-        const float send = even ? hf[sh] : hf[sl];
-        const float recv = __shfl_xor_sync(0xffffffffu, send, 1);
-        // key 8 (u / 2) + 2 t + u % 2 of row g + 8 rr
-        tc::xset(xch, tc::kGPZ, u >> 1, 2 * rr + (u & 1),
-                 (even ? hf[sl] : hf[sh]) + recv);
-      }
     }
-    bar_sync(1 + tile, 128);
-
-    // a and dl of rows g, g + 8 and keys 8 n + 2 t + {0, 1}; the four warps
-    // of the tile read the same operands from the exchange and compute the
-    // same values
-    float dl[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = 8 * n + 2 * t + (e & 1);
-        const bool valid = r0 + g + 8 * r < L.N && j0 + c < L.N;
-        const float dist = tc::xval(xch, tc::kDist, n, e);
-        const float l = tc::ipa_logit(
-            tc::xsum4(xch, tc::kQK, n, e),
-            kt.bias[(16 * tile + g + 8 * r) * tc::kBS + c], dist, qm[r],
-            kt.km[c], w, L);
-        const float a = expf(l - lse[r]);
-        const float v = a * ((tc::xsum4(xch, tc::kGV, n, e) +
-                              tc::xval(xch, tc::kGVP, n, e) +
-                              tc::xval(xch, tc::kGPZ, n, e)) -
-                             dvec[r]);
-        dl[n][e] = valid ? v : 0.f;
-        if (qt == 0) {
-          rowsum[r] += dl[n][e];
-          dhw[r] += -0.5f * dist * dl[n][e];
-        }
-      }
 
     // dq += dl . k over this warp's channels, 3xTF32
     uint32_t dh[2][4], dlo[2][4];
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) tc::split_ctile(dl[ks], dh[ks], dlo[ks]);
+    for (int ks = 0; ks < 2; ++ks) split_ctile(dl[ks], dh[ks], dlo[ks]);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         uint32_t bh[2], bl[2];
-        tc::bfrag_cols(kt.k, L.Cs, ks, col + 8 * n, bh, bl);
+        bfrag_cols(kt.k, L.Cs, ks, col + 8 * n, bh, bl);
         mma3(acc[n], dh[ks], dlo[ks], bh, bl);
       }
     }
@@ -537,7 +304,7 @@ ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
           uint32_t bh[2], bl[2];
-          tc::bfrag_cols(kt.kp, tc::kP3qs, ks, 8 * n, bh, bl);
+          bfrag_cols(kt.kp, kP3qs, ks, 8 * n, bh, bl);
           mma3(dlkp[n], dh[ks], dlo[ks], bh, bl);
         }
       }
@@ -560,7 +327,7 @@ ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
     for (int n = 0; n < NT; ++n) {
       const int c = col + 8 * n + 2 * t;
       if (c < L.C)
-        *reinterpret_cast<float2*>(dq + tc::at(L, f, i, h, L.C, c)) =
+        *reinterpret_cast<float2*>(dq + at(L, f, i, h, L.C, c)) =
             make_float2(L.c_qk * acc[n][2 * r], L.c_qk * acc[n][2 * r + 1]);
     }
   }
@@ -577,7 +344,7 @@ ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * n + 2 * t + e;
           if (c < L.P3q) {
-            const size_t x = tc::at(L, f, i, h, L.P3q, c);
+            const size_t x = at(L, f, i, h, L.P3q, c);
             dqp[x] = -w * (rs * in.qp[x] - dlkp[n][2 * r + e]);
           }
         }
@@ -586,242 +353,678 @@ ipa_bwd_dq_kernel(Inputs in, ipa_tc::Layout L, float* __restrict__ dq,
 }
 
 // ---------------------------------------------------------------------------
-// kernel B: dk, dkp, dv, dvp. grid (ceil(N/16), H, F)
+// kernel B: dk, dkp, dv, dvp. grid (H, F, ceil(N/32))
 // ---------------------------------------------------------------------------
+constexpr int kBKeys = 16 * kTiles;      // keys per block: two 16-key tiles
+constexpr int kStep = 16;                // query rows per step: 2 n-tiles
+constexpr int kRB = kBKeys + 4;          // bias tile row stride: 4 mod 16
+constexpr int kGPs = kMaxDz + 4;         // g_pair row stride: 4 mod 16
+constexpr int kPZB = kStep * 8 * kMaxDz; // a pair warp's [16 rows][8 keys][32]
+
+// The pair_z tile is stored with its 16-byte chunks XOR-swizzled: chunk x
+// of (row r, key kk) at chunk x ^ pz_swz(r, kk). A quarter warp's 16-byte
+// reads (lanes g = 0, 1 and t = 0..3 reading rows 2t + e of key g) then fall
+// in 8 distinct bank groups.
+__host__ __device__ inline int pz_swz(int r, int kk) {
+  return (kk + 2 * (r >> 1)) & 7;
+}
+
+__host__ __device__ inline int pz_index(int r, int kk, int d) {
+  return r * 8 * kMaxDz + kk * kMaxDz + 4 * ((d >> 2) ^ pz_swz(r, kk)) +
+         (d & 3);
+}
+
+// One step's query rows; two of them double-buffer the steps.
+struct RowStep {
+  float *q, *go;           // [kStep][Cs]
+  float *qp;               // [kStep][kP3qs]
+  float *gopt;             // [kStep][kP3vs]
+  float *gpair;            // [kStep][kGPs]
+  float *lse, *dvec, *qm;  // [kStep]
+  float *bias;             // [kStep][kRB]: the block's 32 keys
+};
+
+__host__ __device__ inline RowStep row_step(Carver& c, const Layout& L) {
+  RowStep r;
+  r.q = c.take((size_t)kStep * L.Cs);
+  r.go = c.take((size_t)kStep * L.Cs);
+  r.qp = c.take((size_t)kStep * kP3qs);
+  r.gopt = c.take((size_t)kStep * kP3vs);
+  r.gpair = c.take((size_t)kStep * kGPs);
+  r.lse = c.take(kStep);
+  r.dvec = c.take(kStep);
+  r.qm = c.take(kStep);
+  r.bias = c.take((size_t)kStep * kRB);
+  return r;
+}
+
 struct SmemB {
-  RowTile rt;
-  KeyTile kt;
-  float *a, *dl;       // [16 keys][17]
-  float *dk, *dv;      // [16][C]
-  float *dlqp;         // [16][P3q]
-  float *dvp;          // [16][P3v]
-  float *colsum;       // [16]
-  __host__ __device__ size_t carve(float* base, const Dims& d) {
+  float* v;         // [kBKeys][Cs]: the block's keys, resident
+  float *kp, *vp;   // [kBKeys][kP3qs], [kBKeys][kP3vs]
+  float *km, *ksq;  // [kBKeys]
+  float* rows;      // two row steps of row_floats each
+  size_t row_floats;
+  float* pz;        // [kTiles][2][kPZB]: the pair warps' tiles
+  float* qsq;       // [kTiles][kStep]: |qp|^2 of the step's rows
+  float* xch;       // [kTiles][kXchFloats]
+  __host__ __device__ size_t carve(float* base, const Layout& L) {
     Carver c(base);
-    rt.carve(c, d);
-    kt.carve(c, d);
-    a = c.take(kTile * (kTile + 1));
-    dl = c.take(kTile * (kTile + 1));
-    dk = c.take(kTile * d.C);
-    dv = c.take(kTile * d.C);
-    dlqp = c.take(kTile * d.P3q);
-    dvp = c.take(kTile * d.P3v);
-    colsum = c.take(kTile);
+    v = c.take((size_t)kBKeys * L.Cs);
+    kp = c.take((size_t)kBKeys * kP3qs);
+    vp = c.take((size_t)kBKeys * kP3vs);
+    km = c.take(kBKeys);
+    ksq = c.take(kBKeys);
+    Carver one(nullptr);
+    row_step(one, L);
+    row_floats = one.n;
+    rows = c.take(2 * row_floats);
+    pz = c.take((size_t)kTiles * 2 * kPZB);
+    qsq = c.take((size_t)kTiles * kStep);
+    xch = c.take((size_t)kTiles * kXchFloats);
     return c.n;
+  }
+  __device__ RowStep step(int b, const Layout& L) const {
+    Carver c(rows + b * row_floats);
+    return row_step(c, L);
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-ipa_bwd_dkv_kernel(Inputs in, Dims d, float* __restrict__ dk,
+// Zero what cp.async never writes and the products read: channels
+// [C, 4 CQ) of v and of both steps' q and g_o, point columns past P3q and
+// P3v, pair channels past Dz of g_pair and of the pair_z tiles.
+__device__ void zero_padding_b(const SmemB& s, const Layout& L) {
+  const int tid = threadIdx.x;
+  const int pc = 4 * L.CQ - L.C;
+  const int pq = kMaxP3q - L.P3q, pv = kMaxP3v - L.P3v, pd = kMaxDz - L.Dz;
+  if (pc)
+    deal(kBKeys, pc, tid, kThreads,
+         [&](int r, int x) { s.v[r * L.Cs + L.C + x] = 0.f; });
+  if (pq)
+    deal(kBKeys, pq, tid, kThreads,
+         [&](int r, int x) { s.kp[r * kP3qs + L.P3q + x] = 0.f; });
+  if (pv)
+    deal(kBKeys, pv, tid, kThreads,
+         [&](int r, int x) { s.vp[r * kP3vs + L.P3v + x] = 0.f; });
+  for (int b = 0; b < 2; ++b) {
+    const RowStep rs = s.step(b, L);
+    if (pc)
+      deal(kStep, pc, tid, kThreads, [&](int r, int x) {
+        rs.q[r * L.Cs + L.C + x] = 0.f;
+        rs.go[r * L.Cs + L.C + x] = 0.f;
+      });
+    if (pq)
+      deal(kStep, pq, tid, kThreads,
+           [&](int r, int x) { rs.qp[r * kP3qs + L.P3q + x] = 0.f; });
+    if (pv)
+      deal(kStep, pv, tid, kThreads,
+           [&](int r, int x) { rs.gopt[r * kP3vs + L.P3v + x] = 0.f; });
+    if (pd)
+      deal(kStep, pd, tid, kThreads,
+           [&](int r, int x) { rs.gpair[r * kGPs + L.Dz + x] = 0.f; });
+  }
+  if (pd)  // (pair tile, row, key) rk
+    deal(kTiles * 2 * kStep * 8, pd, tid, kThreads, [&](int rk, int x) {
+      s.pz[(rk >> 7) * kPZB + pz_index((rk >> 3) & 15, rk & 7, L.Dz + x)] =
+          0.f;
+    });
+}
+
+// The block's keys j0.. j0 + 31 of (f, h): v rows, key points, value points
+// and key mask, zero past N; not committed (the first row step's commit
+// takes them).
+__device__ void fetch_block_keys(const SmemB& s, const Inputs& in, int f,
+                                 int h, int j0, const Layout& L) {
+  const int tid = threadIdx.x;
+  const int nk = min(kBKeys, L.N - j0);
+  deal(kBKeys, L.C / 4, tid, kThreads, [&](int r, int c4) {
+    const bool ok = r < nk;
+    cp_async16(s.v + r * L.Cs + 4 * c4,
+               in.v + (ok ? at(L, f, j0 + r, h, L.C, 4 * c4) : 0), ok);
+  });
+  deal(kBKeys, L.P3q, tid, kThreads, [&](int r, int x) {
+    const bool ok = r < nk;
+    cp_async4(s.kp + r * kP3qs + x,
+              in.kp + (ok ? at(L, f, j0 + r, h, L.P3q, x) : 0), ok);
+  });
+  deal(kBKeys, L.P3v, tid, kThreads, [&](int r, int x) {
+    const bool ok = r < nk;
+    cp_async4(s.vp + r * kP3vs + x,
+              in.vp + (ok ? at(L, f, j0 + r, h, L.P3v, x) : 0), ok);
+  });
+  if (tid < kBKeys) {
+    const bool ok = tid < nk;
+    cp_async4(s.km + tid, in.mask + (ok ? (size_t)f * L.N + j0 + tid : 0),
+              ok);
+  }
+}
+
+// The query rows i0.. i0 + 15 of (f, h) into rs, by the whole block, as one
+// cp.async group (committed even when empty): q and g_o (16-byte copies),
+// their points, g_pair, lse, D, the row mask and the bias tile [rows][the
+// block's keys]; zeros past N.
+__device__ void fetch_row_step(const RowStep& rs, const Inputs& in, int f,
+                               int h, int i0, int j0, bool any,
+                               const Layout& L) {
+  const int tid = threadIdx.x;
+  if (any) {
+    const int nr = min(kStep, L.N - i0);  // real rows of the step
+    deal(kStep, L.C / 4, tid, kThreads, [&](int r, int c4) {
+      const bool ok = r < nr;
+      const size_t src = ok ? at(L, f, i0 + r, h, L.C, 4 * c4) : 0;
+      cp_async16(rs.q + r * L.Cs + 4 * c4, in.q + src, ok);
+      cp_async16(rs.go + r * L.Cs + 4 * c4, in.go + src, ok);
+    });
+    deal(kStep, L.P3q, tid, kThreads, [&](int r, int x) {
+      const bool ok = r < nr;
+      cp_async4(rs.qp + r * kP3qs + x,
+                in.qp + (ok ? at(L, f, i0 + r, h, L.P3q, x) : 0), ok);
+    });
+    deal(kStep, L.P3v, tid, kThreads, [&](int r, int x) {
+      const bool ok = r < nr;
+      cp_async4(rs.gopt + r * kP3vs + x,
+                in.gopt + (ok ? at(L, f, i0 + r, h, L.P3v, x) : 0), ok);
+    });
+    deal(kStep, L.Dz, tid, kThreads, [&](int r, int x) {
+      const bool ok = r < nr;
+      cp_async4(rs.gpair + r * kGPs + x,
+                in.gpair + (ok ? at(L, f, i0 + r, h, L.Dz, x) : 0), ok);
+    });
+    if (tid < kStep) {
+      const bool ok = tid < nr;
+      const size_t row = ok ? ((size_t)f * L.H + h) * L.N + i0 + tid : 0;
+      cp_async4(rs.lse + tid, in.lse + row, ok);
+      cp_async4(rs.dvec + tid, in.dvec + row, ok);
+      cp_async4(rs.qm + tid, in.mask + (ok ? (size_t)f * L.N + i0 + tid : 0),
+                ok);
+    }
+    const int nk = min(kBKeys, L.N - j0);
+    for (int e = tid; e < kStep * kBKeys; e += kThreads) {
+      const int r = e / kBKeys, c = e % kBKeys;
+      const bool ok = r < nr && c < nk;
+      cp_async4(rs.bias + r * kRB + c,
+                in.bias + (ok ? ((size_t)(i0 + r) * L.N + j0 + c) * L.H + h
+                              : 0),
+                ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// pair_z rows i0.. i0 + 15 and keys jb.. jb + 7 into dst (pz_index), by
+// one warp, as one cp.async group: at Dz = 32 each row's 8 keys are one
+// contiguous run of [N, N, Dz], copied 16 bytes at a time.
+__device__ void fetch_pz_keys(float* dst, const float* __restrict__ pz,
+                              int i0, int jb, const Layout& L) {
+  const int lane = threadIdx.x & 31;
+  if (L.pz_vec) {
+    for (int e = lane; e < kStep * 8 * 8; e += 32) {
+      const int r = e >> 6, kk = (e >> 3) & 7, x = e & 7;
+      const int i = i0 + r, j = jb + kk;
+      const bool ok = i < L.N && j < L.N;
+      cp_async16(dst + pz_index(r, kk, 4 * x),
+                 ok ? pz + ((size_t)i * L.N + j) * kMaxDz + 4 * x : pz, ok);
+    }
+  } else {
+    const int per_row = 8 * L.Dz;
+    for (int e = lane; e < kStep * per_row; e += 32) {
+      const int r = e / per_row, rem = e - r * per_row;
+      const int kk = rem / L.Dz, d = rem - kk * L.Dz;
+      const int i = i0 + r, j = jb + kk;
+      const bool ok = i < L.N && j < L.N;
+      cp_async4(dst + pz_index(r, kk, d),
+                ok ? pz + ((size_t)i * L.N + j) * L.Dz + d : pz, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
                    float* __restrict__ dkp, float* __restrict__ dv,
                    float* __restrict__ dvp) {
   extern __shared__ float4 smem4[];
   SmemB s;
-  s.carve(reinterpret_cast<float*>(smem4), d);
-  const int j0 = blockIdx.x * kTile, h = blockIdx.y, f = blockIdx.z;
-  const int tid = threadIdx.x;
+  s.carve(reinterpret_cast<float*>(smem4), L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = warp >> 2, qt = warp & 3;  // key tile, channel quarter
+  const int h = blockIdx.x, f = blockIdx.y, j0 = blockIdx.z * kBKeys;
+  const int k0 = 16 * kt;  // the tile's first key in the block
+  const int col = qt * L.CQ;
+  const int rr = qt & 1;  // quarters 2, 3: pair keys g + 8 rr
+  const bool pair_warp = qt >= 2;
   const float w = in.hw[h];
-  const int C4 = d.C / 4;
+  const int n_steps = (L.N + kStep - 1) / kStep;
+  float* xch = s.xch + kt * kXchFloats;
+  float* sqsq = s.qsq + kt * kStep;
+  float* spz = s.pz + (2 * kt + rr) * kPZB;
+  const int swz = pz_swz(2 * t, g);  // of every row this lane reads
 
-  load_key_tile(s.kt, in, d, f, h, j0);
-  for (int e = tid; e < kTile * d.C; e += kThreads) {
-    s.dk[e] = 0.f;
-    s.dv[e] = 0.f;
-  }
-  for (int e = tid; e < kTile * d.P3q; e += kThreads) s.dlqp[e] = 0.f;
-  for (int e = tid; e < kTile * d.P3v; e += kThreads) s.dvp[e] = 0.f;
-  __syncthreads();
-  tile_norms(nullptr, &s.kt, d);
+  zero_padding_b(s, L);
+  fetch_block_keys(s, in, f, h, j0, L);
+  fetch_row_step(s.step(0, L), in, f, h, 0, j0, true, L);
+  if (pair_warp) fetch_pz_keys(spz, in.pz, 0, j0 + k0 + 8 * rr, L);
 
-  // keys on the slow index: the 16 lanes that share a key reduce by shuffle
-  const int jr = tid / kTile, r = tid % kTile, j = j0 + jr;
-  float colsum = 0.f;
-  for (int i0 = 0; i0 < d.N; i0 += kTile) {
-    load_row_tile(s.rt, in, d, f, h, i0);
-    __syncthreads();
-    tile_norms(&s.rt, nullptr, d);
-    __syncthreads();
-    const int i = i0 + r;
-    const bool valid = i < d.N && j < d.N;
-    const size_t ij = valid ? (size_t)i * d.N + j : 0;
-    const Elem e = element(s.rt, s.kt, r, jr, valid,
-                           valid ? in.bias[ij * d.H + h] : 0.f,
-                           in.pz + ij * d.Dz, w, d);
-    colsum += e.dl;
-    s.a[jr * (kTile + 1) + r] = e.a;
-    s.dl[jr * (kTile + 1) + r] = e.dl;
-    __syncthreads();
-    // dk += dl^T . q and dv += a^T . g_o: a work item is 4 keys x 4 channels
-    for (int it = tid; it < (kTile / kWide) * C4; it += kThreads) {
-      const int kg = it / C4, c4 = it % C4;
-      float4 ak[kWide], av[kWide];
+  // this warp's quarter of the tile's k, as A fragments
+  float ka[NT][4];
 #pragma unroll
-      for (int kk = 0; kk < kWide; ++kk) {
-        ak[kk] = reinterpret_cast<const float4*>(s.dk + (kg * kWide + kk) * d.C)[c4];
-        av[kk] = reinterpret_cast<const float4*>(s.dv + (kg * kWide + kk) * d.C)[c4];
+  for (int ks = 0; ks < NT; ++ks)
+    load_afrag(ka[ks], in.k, L, f, h, j0 + k0, L.C, col + 8 * ks, L.C);
+
+  // dk and dv of keys g, g + 8 over this warp's channels; pacc: dl^T.qp in
+  // quarter 0, a^T.g_opt in quarter 1
+  float dka[NT][4], dva[NT][4], pacc[kNV][4];
+  float colsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pacc[n][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int i0 = step * kStep;
+    const RowStep rs = s.step(step & 1, L);
+    if (pair_warp)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    fetch_row_step(s.step((step + 1) & 1, L), in, f, h, i0 + kStep, j0,
+                   step + 1 < n_steps, L);
+
+    // each warp's share of the transposed tile (keys g, g + 8 x rows
+    // 8 n + 2 t + {0, 1}) into the exchange
+    {
+      float x[2][4];
+      qk_partial<NT, true>(
+          x,
+          [&](int ks, float (&a)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = ka[ks][e];
+          },
+          rs.q, col, L);
+      xput(xch, kQK + qt, x);
+      qk_partial<NT, true>(
+          x,
+          [&](int ks, float (&a)[4]) {
+            smem_afrag(a, s.v + k0 * L.Cs, L.Cs, col + 8 * ks);
+          },
+          rs.go, col, L);
+      xput(xch, kGV + qt, x);
+    }
+    if (qt == 0) {
+      // dist = |qp_i|^2 + |kp_j|^2 - 2 kp_j.qp_i, the norms by the
+      // forward's code (rows: row_norms, keys: norms16)
+      if (step == 0) norms16(s.ksq + k0, s.kp + k0 * kP3qs, kP3qs);
+      float qpa[kKQ][4], qsq[2];
+#pragma unroll
+      for (int ks = 0; ks < kKQ; ++ks)
+        smem_afrag(qpa[ks], rs.qp, kP3qs, 8 * ks);
+      row_norms(qsq, qpa);
+      if (t == 0) {
+        sqsq[g] = qsq[0];
+        sqsq[g + 8] = qsq[1];
       }
-      for (int rr = 0; rr < kTile; ++rr) {
-        const float4 qq = reinterpret_cast<const float4*>(s.rt.q + rr * d.Cs)[c4];
-        const float4 gg = reinterpret_cast<const float4*>(s.rt.go + rr * d.Cs)[c4];
+      __syncwarp();
+      float cross[2][4], dist[2][4];
 #pragma unroll
-        for (int kk = 0; kk < kWide; ++kk) {
-          const float p = s.dl[(kg * kWide + kk) * (kTile + 1) + rr];
-          const float pa = s.a[(kg * kWide + kk) * (kTile + 1) + rr];
-          ak[kk].x = fmaf(p, qq.x, ak[kk].x);
-          ak[kk].y = fmaf(p, qq.y, ak[kk].y);
-          ak[kk].z = fmaf(p, qq.z, ak[kk].z);
-          ak[kk].w = fmaf(p, qq.w, ak[kk].w);
-          av[kk].x = fmaf(pa, gg.x, av[kk].x);
-          av[kk].y = fmaf(pa, gg.y, av[kk].y);
-          av[kk].z = fmaf(pa, gg.z, av[kk].z);
-          av[kk].w = fmaf(pa, gg.w, av[kk].w);
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cross[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKQ; ++ks) {
+        float a[4];
+        smem_afrag(a, s.kp + k0 * kP3qs, kP3qs, 8 * ks);
+        uint32_t ah[4], al[4];
+        split4(a, ah, al);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t bh[2], bl[2];
+          bfrag_rows(rs.qp, kP3qs, n, 8 * ks, bh, bl);
+          mma3t(cross[n], ah, al, bh, bl);
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < kWide; ++kk) {
-        reinterpret_cast<float4*>(s.dk + (kg * kWide + kk) * d.C)[c4] = ak[kk];
-        reinterpret_cast<float4*>(s.dv + (kg * kWide + kk) * d.C)[c4] = av[kk];
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dist[n][e] = sqsq[8 * n + 2 * t + (e & 1)] +
+                       s.ksq[k0 + g + 8 * (e >> 1)] - 2.f * cross[n][e];
+      xput(xch, kDist, dist);
+    } else if (qt == 1) {
+      // vp . g_opt^T, 3xTF32
+      float gvp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gvp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kNV; ++ks) {  // zeros past Pv*3
+        float a[4];
+        smem_afrag(a, s.vp + k0 * kP3vs, kP3vs, 8 * ks);
+        uint32_t ah[4], al[4];
+        split4(a, ah, al);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t bh[2], bl[2];
+          bfrag_rows(rs.gopt, kP3vs, n, 8 * ks, bh, bl);
+          mma3t(gvp[n], ah, al, bh, bl);
+        }
+      }
+      xput(xch, kGVP, gvp);
+    } else {
+      // g_pair_i . pz_ij of key g + 8 rr and rows 8 n + 2 t + e: every
+      // pair channel of the element in this lane, 16-byte reads
+      cp_async_wait<1>();  // this step's pair_z tile (the next rows may wait)
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * n + 2 * t + e;
+          const float4* gp4 = reinterpret_cast<const float4*>(rs.gpair +
+                                                              r * kGPs);
+          const float* z = spz + r * 8 * kMaxDz + g * kMaxDz;
+          float acc = 0.f;
+#pragma unroll
+          for (int x = 0; x < kMaxDz / 4; ++x) {  // zeros past Dz
+            const float4 p = gp4[x];
+            const float4 q = *reinterpret_cast<const float4*>(
+                z + 4 * (x ^ swz));
+            acc = fmaf(p.x, q.x, acc);
+            acc = fmaf(p.y, q.y, acc);
+            acc = fmaf(p.z, q.z, acc);
+            acc = fmaf(p.w, q.w, acc);
+          }
+          xset(xch, kGPZ, n, 2 * rr + e, acc);
+        }
+      __syncwarp();  // every lane has read the tile
+      if (step + 1 < n_steps)
+        fetch_pz_keys(spz, in.pz, i0 + kStep, j0 + k0 + 8 * rr, L);
+    }
+    bar_sync(1 + kt, 128);
+
+    // a^T and dl^T of keys g, g + 8 and rows 8 n + 2 t + {0, 1}; the four
+    // warps of the tile read the same operands and compute the same values
+    float a[2][4], dl[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = k0 + g + 8 * (e >> 1), r = 8 * n + 2 * t + (e & 1);
+        const bool valid = i0 + r < L.N && j0 + kr < L.N;
+        const float l =
+            ipa_logit(xsum4(xch, kQK, n, e), rs.bias[r * kRB + kr],
+                      xval(xch, kDist, n, e), rs.qm[r], s.km[kr], w, L);
+        const float av = expf(l - rs.lse[r]);
+        const float v = av * ((xsum4(xch, kGV, n, e) +
+                               xval(xch, kGVP, n, e) +
+                               xval(xch, kGPZ, n, e)) -
+                              rs.dvec[r]);
+        a[n][e] = valid ? av : 0.f;
+        dl[n][e] = valid ? v : 0.f;
+        if (qt == 0) colsum[e >> 1] += dl[n][e];
+      }
+
+    // dk += dl^T . q and dv += a^T . g_o over this warp's channels, the
+    // rows as permuted depth, 3xTF32
+    uint32_t dh[2][4], dlo[2][4], ah[2][4], alo[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      split_ctile(dl[ks], dh[ks], dlo[ks]);
+      split_ctile(a[ks], ah[ks], alo[ks]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t bh[2], bl[2];
+        bfrag_cols(rs.q, L.Cs, ks, col + 8 * n, bh, bl);
+        mma3(dka[n], dh[ks], dlo[ks], bh, bl);
+        bfrag_cols(rs.go, L.Cs, ks, col + 8 * n, bh, bl);
+        mma3(dva[n], ah[ks], alo[ks], bh, bl);
       }
     }
-    for (int it = tid; it < kTile * d.P3q; it += kThreads) {
-      const int kk = it / d.P3q, x = it % d.P3q;
-      float acc = s.dlqp[it];
-      for (int rr = 0; rr < kTile; ++rr)
-        acc = fmaf(s.dl[kk * (kTile + 1) + rr], s.rt.qp[rr * d.P3qs + x], acc);
-      s.dlqp[it] = acc;
-    }
-    for (int it = tid; it < kTile * d.P3v; it += kThreads) {
-      const int kk = it / d.P3v, x = it % d.P3v;
-      float acc = s.dvp[it];
-      for (int rr = 0; rr < kTile; ++rr)
-        acc = fmaf(s.a[kk * (kTile + 1) + rr], s.rt.gopt[rr * d.P3vs + x], acc);
-      s.dvp[it] = acc;
-    }
-    __syncthreads();  // the row tile, a and dl are rewritten by the next tile
-  }
-  colsum = sum16(colsum);
-  if (r == 0) s.colsum[jr] = colsum;
-  __syncthreads();
-  for (int e = tid; e < kTile * C4; e += kThreads) {
-    const int kk = e / C4, c4 = e % C4, jj = j0 + kk;
-    if (jj < d.N) {
-      const float4 a = reinterpret_cast<const float4*>(s.dk + kk * d.C)[c4];
-      reinterpret_cast<float4*>(dk + at(d, f, jj, h, d.C, 0))[c4] =
-          make_float4(d.c_qk * a.x, d.c_qk * a.y, d.c_qk * a.z, d.c_qk * a.w);
-      reinterpret_cast<float4*>(dv + at(d, f, jj, h, d.C, 0))[c4] =
-          reinterpret_cast<const float4*>(s.dv + kk * d.C)[c4];
+    if (qt == 0) {
+      // sum_i dl_ij qp_i (zeros past Pq*3)
+#pragma unroll
+      for (int n = 0; n < kKQ; ++n)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bh[2], bl[2];
+          bfrag_cols(rs.qp, kP3qs, ks, 8 * n, bh, bl);
+          mma3(pacc[n], dh[ks], dlo[ks], bh, bl);
+        }
+    } else if (qt == 1) {
+      // sum_i a_ij g_opt_i (zeros past Pv*3)
+#pragma unroll
+      for (int n = 0; n < kNV; ++n)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t bh[2], bl[2];
+          bfrag_cols(rs.gopt, kP3vs, ks, 8 * n, bh, bl);
+          mma3(pacc[n], ah[ks], alo[ks], bh, bl);
+        }
     }
   }
-  for (int e = tid; e < kTile * d.P3q; e += kThreads) {
-    const int kk = e / d.P3q, x = e % d.P3q, jj = j0 + kk;
-    if (jj < d.N)
-      dkp[at(d, f, jj, h, d.P3q, x)] =
-          -w * (s.colsum[kk] * s.kt.kp[kk * d.P3qs + x] - s.dlqp[e]);
-  }
-  for (int e = tid; e < kTile * d.P3v; e += kThreads) {
-    const int kk = e / d.P3v, x = e % d.P3v, jj = j0 + kk;
-    if (jj < d.N) dvp[at(d, f, jj, h, d.P3v, x)] = s.dvp[e];
+
+  // epilogue: keys g, g + 8 of the tile
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = k0 + g + 8 * r, j = j0 + kr;
+    const float cs = quad_sum(colsum[r]);
+    if (j >= L.N) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = col + 8 * n + 2 * t;
+      if (c < L.C) {
+        const size_t x = at(L, f, j, h, L.C, c);
+        *reinterpret_cast<float2*>(dk + x) =
+            make_float2(L.c_qk * dka[n][2 * r], L.c_qk * dka[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + x) =
+            make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+    }
+    if (qt == 0) {
+#pragma unroll
+      for (int n = 0; n < kKQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < L.P3q)
+            dkp[at(L, f, j, h, L.P3q, c)] =
+                -w * (cs * s.kp[kr * kP3qs + c] - pacc[n][2 * r + e]);
+        }
+    } else if (qt == 1) {
+#pragma unroll
+      for (int n = 0; n < kNV; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < L.P3v) dvp[at(L, f, j, h, L.P3v, c)] = pacc[n][2 * r + e];
+        }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernel C: dbias [N, N, H], dpz [N, N, Dz]. grid (ceil(N/16), ceil(N/16))
+// kernel C: dbias [N, N, H], dpz [N, N, Dz]. grid (ceil(N/16), ceil(N/32))
 // ---------------------------------------------------------------------------
 struct SmemC {
-  RowTile rt;
-  KeyTile kt;
-  float *pz;    // [256 elements][Dzs]: the tile's pair_z rows, staged once
-  float *dpz;   // [256 elements][Dzs]
-  __host__ __device__ size_t carve(float* base, const Dims& d) {
-    Carver c(base);
-    rt.carve(c, d);
-    kt.carve(c, d);
-    pz = c.take((size_t)kThreads * d.Dzs);
-    dpz = c.take((size_t)kThreads * d.Dzs);
-    return c.n;
+  Common c;
+  float* qp;    // [2][kRows][kP3qs]: the (f, h)'s query points, and
+  float* gopt;  // [2][kRows][kP3vs]: their cotangents, with the key tiles
+  __host__ __device__ size_t carve(float* base, const Layout& L) {
+    Carver cv(base);
+    c.carve(cv, L);
+    qp = cv.take((size_t)2 * kRows * kP3qs);
+    gopt = cv.take((size_t)2 * kRows * kP3vs);
+    return cv.n;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-ipa_bwd_pair_kernel(Inputs in, Dims d, float* __restrict__ dbias,
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
                     float* __restrict__ dpz) {
   extern __shared__ float4 smem4[];
   SmemC s;
-  s.carve(reinterpret_cast<float*>(smem4), d);
-  const int j0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int r = tid / kTile, jr = tid % kTile, i = i0 + r, j = j0 + jr;
-  const bool valid = i < d.N && j < d.N;
-  const size_t ij = valid ? (size_t)i * d.N + j : 0;
+  s.carve(reinterpret_cast<float*>(smem4), L);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = warp >> 2, qt = warp & 3;  // query tile, channel quarter
+  const int j0 = blockIdx.x * kKeys, i0 = blockIdx.y * kRows;
+  const int r0 = i0 + 16 * tile;
+  const int col = qt * L.CQ;
+  const int rr = qt & 1;  // quarters 2, 3: pair rows g + 8 rr
+  const bool pair_warp = qt >= 2;
+  const int n_it = F * L.H;  // (h, f), the frame fastest
+  float* xch = s.c.xch + tile * kXchFloats;
+  float* sksq = s.c.ksq + tile * kKeys;
+  float* spz = s.c.pz + (16 * tile + 8 * rr) * kPZs;
 
-  // pair_z of the tile, one coalesced pass: row i holds 16 * Dz
-  // consecutive floats
-  for (int e = tid; e < kTile * kTile * d.Dz; e += kThreads) {
-    const int rr = e / (kTile * d.Dz), rem = e % (kTile * d.Dz);
-    const int kk = rem / d.Dz, x = rem % d.Dz;
-    const int ii = i0 + rr, jj = j0 + kk;
-    s.pz[(rr * kTile + kk) * d.Dzs + x] =
-        (ii < d.N && jj < d.N) ? in.pz[((size_t)ii * d.N + jj) * d.Dz + x] : 0.f;
-  }
-  for (int x = 0; x < d.Dz; ++x) s.dpz[tid * d.Dzs + x] = 0.f;
-  float* my_dpz = s.dpz + tid * d.Dzs;
-  const float* my_pz = s.pz + tid * d.Dzs;
-
-  for (int h = 0; h < d.H; ++h) {
-    const float w = in.hw[h];
-    const float bias_ij = valid ? in.bias[ij * d.H + h] : 0.f;
-    float dl_sum = 0.f;
-    for (int f = 0; f < d.F; ++f) {
-      load_row_tile(s.rt, in, d, f, h, i0);
-      load_key_tile(s.kt, in, d, f, h, j0);
-      __syncthreads();
-      tile_norms(&s.rt, &s.kt, d);
-      __syncthreads();
-      const Elem e = element(s.rt, s.kt, r, jr, valid, bias_ij, my_pz, w, d);
-      dl_sum += e.dl;
-      const float* gp = s.rt.gpair + r * d.Dzs;
-      for (int x = 0; x < d.Dz; ++x) my_dpz[x] = fmaf(e.a, gp[x], my_dpz[x]);
-      __syncthreads();  // the tiles are rewritten by the next (h, f)
+  // the (f, h) of iteration `it`'s key tile and rows' points into buffer
+  // it & 1, as one cp.async group (committed even when empty)
+  auto fetch = [&](int it, bool any) {
+    const int hh = it / F, ff = it - hh * F, b = it & 1;
+    if (any) {
+      fetch_rows(s.qp + b * kRows * kP3qs, kP3qs, kMaxP3q, in.qp, ff, hh, i0,
+                 L.P3q, L);
+      fetch_rows(s.gopt + b * kRows * kP3vs, kP3vs, kMaxP3v, in.gopt, ff, hh,
+                 i0, L.P3v, L);
     }
-    if (valid) dbias[ij * d.H + h] = d.c_b * dl_sum;
-  }
-  for (int e = tid; e < kTile * kTile * d.Dz; e += kThreads) {
-    const int rr = e / (kTile * d.Dz), rem = e % (kTile * d.Dz);
-    const int kk = rem / d.Dz, x = rem % d.Dz;
-    const int ii = i0 + rr, jj = j0 + kk;
-    if (ii < d.N && jj < d.N)
-      dpz[((size_t)ii * d.N + jj) * d.Dz + x] = s.dpz[(rr * kTile + kk) * d.Dzs + x];
-  }
-}
+    fetch_keys(s.c.tile(b, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias,
+               ff, hh, i0, j0, any, L);
+  };
+  float qa[NT][4], goa[NT][4];  // this warp's quarter of q and g_o
+  auto load_q = [&](float (&x)[NT][4], const float* src, int it) {
+    const int hh = it / F, ff = it - hh * F;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks)
+      load_afrag(x[ks], src, L, ff, hh, r0, L.C, col + 8 * ks, L.C);
+  };
+  // the (f, h) of iteration it's row operands: g_pair of the pair rows
+  // (channels t + 4 m) and of rows g, g + 8 (channels 8 qt + m), mask, lse, D
+  float gp[kMaxDz / 4], gq[2][8], qm[2], lse[2], dvec[2];
+  auto load_small = [&](int it) {
+    const int h = it / F, f = it - h * F;
+    if (pair_warp) {
+      const int i = r0 + g + 8 * rr;
+#pragma unroll
+      for (int m = 0; m < kMaxDz / 4; ++m) {
+        const int d = t + 4 * m;
+        gp[m] = (i < L.N && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)]
+                                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + g + 8 * r;
+      const bool ok = i < L.N;
+      qm[r] = ok ? in.mask[(size_t)f * L.N + i] : 0.f;
+      lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.N + i] : 0.f;
+      dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.N + i] : 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int d = 8 * qt + m;
+        gq[r][m] = (ok && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)] : 0.f;
+      }
+    }
+  };
 
-size_t smem_bytes_a(const ipa_tc::Layout& L) {
-  SmemA s;
-  return s.carve(nullptr, L) * sizeof(float);
+  zero_padding(s.c, L);
+  if (pair_warp) fetch_pz(spz, in.pz, r0 + 8 * rr, j0, L);  // once
+  fetch(0, true);
+  load_q(qa, in.q, 0);
+  load_q(goa, in.go, 0);
+  load_small(0);
+
+  // dpz of this lane's 8 elements for pair channels 8 qt + m; dbias (over
+  // the frames, quarter 0)
+  float dpa[2][4][8], dba[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dba[n][e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) dpa[n][e][m] = 0.f;
+    }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int h = it / F, f = it - h * F;
+    const KeyTile kt = s.c.tile(it & 1, L);
+    cp_async_wait<0>();
+    __syncthreads();
+    fetch(it + 1, it + 1 < n_it);
+
+    const float w = in.hw[h];
+    const int b = it & 1;
+    const bool more = it + 1 < n_it;
+    // the next (f, h)'s q and g_o as soon as this one's are read
+    tile_products<NT>(xch, sksq, qa, goa,
+                      s.qp + b * kRows * kP3qs + 16 * tile * kP3qs,
+                      s.gopt + b * kRows * kP3vs + 16 * tile * kP3vs, spz, gp,
+                      kt, col, qt, [] {},
+                      [&](int which) {
+                        if (more) load_q(which ? goa : qa,
+                                         which ? in.go : in.q, it + 1);
+                      },
+                      L);
+    bar_sync(1 + tile, 128);
+
+    float a[2][4], dl[2][4], dist[2][4];
+    tile_a_dl(a, dl, dist, xch, kt, tile, qm, lse, dvec, w, r0, j0, L);
+    if (qt == 0) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dba[n][e] += dl[n][e];
+      if (f == F - 1) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = r0 + g + 8 * (e >> 1), j = j0 + 8 * n + 2 * t +
+                                                     (e & 1);
+            if (i < L.N && j < L.N)
+              dbias[((size_t)i * L.N + j) * L.H + h] = L.c_b * dba[n][e];
+            dba[n][e] = 0.f;
+          }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          dpa[n][e][m] = fmaf(a[n][e], gq[e >> 1][m], dpa[n][e][m]);
+    if (more) load_small(it + 1);
+  }
+
+  // epilogue: dpz of rows g, g + 8 and keys 8 n + 2 t + {0, 1}
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1), j = j0 + 8 * n + 2 * t + (e & 1);
+      if (i >= L.N || j >= L.N) continue;
+      float* out = dpz + ((size_t)i * L.N + j) * L.Dz;
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        if (8 * qt + m < L.Dz) out[8 * qt + m] = dpa[n][e][m];
+    }
 }
 
 template <typename Smem>
-size_t smem_bytes(const Dims& d) {
+size_t smem_bytes(const Layout& L) {
   Smem s;
-  return s.carve(nullptr, d) * sizeof(float);
-}
-
-int prepare(const Dims& d, int device) {
-  if (d.F < 1 || d.N < 1 || d.H < 1 || d.C < 4 || d.C % 4 != 0 || d.P3q < 3 ||
-      d.P3v < 3 || d.Dz < 1 || d.H > 65535 || d.F > 65535 ||
-      (d.N + kTile - 1) / kTile > 65535)
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaSetDevice(device);
-}
-
-Dims make_dims(int F, int N, int H, int C, int Pq, int Pv, int Dz, float c_qk,
-               float c_b, float inf) {
-  Dims d;
-  d.F = F, d.N = N, d.H = H, d.C = C, d.Cs = padded_c(C);
-  d.P3q = 3 * Pq, d.P3qs = padded_odd(3 * Pq);
-  d.P3v = 3 * Pv, d.P3vs = padded_odd(3 * Pv);
-  d.Dz = Dz, d.Dzs = padded_odd(Dz);
-  d.c_qk = c_qk, d.c_b = c_b, d.inf = inf;
-  return d;
+  return s.carve(nullptr, L) * sizeof(float);
 }
 
 template <typename Kernel>
@@ -839,8 +1042,8 @@ int set_smem(Kernel kernel, size_t bytes) {
 // head_weights [H]; lse and D [F, H, N]; g_pair [F, N, H, Dz]. Outputs:
 // A dq like q, dqp like q_pts, dhw_rows [F, H, N]; B dk, dv like k, dkp
 // like k_pts, dvp like v_pts; C dbias [N, N, H], dpz [N, N, Dz]. All
-// float32 and contiguous; the C-wide tensors 16-byte aligned, C divisible
-// by 4; for A also C <= 256, Pq*3 <= 32, Pv*3 <= 48 and Dz <= 32.
+// float32 and contiguous; the C-wide tensors 16-byte aligned; C divisible
+// by 4 and at most 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32.
 #define IPA_BWD_INPUTS                                                       \
   const float *q, const float *k, const float *v, const float *q_pts,        \
       const float *k_pts, const float *v_pts, const float *bias,             \
@@ -850,62 +1053,58 @@ int set_smem(Kernel kernel, size_t bytes) {
 #define IPA_BWD_SHAPES                                                       \
   int F, int N, int H, int C, int Pq, int Pv, int Dz, float c_qk, float c_b, \
       float inf, int device, cudaStream_t stream
-#define IPA_BWD_PACK                                                         \
+// Packs the inputs, checks the widths, makes the layout L and the kernel
+// instance for C (NT 8 or 1) of `kern`, sets its shared memory (smem bytes
+// of `Smem`) and selects the device.
+#define IPA_BWD_PREPARE(kern, Smem)                                          \
   Inputs in{q,   k,   v,          q_pts, k_pts, v_pts, bias,  pair_z,        \
             mask, head_weights, lse,   dvec,  g_o,   g_opt, g_pair};         \
-  const Dims d = make_dims(F, N, H, C, Pq, Pv, Dz, c_qk, c_b, inf);          \
-  int err = prepare(d, device);                                              \
-  if (err) return err;
+  if (F < 1 || F > 65535 || !layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz) ||       \
+      (N + kRows - 1) / kRows > 65535)                                       \
+    return (int)cudaErrorInvalidValue;                                       \
+  const Layout L =                                                           \
+      make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,               \
+                  (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);          \
+  const size_t smem = smem_bytes<Smem>(L);                                   \
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;            \
+  int err = (int)cudaSetDevice(device);                                      \
+  if (err) return err;                                                       \
+  auto kernel = tiles_for(C) == kMaxNT ? kern<kMaxNT> : kern<1>;             \
+  if ((err = set_smem(kernel, smem))) return err;
 
 extern "C" int ipa_attention_bwd_dq(IPA_BWD_INPUTS, float* dq, float* dqp,
                                     float* dhw_rows, IPA_BWD_SHAPES) {
-  IPA_BWD_PACK
-  if (!ipa_tc::layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz))
-    return (int)cudaErrorInvalidValue;
-  const ipa_tc::Layout L =
-      ipa_tc::make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,
-                          (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);
-  const size_t smem = smem_bytes_a(L);
-  if (smem > (size_t)ipa_tc::kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = ipa_tc::tiles_for(C) == ipa_tc::kMaxNT
-                    ? ipa_bwd_dq_kernel<ipa_tc::kMaxNT>
-                    : ipa_bwd_dq_kernel<1>;
-  if ((err = set_smem(kernel, smem))) return err;
-  const dim3 grid(H, F, (N + ipa_tc::kRows - 1) / ipa_tc::kRows);
-  kernel<<<grid, ipa_tc::kThreads, smem, stream>>>(in, L, dq, dqp, dhw_rows);
+  IPA_BWD_PREPARE(ipa_bwd_dq_kernel, SmemA)
+  const dim3 grid(H, F, (N + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(in, L, dq, dqp, dhw_rows);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ipa_attention_bwd_dkv(IPA_BWD_INPUTS, float* dk, float* dkp,
                                      float* dv, float* dvp, IPA_BWD_SHAPES) {
-  IPA_BWD_PACK
-  const size_t smem = smem_bytes<SmemB>(d);
-  if ((err = set_smem(ipa_bwd_dkv_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, H, F);
-  ipa_bwd_dkv_kernel<<<grid, kThreads, smem, stream>>>(in, d, dk, dkp, dv, dvp);
+  IPA_BWD_PREPARE(ipa_bwd_dkv_kernel, SmemB)
+  const dim3 grid(H, F, (N + kBKeys - 1) / kBKeys);
+  kernel<<<grid, kThreads, smem, stream>>>(in, L, dk, dkp, dv, dvp);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ipa_attention_bwd_pair(IPA_BWD_INPUTS, float* dbias, float* dpz,
                                       IPA_BWD_SHAPES) {
-  IPA_BWD_PACK
-  const size_t smem = smem_bytes<SmemC>(d);
-  if ((err = set_smem(ipa_bwd_pair_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, (N + kTile - 1) / kTile);
-  ipa_bwd_pair_kernel<<<grid, kThreads, smem, stream>>>(in, d, dbias, dpz);
+  IPA_BWD_PREPARE(ipa_bwd_pair_kernel, SmemC)
+  const dim3 grid((N + kKeys - 1) / kKeys, (N + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(in, L, F, dbias, dpz);
   return (int)cudaGetLastError();
 }
 
 // dynamic shared-memory bytes per block of kernel 0 (A), 1 (B) or 2 (C)
 extern "C" long long ipa_attention_bwd_smem(int which, int C, int Pq, int Pv,
                                             int Dz) {
-  const Dims d = make_dims(1, 1, 1, C, Pq, Pv, Dz, 0.f, 0.f, 0.f);
+  const Layout L =
+      make_layout(1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f, true);
   switch (which) {
-    case 0:
-      return (long long)smem_bytes_a(ipa_tc::make_layout(
-          1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f, true));
-    case 1: return (long long)smem_bytes<SmemB>(d);
-    case 2: return (long long)smem_bytes<SmemC>(d);
+    case 0: return (long long)smem_bytes<SmemA>(L);
+    case 1: return (long long)smem_bytes<SmemB>(L);
+    case 2: return (long long)smem_bytes<SmemC>(L);
     default: return -1;
   }
 }

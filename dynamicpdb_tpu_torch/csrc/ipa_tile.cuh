@@ -1,38 +1,51 @@
-// The row-stationary tile machinery shared by the IPA forward
-// (ipa_attention_fwd.cu) and the dq kernel of the backward
-// (ipa_attention_bwd.cu ipa_bwd_dq_kernel): one block owns 32 query rows of
-// one (frame, head) and walks the keys in steps of 16.
+// The tile machinery shared by the four IPA kernels on the tensor cores:
+// the forward (ipa_attention_fwd.cu) and the three kernels of the backward
+// (ipa_attention_bwd.cu: dq, dk/dv, pair).
+//
+// Row-stationary layout (the forward, dq and pair kernels): a block owns 32
+// query rows of one (frame, head) and meets the keys 16 at a time: the
+// forward and dq walk every key of the (frame, head), the pair kernel one
+// key step of every (head, frame).
 //
 // Warps. A block has eight warps, four per 16-row query tile. The four
 // warps of a tile split the C channels in quarters (of 64 channels, zero
 // past C, for C up to 256; of 8 for C up to 32):
 // each computes its quarter of every C-wide product on the tensor cores
-// (q.k^T, and in dq g_o.v^T), the quarters are swapped through shared
-// memory ("exchange", one named barrier per tile and step), and all four
-// then hold the same logits and probabilities, from which each accumulates
-// its quarter of the C-wide output (p.v, dl.k). The small products are
-// shared out: quarter 0 takes the point distances, quarter 1 the value
-// points, quarters 2 and 3 the pair term of the tile's first and last eight
-// rows, each fetching, reading and refetching its own pair_z rows
-// (single-buffered, a warp barrier, no block barrier). Two warps on each of
-// the SM's four schedulers hide each other's latencies.
+// (q.k^T, and in the backward g_o.v^T), the quarters are swapped through
+// shared memory ("exchange", one named barrier per tile and step), and all
+// four then hold the same logits and probabilities, from which each
+// accumulates its quarter of the C-wide output (p.v, dl.k). The small
+// products are shared out: quarter 0 takes the point distances, quarter 1
+// the value points, quarters 2 and 3 the pair term of the tile's first and
+// last eight rows, each fetching, reading and refetching its own pair_z
+// rows (single-buffered, a warp barrier, no block barrier). Two warps on
+// each of the SM's four schedulers hide each other's latencies. The
+// backward's recompute of a tile (tile_products, tile_a_dl) is one piece
+// of code for dq and pair.
+//
+// Key-stationary layout (dk/dv): the same warps and exchange turned around.
+// A block owns 32 keys, two tiles of 16 with four channel-quarter warps
+// each, and meets the query rows 16 at a time; its products are the
+// transposed tiles (keys x rows: k.q^T, v.g_o^T) with keys as the A
+// operand, in the pass order of mma3t, so that each element is formed from
+// the same products in the same order as in the row-stationary kernels.
 //
 // Logits. logit_ij = c_qk q_i.k_j + c_b bias_ijh - 0.5 w_h dist_ij
 // + inf (m_i m_j - 1), dist_ij = |qp_i|^2 + |kp_j|^2 - 2 qp_i.kp_j, the
-// terms added in that order, as the CUDA-core kernels B and C of the
-// backward do (ipa_logit). The forward and dq compute q.k_j and qp_i.kp_j
-// with the same code (qk_partial, point_dist), so both see the same logit
-// to the bit. A pad row's logits sit near -1e5, where float32 steps by
-// 2^-7: any other order would move a_ij there by whole steps.
+// terms added in that order by every kernel (ipa_logit), q.k_j and
+// qp_i.kp_j computed by the same code (qk_partial, point_dist, row_norms,
+// norms16), so all four kernels see the same logit. A pad row's logits sit
+// near -1e5, where float32 steps by 2^-7: any other order would move a_ij
+// there by whole steps.
 //
 // Key tiles. Each step's k and v rows (C floats), key points, key mask and
 // bias tile [32 rows][16 keys] arrive by cp.async, double-buffered across
 // the block, one block barrier per step. The bias is [N, N, H]: one float
 // of each 32-byte sector belongs to this head. The head is the fastest grid
-// axis, so the H blocks of one (query tile, frame) run together and the
-// other seven floats of each sector are read from L2 by the neighbouring
-// heads' blocks; the same holds for pair_z, which all F H blocks of a query
-// tile read: it crosses device memory once per call.
+// axis of the forward and dq, so the H blocks of one (query tile, frame)
+// run together and the other seven floats of each sector are read from L2
+// by the neighbouring heads' blocks; the same holds for pair_z, which all
+// F H blocks of a query tile read: it crosses device memory once per call.
 #pragma once
 
 #include <math.h>
@@ -366,7 +379,9 @@ __device__ __forceinline__ void bfrag_cols(const float* m, int stride, int ks,
 // (nt = 0, 1): X's A fragments from afrag(ks, a) (raw float32), M the key
 // tile [kKeys][Cs] from column col. 3xTF32; even and odd k-steps in
 // separate accumulators (two independent chains per n-tile), added last.
-template <int NT, typename AFrag>
+// kT: X holds the keys and M the 16 query rows (the key-stationary
+// layout's transposed tile), the passes in mma3t's order.
+template <int NT, bool kT = false, typename AFrag>
 __device__ __forceinline__ void qk_partial(float (&s)[2][4], AFrag afrag,
                                            const float* m, int col,
                                            const Layout& L) {
@@ -387,7 +402,10 @@ __device__ __forceinline__ void qk_partial(float (&s)[2][4], AFrag afrag,
     for (int n = 0; n < 2; ++n) {
       uint32_t bh[2], bl[2];
       bfrag_rows(m, L.Cs, n, col + 8 * ks, bh, bl);
-      mma3(acc[ks & 1][n], ah, al, bh, bl);
+      if (kT)
+        mma3t(acc[ks & 1][n], ah, al, bh, bl);
+      else
+        mma3(acc[ks & 1][n], ah, al, bh, bl);
     }
   }
 #pragma unroll
@@ -410,18 +428,25 @@ __device__ __forceinline__ void row_norms(float (&qsq)[2],
   qsq[1] = quad_sum(qsq[1]);
 }
 
-// |kp|^2 of the step's keys into ksq (lanes 0..15 of one warp; the caller
-// orders the reads with __syncwarp).
-__device__ __forceinline__ void key_norms(float* ksq, const KeyTile& t,
-                                          const Layout& L) {
+// |x|^2 of 16 rows (stride `stride`, kMaxP3q columns, zero past P3q) into
+// dst, by lanes 0..15 of one warp (the caller orders the reads with
+// __syncwarp): the key points' norms of every kernel.
+__device__ __forceinline__ void norms16(float* dst, const float* x,
+                                        int stride) {
   const int lane = threadIdx.x & 31;
   if (lane < kKeys) {
     float s = 0.f;
 #pragma unroll
-    for (int x = 0; x < kMaxP3q; ++x)  // zero past P3q
-      s += t.kp[lane * kP3qs + x] * t.kp[lane * kP3qs + x];
-    ksq[lane] = s;
+    for (int c = 0; c < kMaxP3q; ++c)  // zero past P3q
+      s += x[lane * stride + c] * x[lane * stride + c];
+    dst[lane] = s;
   }
+}
+
+// |kp|^2 of the step's keys into ksq
+__device__ __forceinline__ void key_norms(float* ksq, const KeyTile& t,
+                                          const Layout& L) {
+  norms16(ksq, t.kp, kP3qs);
 }
 
 // dist[nt] = |qp_i|^2 + |kp_j|^2 - 2 qp_i.kp_j for the step's keys, the
@@ -491,6 +516,146 @@ __device__ __forceinline__ float xsum4(const float* xch, int s, int n,
                                        int e) {
   return (xval(xch, s, n, e) + xval(xch, s + 1, n, e)) +
          (xval(xch, s + 2, n, e) + xval(xch, s + 3, n, e));
+}
+
+// ---- the backward's tile recompute (dq and pair kernels) -------------------
+// Each warp's share of the products of its 16-row tile and the key step in
+// kt, into the exchange: its channel quarter of q.k^T and g_o.v^T (qa, goa:
+// its quarter of q and g_o as raw A fragments, 3xTF32); quarter 0 the point
+// distances and quarter 1 g_opt.vp^T (sqp, sgopt: the tile's 16 rows of
+// query points and their cotangents in shared memory, 3xTF32); quarters 2
+// and 3 the pair term g_pair_i.pz_ij of rows g + 8 rr on the CUDA cores
+// (spz: their 8 pair_z rows of the step; gp: the lane's pair channels
+// t + 4 m of g_pair_i): lane (g, t) sums its channels for all 16 keys, then
+// a reduce-scatter over the quad hands each lane the keys of its fragment.
+// pz_read() runs in the pair warps once every lane has read spz (dq fetches
+// the next step's rows there); read(0) once qa is read and read(1) once goa
+// is (the pair kernel loads the next (h, f)'s rows into them there).
+template <int NT, typename PzRead, typename Read>
+__device__ __forceinline__ void tile_products(
+    float* xch, float* sksq, const float (&qa)[NT][4],
+    const float (&goa)[NT][4], const float* sqp, const float* sgopt,
+    const float* spz, const float (&gp)[kMaxDz / 4], const KeyTile& kt,
+    int col, int qt, PzRead pz_read, Read read, const Layout& L) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  {
+    float x[2][4];
+    qk_partial<NT>(
+        x,
+        [&](int ks, float (&a)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[ks][e];
+        },
+        kt.k, col, L);
+    read(0);
+    xput(xch, kQK + qt, x);
+    qk_partial<NT>(
+        x,
+        [&](int ks, float (&a)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = goa[ks][e];
+        },
+        kt.v, col, L);
+    read(1);
+    xput(xch, kGV + qt, x);
+  }
+  if (qt == 0) {
+    float qpa[kKQ][4], qsq[2], dist[2][4];
+#pragma unroll
+    for (int ks = 0; ks < kKQ; ++ks) smem_afrag(qpa[ks], sqp, kP3qs, 8 * ks);
+    row_norms(qsq, qpa);
+    key_norms(sksq, kt, L);
+    __syncwarp();
+    point_dist(dist, qpa, qsq, sksq, kt, L);
+    xput(xch, kDist, dist);
+  } else if (qt == 1) {
+    // g_opt . vp^T, 3xTF32
+    float gvp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gvp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kNV; ++ks) {  // zeros past Pv*3
+      float a[4];
+      smem_afrag(a, sgopt, kP3vs, 8 * ks);
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t bh[2], bl[2];
+        bfrag_rows(kt.vp, kP3vs, n, 8 * ks, bh, bl);
+        mma3(gvp[n], ah, al, bh, bl);
+      }
+    }
+    xput(xch, kGVP, gvp);
+  } else {
+    // g_pair_i . pz_ij of row g + 8 rr: sums over this lane's pair
+    // channels, then a reduce-scatter over the quad: keys (jj & 7) < 4 to
+    // lanes t < 2 and the rest to t >= 2, then odd key pairs to odd t
+    const int rr = qt & 1;
+    cp_async_wait<1>();  // this step's pair_z rows (the key tile may wait)
+    __syncwarp();
+    float part[kKeys];
+    const float* z = spz + g * kPZs + t;  // zeros past Dz
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      float a = 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxDz / 4; ++m)
+        a = fmaf(gp[m], z[jj * kMaxDz + 4 * m], a);
+      part[jj] = a;
+    }
+    __syncwarp();  // every lane has read the rows
+    pz_read();
+    const bool lo2 = t < 2, even = (t & 1) == 0;
+    float hf[8];
+#pragma unroll
+    for (int sl = 0; sl < 8; ++sl) {
+      const int kl = sl < 4 ? sl : sl + 4, kh = kl + 4;
+      const float send = lo2 ? part[kh] : part[kl];
+      const float recv = __shfl_xor_sync(0xffffffffu, send, 2);
+      hf[sl] = (lo2 ? part[kl] : part[kh]) + recv;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int sl = u < 2 ? u : u + 2, sh = sl + 2;
+      const float send = even ? hf[sh] : hf[sl];
+      const float recv = __shfl_xor_sync(0xffffffffu, send, 1);
+      // key 8 (u / 2) + 2 t + u % 2 of row g + 8 rr
+      xset(xch, kGPZ, u >> 1, 2 * rr + (u & 1),
+           (even ? hf[sl] : hf[sh]) + recv);
+    }
+  }
+}
+
+// a, dl and the point distance of rows r0 + g, r0 + g + 8 (tile `tile` of
+// the block) and keys j0 + 8 n + 2 t + {0, 1} of the step in kt, from the
+// exchange: the four warps of the tile read the same operands and compute
+// the same values. a = dl = 0 past N.
+__device__ __forceinline__ void tile_a_dl(
+    float (&a)[2][4], float (&dl)[2][4], float (&dist)[2][4],
+    const float* xch, const KeyTile& kt, int tile, const float (&qm)[2],
+    const float (&lse)[2], const float (&dvec)[2], float w, int r0, int j0,
+    const Layout& L) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, c = 8 * n + 2 * t + (e & 1);
+      const bool valid = r0 + g + 8 * r < L.N && j0 + c < L.N;
+      dist[n][e] = xval(xch, kDist, n, e);
+      const float l = ipa_logit(
+          xsum4(xch, kQK, n, e), kt.bias[(16 * tile + g + 8 * r) * kBS + c],
+          dist[n][e], qm[r], kt.km[c], w, L);
+      const float av = expf(l - lse[r]);
+      const float v = av * ((xsum4(xch, kGV, n, e) + xval(xch, kGVP, n, e) +
+                             xval(xch, kGPZ, n, e)) -
+                            dvec[r]);
+      a[n][e] = valid ? av : 0.f;
+      dl[n][e] = valid ? v : 0.f;
+    }
 }
 
 }  // namespace ipa_tc

@@ -87,3 +87,15 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma(c, ah, bl);
   mma(c, ah, bh);
 }
+
+// c += a . b in three passes with the two cross passes swapped: a tile
+// computed transposed (a = keys, b = rows) gets each element from the same
+// products in the same order as mma3 gives it untransposed (a = rows).
+__device__ __forceinline__ void mma3t(float (&c)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[2],
+                                      const uint32_t (&bl)[2]) {
+  mma(c, ah, bl);
+  mma(c, al, bh);
+  mma(c, ah, bh);
+}

@@ -27,10 +27,10 @@ compulsory traffic at the release shapes, so arithmetic bounds all four
 (about 19, 28, 37 and 20 us); with the products on the TF32 tensor cores
 in three passes, about 9 (the bytes), 12, 15 and 12 us. The kernels keep
 every N x N quantity in shared memory and registers, so traffic stays near
-the compulsory bytes. The forward and dq run their products on the tensor
-cores (3xTF32, float32 accuracy), which bounds their widths: C <= 256,
+the compulsory bytes. All four run their products on the tensor cores
+(3xTF32, float32 accuracy), which bounds their widths: C <= 256,
 Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``; the wrappers raise
-past them); dk/dv and the pair kernel run on the CUDA cores in float32.
+past them).
 
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
 ``bwd_pair_launches`` count the kernel launches of this process; a run
@@ -148,11 +148,15 @@ def ipa_bwd_pair_plain(*inputs, c_qk, c_b, inf):
 # ---------------------------------------------------------------------------
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
-    """A kernel library, built and loaded on first use, with every argument
-    typed (pointers and the stream as c_void_p)."""
+    """A kernel library, built and loaded on first use."""
     from dynamicpdb_tpu_torch.ops import _build
 
-    lib = _build.load(name)
+    return _typed(_build.load(name), name)
+
+
+def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """``lib`` (built from ``csrc/<name>.cu``) with every argument of its
+    functions typed (pointers and the stream as c_void_p)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shapes = [i] * 7 + [f] * 3 + [i, p]
     if name == "ipa_attention_fwd":
@@ -199,7 +203,7 @@ def _check_kernel_inputs(fn: str, named: dict, expected: dict, C: int):
         raise ValueError(f"{fn}: C={C} is not a multiple of 4")
 
 
-# the widest operands the tensor-core kernels (forward, dq) take: C, Pq*3,
+# the widest operands the tensor-core kernels (all four) take: C, Pq*3,
 # Pv*3 and Dz (csrc/ipa_tile.cuh kMaxC, kMaxP3q, kMaxP3v, kMaxDz)
 TILE_LIMITS = {"C": 256, "Pq*3": 32, "Pv*3": 48, "Dz": 32}
 
@@ -269,12 +273,11 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
 BWD_INPUT_NAMES = INPUT_NAMES + ("lse", "dvec", "g_o", "g_opt", "g_pair")
 
 
-def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf,
-              tiled=False):
+def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
     """Run backward kernel ``fn`` (or ``plain`` on the CPU) on the 15
     backward inputs (points flattened to P*3); ``out_shapes(F, N, H, C,
-    P3q, P3v, Dz)`` gives the shapes of its outputs; ``tiled``: the kernel
-    has the tensor-core kernels' width limits."""
+    P3q, P3v, Dz)`` gives the shapes of its outputs. Every kernel has the
+    tensor-core width limits (``TILE_LIMITS``)."""
     device = _device_of(fn, inputs)
     if device.type == "cpu":
         return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf)
@@ -293,8 +296,7 @@ def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf,
     }
     named = dict(zip(BWD_INPUT_NAMES, inputs))
     _check_kernel_inputs(fn, named, expected, C)
-    if tiled:
-        _check_tile_limits(fn, C, P3q, P3v, Dz)
+    _check_tile_limits(fn, C, P3q, P3v, Dz)
     if any(named[n].data_ptr() % 16 for n in ("q", "k", "v", "g_o")):
         raise ValueError(f"{fn}: q, k, v and g_o must be 16-byte aligned")
     outs = [torch.empty(shape, dtype=torch.float32, device=device)
@@ -314,7 +316,7 @@ def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
         "ipa_attention_bwd_dq", ipa_bwd_dq_plain,
         lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
                                           (F, H, N)),
-        inputs, c_qk, c_b, inf, tiled=True)
+        inputs, c_qk, c_b, inf)
     if inputs[0].is_cuda:
         bwd_dq_launches += 1
     return out

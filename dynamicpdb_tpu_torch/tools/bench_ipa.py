@@ -1,11 +1,12 @@
-"""Time the IPA forward and dq kernels on the card, and measure where their
-float32 error comes from.
+"""Time the IPA forward and backward kernels on the card, and measure where
+their float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_ipa.py [--package DIR] \
-        [--rounds 3] [--reps 50] [--precision] [--ablate]
+        [--rounds 3] [--reps 50] [--precision] [--ablate [KERNEL]]
 
-Times the forward (``csrc/ipa_attention_fwd.cu``) and the dq kernel of the
-backward (``csrc/ipa_attention_bwd.cu``) at the release shapes (F=2, N=256,
+Times the forward (``csrc/ipa_attention_fwd.cu``) and the three kernels of
+the backward (``csrc/ipa_attention_bwd.cu``: dq, dk/dv, pair) at the
+release shapes (F=2, N=256,
 H=8, C=256, Pq=8, Pv=12, Dz=32, last 56 residues masked), through their
 public wrappers (``ms``) and alone (``ms_kernel``, outputs allocated once,
 ``chip_smoke.ipa_kernel_ms``), in ``--rounds`` interleaved rounds of
@@ -18,16 +19,20 @@ instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one run: run this script (as a script, not with
 ``-m``) once against each, e.g. parent, change, change, parent.
 
-``--ablate`` builds copies of this checkout's forward kernel with one part
-of its key-step loop removed (the pair-stream loop, all pair_z work, p.v,
-q.k^T, the point distances, p.vp, the key fetches after the first; loads
-alone; math alone) and times each alone, interleaved with the whole
-kernel: where the forward's time goes. The copies compute wrong results;
-they are timed, never checked. The edits are made on the source text and
-fail loudly when the kernel no longer has the lines they expect.
+``--ablate [KERNEL]`` builds copies of this checkout's kernel KERNEL
+(``ipa_attention_fwd``, the default, ``ipa_attention_bwd_dkv`` or
+``ipa_attention_bwd_pair``) with one part of its loop removed (``ABLATIONS``:
+for the forward the pair-stream loop, all pair_z work, p.v, q.k^T, the
+point distances, p.vp, the key fetches after the first, loads alone, math
+alone; for dk/dv and pair the fetches after the first, the transposed tile,
+the dk and dv products, the dpz update, math alone) and times each alone,
+interleaved with the whole kernel: where the kernel's time goes. The copies
+compute wrong results; they are timed, never checked. The edits are made on
+the source text and fail loudly when the kernel no longer has the lines
+they expect.
 
-``--precision`` runs both kernels in float32 at the release widths with one
-frame and two heads, and holds them, the float32 plain versions and the
+``--precision`` runs the four kernels in float32 at the release widths with
+one frame and two heads, and holds them, the float32 plain versions and the
 emulations below (every product through ``bench_geom.mm_3xtf32`` with the
 tensor cores' round-toward-zero accumulation, or through one TF32 pass,
 ``mm_one_pass``) against the same functions in float64, on real rows.
@@ -45,6 +50,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import types
 
 import torch
 
@@ -53,7 +59,8 @@ if __package__:
 else:  # run as a script
     import bench_geom
 
-KERNELS = ("ipa_attention_fwd", "ipa_attention_bwd_dq")
+KERNELS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
+           "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
 C_B, INF = math.sqrt(1.0 / 3), 1e5
 
 
@@ -93,27 +100,59 @@ def ipa_fwd_mm(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     return tuple(t.transpose(1, 2) for t in (o, o_pt, o_pair))
 
 
-def ipa_dq_mm(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
-              lse, dvec, g_o, g_opt, g_pair, c_qk, mm):
-    """The dq kernel's arithmetic on the 15 backward inputs
-    (``ops.ipa_attention.backward_inputs``): q.k^T, qp.kp^T, g_o.v^T,
-    g_opt.vp^T and dl.k through ``mm``, the pair term in plain sums.
-    Returns dq [F, N, H, C]."""
+def _a_dl(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
+          lse, dvec, g_o, g_opt, g_pair, c_qk, mm):
+    """The backward kernels' tile recompute on the 15 backward inputs
+    (``ops.ipa_attention.backward_inputs``): a and dl [F, H, N, N] with
+    q.k^T, qp.kp^T, g_o.v^T and g_opt.vp^T through ``mm``, the pair term in
+    plain sums."""
     l = _logits(q, k, q_pts, k_pts, bias, mask, head_weights, c_qk, mm)
     a = torch.exp(l - lse[..., None])
     ds = (mm(_heads(g_o), _heads(v).transpose(-1, -2))
           + mm(_heads(g_opt), _heads(v_pts).transpose(-1, -2))
           + torch.einsum("fihd,ijd->fhij", g_pair, pair_z))
-    dl = a * (ds - dvec[..., None])
-    return (c_qk * mm(dl, _heads(k))).transpose(1, 2)
+    return a, a * (ds - dvec[..., None])
+
+
+def ipa_dq_mm(*inputs, c_qk, mm):
+    """The dq kernel's arithmetic: the recompute, then dl.k through ``mm``.
+    Returns dq [F, N, H, C]."""
+    _, dl = _a_dl(*inputs, c_qk, mm)
+    return (c_qk * mm(dl, _heads(inputs[1]))).transpose(1, 2)
+
+
+def ipa_dkv_mm(*inputs, c_qk, mm):
+    """The dk/dv kernel's arithmetic: the recompute, then dl^T.q, dl^T.qp,
+    a^T.g_o and a^T.g_opt through ``mm``. Returns (dk, dkp, dv, dvp) in the
+    layouts of k, k_pts, v, v_pts (points flattened)."""
+    q, k_pts, q_pts, hw = inputs[0], inputs[4], inputs[3], inputs[9]
+    g_o, g_opt = inputs[12], inputs[13]
+    a, dl = _a_dl(*inputs, c_qk, mm)
+    a_t, dl_t = a.transpose(-1, -2), dl.transpose(-1, -2)
+    colsum = dl.sum(-2)[..., None]  # [F, H, N, 1] over query rows
+    dk = c_qk * mm(dl_t, _heads(q))
+    dkp = -hw[None, :, None, None] * (colsum * _heads(k_pts)
+                                      - mm(dl_t, _heads(q_pts)))
+    dv = mm(a_t, _heads(g_o))
+    dvp = mm(a_t, _heads(g_opt))
+    return tuple(t.transpose(1, 2) for t in (dk, dkp, dv, dvp))
+
+
+def ipa_pair_mm(*inputs, c_qk, mm):
+    """The pair kernel's arithmetic: the recompute, then dbias = c_b sum_f dl
+    and dpz = sum_{f,h} a g_pair in plain sums. Returns (dbias [N, N, H],
+    dpz [N, N, Dz])."""
+    a, dl = _a_dl(*inputs, c_qk, mm)
+    return (C_B * dl.sum(0).permute(1, 2, 0),
+            torch.einsum("fhij,fihd->ijd", a, inputs[14]))
 
 
 def precision_inputs(smoke, device, dtype=torch.float32):
     """Release widths, F = 1, H = 2, N = 256, last 56 residues masked
     (``chip_smoke.ipa_inputs``): the forward's inputs in ``dtype``, and the
-    dq kernel's 15 inputs with seeded cotangents zero on pad rows, lse and
-    D from the float64 forward (so that every dq below starts from the same
-    values)."""
+    backward kernels' 15 inputs with seeded cotangents zero on pad rows,
+    lse and D from the float64 forward (so that every gradient below starts
+    from the same values)."""
     args, c_qk = smoke.ipa_inputs(torch, device, F=1, H=2, seed=0)
     args64 = [a.double() for a in args]
     exact = lambda a, b: a @ b  # noqa: E731
@@ -133,25 +172,31 @@ def precision_inputs(smoke, device, dtype=torch.float32):
             [t.to(dtype).contiguous() for t in bwd], c_qk)
 
 
-NAMES = ("o", "o_pt", "o_pair", "dq")
+NAMES = ("o", "o_pt", "o_pair", "dq", "dk", "dkp", "dv", "dvp", "dbias",
+         "dpz")
+REAL_ROWS = ("o", "o_pt", "o_pair", "dq")  # compared on real query rows
 
 
 def emulate(mm, fwd_args, bwd_inputs, c_qk):
-    """(o, o_pt, o_pair, dq) with every product through ``mm``."""
+    """The outputs of ``NAMES`` with every product through ``mm``."""
+    kw = dict(c_qk=c_qk, mm=mm)
     return (ipa_fwd_mm(*fwd_args, c_qk, mm)
-            + (ipa_dq_mm(*bwd_inputs, c_qk, mm),))
+            + (ipa_dq_mm(*bwd_inputs, **kw),)
+            + ipa_dkv_mm(*bwd_inputs, **kw) + ipa_pair_mm(*bwd_inputs, **kw))
 
 
 def errors_vs_float64(fwd_args, bwd_inputs, c_qk, results: dict) -> dict:
-    """{scheme: {output: max abs error on real rows against float64}} for
-    each scheme's (o, o_pt, o_pair, dq) in ``results`` (points flattened),
-    and "scale": each float64 output's largest magnitude."""
+    """{scheme: {output: max abs error against float64}} for each scheme's
+    outputs of ``NAMES`` in ``results`` (points flattened): those of
+    ``REAL_ROWS`` on real query rows, the key-side and pair gradients over
+    all their rows; and "scale": each float64 output's largest magnitude."""
     real = fwd_args[8].bool()[..., None, None]  # [F, N, 1, 1]
     exact = emulate(lambda a, b: a @ b, [a.double() for a in fwd_args],
                     [t.double() for t in bwd_inputs], c_qk)
     out = {"scale": {n: float(e.abs().max()) for n, e in zip(NAMES, exact)}}
     for scheme, got in results.items():
-        out[scheme] = {n: float(((g.double() - e) * real).abs().max())
+        out[scheme] = {n: float(((g.double() - e)
+                                 * (real if n in REAL_ROWS else 1)).abs().max())
                        for n, g, e in zip(NAMES, got, exact)}
     return out
 
@@ -178,9 +223,10 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
                                      seed=4)
     kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
     calls = {"ipa_attention_fwd": (args, lambda: mod.ipa_attention_fwd(
-                 *args, c_qk)),
-             "ipa_attention_bwd_dq": (inputs, lambda: mod.ipa_attention_bwd_dq(
-                 *inputs, **kw))}
+        *args, c_qk))}
+    for kind in KERNELS[1:]:
+        calls[kind] = (inputs, functools.partial(getattr(mod, kind), *inputs,
+                                                 **kw))
     times = {k: {"ms_kernel": [], "ms": []} for k in KERNELS}
     for _ in range(rounds):
         for kind in KERNELS:
@@ -194,15 +240,17 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
 def precision(smoke, mod, device) -> dict:
     fwd_args, bwd_inputs, c_qk = precision_inputs(smoke, device)
     o, o_pt, o_pair, _ = mod.ipa_attention_fwd(*fwd_args, c_qk)
-    dq = mod.ipa_attention_bwd_dq(*bwd_inputs, c_qk=c_qk, c_b=C_B,
-                                  inf=INF)[0]
+    kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
+    dq = mod.ipa_attention_bwd_dq(*bwd_inputs, **kw)[0]
     results = {name: emulate(mm, fwd_args, bwd_inputs, c_qk)
                for name, mm in emulations().items()}
-    results["kernel"] = (o, o_pt.flatten(3), o_pair, dq)
+    results["kernel"] = ((o, o_pt.flatten(3), o_pair, dq)
+                         + mod.ipa_attention_bwd_dkv(*bwd_inputs, **kw)
+                         + mod.ipa_attention_bwd_pair(*bwd_inputs, **kw))
     return errors_vs_float64(fwd_args, bwd_inputs, c_qk, results)
 
 
-# the forward's key-step loop, part by part: (anchor, replacement) edits
+# each kernel's loop, part by part: (anchor, replacement) edits of its source
 _SKIP_PAIR_LOOP = (
     ("      cp_async_wait<1>();  // this step's pair_z rows (the key tile may "
      "wait)\n      __syncwarp();\n", "@@cut_start"),
@@ -221,25 +269,63 @@ _SKIP_DIST = (("      point_dist(dist, qpa, qsq, sksq, kt, L);",
 _SKIP_PT = (("          mma3(opt[n], ph[ks], pl[ks], bh, bl);", ""),)
 _SKIP_FETCH = (("               j0 + kKeys, step + 1 < n_steps, L);",
                 "               j0 + kKeys, false, L);"),)
+_ZERO_X = "      for (int e = 0; e < 8; ++e) x[e >> 2][e & 3] = 0.f;\n"
+_DKV_NO_ROWS = (("i0 + kStep, j0,\n                   step + 1 < n_steps, L);",
+                 "i0 + kStep, j0,\n                   false, L);"),)
+_DKV_NO_PZ = (
+    ("      if (step + 1 < n_steps)\n        fetch_pz_keys(spz, in.pz, "
+     "i0 + kStep, j0 + k0 + 8 * rr, L);", ""),
+    ("    if (pair_warp)\n      cp_async_wait<1>();\n    else\n      "
+     "cp_async_wait<0>();\n    __syncthreads();\n    fetch_row_step(",
+     "    cp_async_wait<0>();\n    __syncthreads();\n    fetch_row_step("))
+_DKV_NO_TILE = (("          rs.q, col, L);\n", "          rs.q, col, L);\n"
+                 + _ZERO_X),
+                ("          rs.go, col, L);\n", "          rs.go, col, L);\n"
+                 + _ZERO_X))
+_DKV_NO_DKDV = (("        mma3(dka[n], dh[ks], dlo[ks], bh, bl);", ""),
+                ("        mma3(dva[n], ah[ks], alo[ks], bh, bl);", ""))
+_PAIR_NO_RELOAD = (("                        if (more) load_q(", "                        if (0) load_q("),
+                   ("    if (more) load_small(it + 1);", ""))
+_PAIR_NO_FETCH = (("    fetch(it + 1, it + 1 < n_it);",
+                   "    fetch(it + 1, false);"),)
+_PAIR_NO_DPZ = (("          dpa[n][e][m] = fmaf(a[n][e], gq[e >> 1][m], "
+                 "dpa[n][e][m]);", "          ;"),)
 ABLATIONS = {
-    "all": (),
-    "no pair-stream loop": _SKIP_PAIR_LOOP,
-    "no pair_z work": _SKIP_PAIR_LOOP + _SKIP_PZ,
-    "no p.v": _SKIP_PV,
-    "no q.k^T": _SKIP_QK,
-    "no point distances": _SKIP_DIST,
-    "no p.vp": _SKIP_PT,
-    "no key fetch after the first": _SKIP_FETCH,
-    "loads only": (_SKIP_PAIR_LOOP + _SKIP_PV + _SKIP_QK + _SKIP_DIST
-                   + _SKIP_PT),
-    "math only": _SKIP_FETCH + _SKIP_PAIR_LOOP + _SKIP_PZ,
+    "ipa_attention_fwd": {
+        "all": (),
+        "no pair-stream loop": _SKIP_PAIR_LOOP,
+        "no pair_z work": _SKIP_PAIR_LOOP + _SKIP_PZ,
+        "no p.v": _SKIP_PV,
+        "no q.k^T": _SKIP_QK,
+        "no point distances": _SKIP_DIST,
+        "no p.vp": _SKIP_PT,
+        "no key fetch after the first": _SKIP_FETCH,
+        "loads only": (_SKIP_PAIR_LOOP + _SKIP_PV + _SKIP_QK + _SKIP_DIST
+                       + _SKIP_PT),
+        "math only": _SKIP_FETCH + _SKIP_PAIR_LOOP + _SKIP_PZ,
+    },
+    "ipa_attention_bwd_dkv": {
+        "all": (),
+        "no row-step fetch after the first": _DKV_NO_ROWS,
+        "no pair_z refetch": _DKV_NO_PZ,
+        "math only": _DKV_NO_ROWS + _DKV_NO_PZ,
+        "no k.q^T, v.g_o^T": _DKV_NO_TILE,
+        "no dk, dv products": _DKV_NO_DKDV,
+    },
+    "ipa_attention_bwd_pair": {
+        "all": (),
+        "no q, g_o reload": _PAIR_NO_RELOAD,
+        "no key-tile fetch after the first": _PAIR_NO_FETCH,
+        "math only": _PAIR_NO_RELOAD + _PAIR_NO_FETCH,
+        "no dpz update": _PAIR_NO_DPZ,
+    },
 }
 
 
 def ablated_source(src: str, edits) -> str:
     for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"ablation: the forward no longer has {old!r}")
+            raise RuntimeError(f"ablation: the kernel no longer has {old!r}")
         if new == "@@cut_start":
             src = src.replace(old, old + "#if 0\n")
         elif new == "@@cut_end":
@@ -249,18 +335,21 @@ def ablated_source(src: str, edits) -> str:
     return src
 
 
-def ablation(smoke, device, rounds: int, reps: int) -> dict:
-    """{variant: [ms alone per round]} of the forward at the release shapes."""
-    from dynamicpdb_tpu_torch.ops import _build
+def ablation(smoke, device, rounds: int, reps: int, kind: str) -> dict:
+    """{variant: [ms alone per round]} of kernel ``kind`` at the release
+    shapes."""
+    from dynamicpdb_tpu_torch.ops import _build, ipa_attention
 
-    src = open(os.path.join(_build.CSRC_DIR, "ipa_attention_fwd.cu")).read()
+    lib_name = ("ipa_attention_fwd" if kind == "ipa_attention_fwd"
+                else "ipa_attention_bwd")
+    src = open(os.path.join(_build.CSRC_DIR, lib_name + ".cu")).read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="ablate_", dir=_build.BUILD_DIR)
     try:
-        for rel in _build.sources("ipa_attention_fwd")[1:]:
+        for rel in _build.sources(lib_name)[1:]:
             shutil.copy(os.path.join(_build.CSRC_DIR, rel), work)
         procs = {}
-        for i, (name, edits) in enumerate(ABLATIONS.items()):
+        for i, (name, edits) in enumerate(ABLATIONS[kind].items()):
             cu = os.path.join(work, f"v{i}.cu")
             with open(cu, "w") as f:
                 f.write(ablated_source(src, edits))
@@ -273,28 +362,18 @@ def ablation(smoke, device, rounds: int, reps: int) -> dict:
             log, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"ablation {name}: nvcc failed:\n{log}")
-            lib = ctypes.CDLL(so)
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ipa_attention_fwd.argtypes = ([p] * 14 + [i] * 7 + [f] * 3
-                                              + [i, p])
-            lib.ipa_attention_fwd.restype = i
-            libs[name] = lib
+            libs[name] = ipa_attention._typed(ctypes.CDLL(so), lib_name)
         args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
-        F, N, H, C = args[0].shape
-        Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
-        outs = [torch.empty(s, device=device) for s in (
-            (F, N, H, C), (F, N, H, Pv, 3), (F, N, H, Dz), (F, H, N))]
-        ptrs = [t.data_ptr() for t in list(args) + outs]
-        stream = torch.cuda.current_stream(device).cuda_stream
+        operands = args
+        if kind != "ipa_attention_fwd":
+            operands, _ = smoke.ipa_bwd_inputs(torch, args, c_qk,
+                                               zero_pad=False, seed=4)
         times = {name: [] for name in libs}
         for _ in range(rounds):
             for name, lib in libs.items():
-                call = functools.partial(
-                    lib.ipa_attention_fwd, *ptrs, F, N, H, C, Pq, Pv, Dz, c_qk,
-                    C_B, INF, device.index or 0, stream)
-                if call() != 0:
-                    raise RuntimeError(f"ablation {name}: launch refused")
-                times[name].append(smoke.time_ms(torch, call, reps))
+                variant = types.SimpleNamespace(_lib=lambda _, lib=lib: lib)
+                times[name].append(smoke.ipa_kernel_ms(
+                    torch, variant, kind, operands, c_qk, reps))
         return times
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -307,7 +386,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--precision", action="store_true")
-    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--ablate", nargs="?", const="ipa_attention_fwd",
+                    choices=list(ABLATIONS), metavar="KERNEL")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_ipa: torch sees no CUDA device", file=sys.stderr)
@@ -320,12 +400,14 @@ def main(argv=None) -> int:
         print(json.dumps({"package": label, "card": card, **row}))
     if args.precision:
         print(json.dumps({"package": label, "card": card,
-                          "max_abs_err_vs_float64_real_rows":
+                          "max_abs_err_vs_float64":
                           precision(smoke, mod, device)}))
     if args.ablate:
-        for name, t in ablation(smoke, device, args.rounds, args.reps).items():
+        for name, t in ablation(smoke, device, args.rounds, args.reps,
+                                args.ablate).items():
             print(json.dumps({"package": label, "card": card,
-                              "forward without": name, "ms_kernel": t}))
+                              "kernel": args.ablate, "without": name,
+                              "ms_kernel": t}))
     return 0
 
 

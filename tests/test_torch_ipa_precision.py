@@ -1,14 +1,16 @@
-"""Why the IPA forward and dq kernels run every product in three TF32
-passes (csrc/ipa_attention_fwd.cu, csrc/ipa_attention_bwd.cu kernel A).
+"""Why the IPA kernels run every product in three TF32 passes
+(csrc/ipa_attention_fwd.cu, csrc/ipa_attention_bwd.cu kernels A, B, C).
 
 The kernels' arithmetic is emulated on the CPU at the release widths (one
 frame, two heads, N = 256, C = 256, Pq 8, Pv 12, Dz 32, last 56 residues
-masked; dq with cotangents zero on pad rows) with every product through
-one TF32 pass or through 3xTF32 with the tensor cores' round-toward-zero
-accumulation (tools/bench_geom.py mm_one_pass, mm_3xtf32), and held
-against the same functions in float64 on real rows, under the tolerances
-the kernels are held to on the card: chip_smoke.IPA_ATOL for o, o_pt and
-o_pair, chip_smoke.BWD_RTOL of dq's largest magnitude for dq
+masked; the gradients with cotangents zero on pad rows) with every
+product through one TF32 pass or through 3xTF32 with the tensor cores'
+round-toward-zero accumulation (tools/bench_geom.py mm_one_pass,
+mm_3xtf32), and held against the same functions in float64 (o, o_pt,
+o_pair and dq on real rows, the key-side and pair gradients on all rows),
+under the tolerances the kernels are held to on the card:
+chip_smoke.IPA_ATOL for o, o_pt and o_pair, chip_smoke.BWD_RTOL of each
+gradient's largest magnitude for dq, dk, dkp, dv, dvp, dbias and dpz
 (tools/bench_ipa.py --precision adds the kernels themselves)."""
 import pytest
 import torch
@@ -26,9 +28,9 @@ def errors():
 
 
 def _tol(errors, name):
-    if name == "dq":
-        return chip_smoke.BWD_RTOL * max(1.0, errors["scale"]["dq"])
-    return chip_smoke.IPA_ATOL
+    if name in ("o", "o_pt", "o_pair"):
+        return chip_smoke.IPA_ATOL
+    return chip_smoke.BWD_RTOL * max(1.0, errors["scale"][name])
 
 
 @pytest.mark.parametrize("name", bench_ipa.NAMES)
@@ -40,7 +42,7 @@ def test_three_tf32_passes_keep_the_tolerance(errors, name):
     assert errors["3xtf32_toward_zero"][name] >= errors["plain_float32"][name]
 
 
-@pytest.mark.parametrize("name", ("o", "o_pt", "o_pair", "dq"))
+@pytest.mark.parametrize("name", bench_ipa.NAMES)
 def test_one_tf32_pass_misses_it(errors, name):
     assert errors["one_pass"][name] > 2 * _tol(errors, name), errors
 

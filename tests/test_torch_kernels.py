@@ -192,16 +192,22 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     bad[6] = bad[6].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
-    # dq runs on the tensor cores: C at most 256 (dk/dv and pair take it)
-    args, c_qk = chip_smoke.ipa_inputs(torch, cuda, N=16, H=2, C=260, Pq=4,
-                                       Pv=6, Dz=4, masked=3, seed=9)
-    outs = (torch.zeros_like(args[0]), torch.zeros_like(args[5]),
-            torch.zeros((2, 16, 2, 4), device=cuda),
-            torch.zeros((2, 2, 16), device=cuda))
-    inputs = ipa_mod.backward_inputs(tuple(args) + outs,
-                                     *(torch.zeros_like(o) for o in outs[:3]))
-    with pytest.raises(ValueError, match="C=260 is above"):
-        ipa_mod.ipa_attention_bwd_dq(*inputs, c_qk=c_qk)
+    # all three run on the tensor cores: each raises past every entry of
+    # ops.ipa_attention.TILE_LIMITS
+    small = dict(N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3)
+    for over, name in ((dict(C=260), "C=260"), (dict(Pq=11), r"Pq\*3=33"),
+                       (dict(Pv=17), r"Pv\*3=51"), (dict(Dz=33), "Dz=33")):
+        shape = {**small, **over}
+        args, c_qk = chip_smoke.ipa_inputs(torch, cuda, seed=9, **shape)
+        outs = (torch.zeros_like(args[0]), torch.zeros_like(args[5]),
+                torch.zeros((2, 16, 2, shape["Dz"]), device=cuda),
+                torch.zeros((2, 2, 16), device=cuda))
+        inputs = ipa_mod.backward_inputs(
+            tuple(args) + outs, *(torch.zeros_like(o) for o in outs[:3]))
+        for fn in (ipa_mod.ipa_attention_bwd_dq, ipa_mod.ipa_attention_bwd_dkv,
+                   ipa_mod.ipa_attention_bwd_pair):
+            with pytest.raises(ValueError, match=f"{name} is above"):
+                fn(*inputs, c_qk=c_qk)
 
 
 # ---------------------------------------------------------------------------
