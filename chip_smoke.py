@@ -15,7 +15,12 @@ Phases, each printing its own lines:
      16, 203, 256 and 611, at the tiny width, and with the first key tile
      all pad (the backward with cotangents zero on pad rows and with
      cotangents everywhere), the autograd Function against dense autograd,
-     with errors, tolerances and times;
+     with errors, tolerances and times; then the same at three cases past
+     the tensor-core kernels' widths ("wide": C 384, Pq 12, Pv 18, Dz 64,
+     4 heads; "wide-dz": Dz 64; "wide-model": phase 4b's widths and
+     window, C 384, Pq 12, Dz 64, N 256), which must run the wide route's
+     CUDA-core kernels (their launch counters move, the tensor-core ones do
+     not);
   3. serve: the release-width model with seeded random weights is saved,
      loaded by serve_cli and driven over HTTP (healthz + 4 rollouts), with
      the kernel launch counts of that run checked against the model's
@@ -27,6 +32,20 @@ Phases, each printing its own lines:
      (configs/release.yaml, B=8, remat, bfloat16) for 3 steps on two
      synthetic trajectories, with the launch counts of that run checked,
      and serve_cli answering one request from the checkpoint it wrote;
+  4b. wide: one IPA block at c_z 256, c_hidden 384, no_qk_points 12 with
+     randomised weights, gradients on the card against the CPU; then that
+     model at release depth trained 3 steps (B = 2) by train_cli and served
+     by serve_cli, every IPA launch on the wide route;
+  6. eval (run after phase 4, on its checkpoint): eval_cli over the two
+     proteins (every metric finite, the IPA launches per protein checked),
+     eval_cli --extension 4 --save-dcd (the DCD read back), and evaluate
+     one protein at a time, plain and with classifier-free guidance and
+     aux_traj, for the seconds per protein;
+  6b. eval card vs CPU: a small model with seeded random weights (guidance
+     on, EMA kept) trained one step on the CPU on trajectories whose
+     residues rotate, eval_cli --ema on both devices (rows must agree),
+     and --ref-ckpt on a reference-format file of the same EMA weights
+     (rows must equal --ema's);
   5. extract: a seeded random OmegaFold at release width and depth (795M
      parameters) saved to a temporary checkpoint (3.2 GB) and run by the
      extraction CLI on two sequences (256 and 203 residues, padded to
@@ -41,8 +60,10 @@ times them beside their bounds and torch's SDPA on the same attention
 core. Every kernel report carries two bounds: bound_ms with every
 operation on the CUDA cores in float32, tc_bound_ms with the products on
 the TF32 tensor cores in three passes (bounds()).
-The line before the last is the kernel report (launches: the IPA kernels'
-from the training run, the GeoFormer kernels' from the extraction run),
+The line before the last is the kernel report (launches: the tensor-core
+IPA kernels' from the release training run, the wide ones' from the wide
+training run, the GeoFormer kernels' from the extraction run; errors and
+times at the same shapes),
 the last line {"ok": true, "device": {...}}. Any failed check exits
 nonzero; with no CUDA device, or without the package beside it, the script
 exits 1 and prints no result.
@@ -316,21 +337,23 @@ IPA_BWD_OUT_SHAPES = {
 
 def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
                   reps: int) -> float:
-    """The time of IPA kernel ``kind`` (``ipa_attention_fwd`` on the
-    forward's 10 inputs, or a backward launcher on the 15 backward inputs)
-    alone: outputs allocated once, then ``reps`` launches straight through
-    the library of ``mod`` (no checks, no counter moves)."""
+    """The time of IPA kernel ``kind`` (``ipa_attention_fwd`` or
+    ``ipa_attention_wide_fwd`` on the forward's 10 inputs, or a backward
+    launcher of either library on the 15 backward inputs) alone: outputs
+    allocated once, then ``reps`` launches straight through the library of
+    ``mod`` (no checks, no counter moves)."""
     q = operands[0]
     F, N, H, C = q.shape
     Dz = operands[7].shape[-1]
-    if kind == "ipa_attention_fwd":
+    base = kind.replace("_wide", "")
+    if base == "ipa_attention_fwd":
         Pq, Pv = operands[3].shape[-2], operands[5].shape[-2]
         shapes = ((F, N, H, C), (F, N, H, Pv, 3), (F, N, H, Dz), (F, H, N))
-        lib = mod._lib("ipa_attention_fwd")
+        lib = mod._lib(kind)
     else:
         Pq, Pv = operands[3].shape[-1] // 3, operands[5].shape[-1] // 3
-        shapes = IPA_BWD_OUT_SHAPES[kind](F, N, H, C, 3 * Pq, 3 * Pv, Dz)
-        lib = mod._lib("ipa_attention_bwd")
+        shapes = IPA_BWD_OUT_SHAPES[base](F, N, H, C, 3 * Pq, 3 * Pv, Dz)
+        lib = mod._lib(kind[:kind.rindex("_")])
     outs = [torch.empty(s, dtype=torch.float32, device=q.device)
             for s in shapes]
     ptrs = [t.data_ptr() for t in tuple(operands) + tuple(outs)]
@@ -391,71 +414,147 @@ def ipa_errors(got, want, args) -> dict:
 # end in ragged ones; "tiny" is a small width (C = 8: one 8-channel tile a
 # warp); "first-tile-pad" masks the first 40 residues, so that every row's
 # first key steps are all pad and its running max starts near -1e5 before
-# the online softmax rescales it away
+# the online softmax rescales it away. The last three are past the
+# tensor-core kernels' widths (ipa_attention.TILE_LIMITS) and run the wide
+# route's CUDA-core kernels: "wide" at every width past its limit at once
+# (C = 384, Pq*3 = 36, Pv*3 = 54, Dz = 64; 4 heads, 203 residues ending in
+# a ragged tile), "wide-dz" at the release widths with Dz = 64, and
+# "wide-model" at the widths and window of phase 4b's model (WIDE_MODEL:
+# the release model with c_z 256, c_hidden 384, no_qk_points 12, so 8
+# heads, Pv 12, Dz 64, on a 256-residue window with 56 pad rows), whose
+# errors and times go into the wide kernels' reports beside the launches
+# of that phase
+WIDE_CASE = dict(N=203, H=4, C=384, Pq=12, Pv=18, Dz=64, masked=11)
+WIDE_MODEL_CASE = dict(N=256, masked=56, C=384, Pq=12, Dz=64)
 IPA_CASES = (("release", dict(N=256, masked=56)),
              ("ragged", dict(N=203, masked=11)),
              ("N5", dict(N=5, masked=1)),
              ("N16", dict(N=16, masked=3)),
              ("long", dict(N=611, masked=13)),
              ("tiny", dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=5)),
-             ("first-tile-pad", dict(N=203, masked=5, lead_masked=40)))
+             ("first-tile-pad", dict(N=203, masked=5, lead_masked=40)),
+             ("wide", WIDE_CASE),
+             ("wide-dz", dict(N=256, masked=56, Dz=64)),
+             ("wide-model", WIDE_MODEL_CASE))
+# the cases each IPA kernel is also timed at. The kernels line reports the
+# tensor-core kernels at "release" and the wide ones at "wide-model" (the
+# shapes phases 4 and 4b launch them at); the times at "wide" are printed
+TIMED_CASES = (("release", {}), ("wide-model", WIDE_MODEL_CASE),
+               ("wide", WIDE_CASE))
+REPORTED_CASES = ("release", "wide-model")
+# the IPA wrappers' launch counters: kernel -> (tensor-core route, wide)
+IPA_COUNTERS = {
+    "ipa_attention_fwd": ("launches", "wide_launches"),
+    "ipa_attention_bwd_dq": ("bwd_dq_launches", "wide_bwd_dq_launches"),
+    "ipa_attention_bwd_dkv": ("bwd_dkv_launches", "wide_bwd_dkv_launches"),
+    "ipa_attention_bwd_pair": ("bwd_pair_launches", "wide_bwd_pair_launches"),
+}
 
 
-def kernel_phase(torch, device, card: str) -> dict:
+def ipa_counts(ipa_mod) -> dict:
+    """{kernel: (tensor-core launches, wide launches)} of this process."""
+    return {k: tuple(getattr(ipa_mod, n) for n in names)
+            for k, names in IPA_COUNTERS.items()}
+
+
+def reset_ipa_counts(ipa_mod):
+    for names in IPA_COUNTERS.values():
+        for n in names:
+            setattr(ipa_mod, n, 0)
+
+
+def ipa_route(ipa_mod, shape: dict) -> str:
+    """The route (tc or wide) of ``shape``'s widths (release unless
+    stated); the four kernels share it at every case here."""
+    w = dict(dict(C=256, Pq=8, Pv=12, Dz=32), **shape)
+    routes = {ipa_mod.kernel_route(k, w["C"], 3 * w["Pq"], 3 * w["Pv"],
+                                   w["Dz"]) for k in IPA_COUNTERS}
+    check(len(routes) == 1, f"IPA kernels on several routes at {w}: {routes}")
+    return routes.pop()
+
+
+def check_launched(ipa_mod, before: dict, kernels, route: str, label: str):
+    """Each of ``kernels`` launched once since ``before`` on ``route``, and
+    never on the other."""
+    after = ipa_counts(ipa_mod)
+    for k in kernels:
+        tc, wide = (a - b for a, b in zip(after[k], before[k]))
+        want = (1, 0) if route == "tc" else (0, 1)
+        check((tc, wide) == want, f"{k} {label}: {tc} tensor-core and {wide} "
+              f"wide launches, expected {want}")
+
+
+def kernel_phase(torch, device, card: str) -> list[dict]:
+    """The forward kernel against its plain version at every case of
+    IPA_CASES, on the route its widths select; the reports of the
+    tensor-core kernel (release case) and the wide kernel (wide-model
+    case), after timing it at every case of TIMED_CASES."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
-    report = None
+    reports = {}
     for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=len(label), **shape)
+        route = ipa_route(ipa_mod, shape)
+        before = ipa_counts(ipa_mod)
         got = ipa_mod.ipa_attention_fwd(*args, c_qk)
         torch.cuda.synchronize()
+        check_launched(ipa_mod, before, ("ipa_attention_fwd",), route, label)
         want = ipa_mod.ipa_attention_plain(*args, c_qk)
         errs = ipa_errors(got, want, args)
+        kname = ("ipa_attention_fwd" if route == "tc"
+                 else "ipa_attention_wide_fwd")
         for name in ("o", "o_pt", "o_pair"):
             e = errs[name]
-            print(f"kernel ipa_attention_fwd {label}: {name} max_abs_err "
+            print(f"kernel {kname} {label}: {name} max_abs_err "
                   f"real rows {e['real']:.3e} (tol {e['tol_real']:.0e}), pad "
                   f"rows {e['pad']:.3e} (tol {e['tol_pad']:.3e})")
             check(e["real"] <= e["tol_real"] and e["pad"] <= e["tol_pad"],
-                  f"ipa_attention_fwd {label} {name} out of tolerance: {e}")
-        print(f"kernel ipa_attention_fwd {label}: lse max_abs_err "
+                  f"{kname} {label} {name} out of tolerance: {e}")
+        print(f"kernel {kname} {label}: lse max_abs_err "
               f"{errs['lse']['max']:.3e} (tol {IPA_ATOL:.0e} + "
               f"{IPA_LSE_RTOL:.0e}*|lse|)")
-        check(errs["lse"]["ok"], f"ipa_attention_fwd {label} lse out of "
-              "tolerance")
-        if label == "release":
-            F, N, H, C = args[0].shape
-            Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
-            ms = time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(*args, c_qk),
-                         50)
-            kernel_ms = ipa_kernel_ms(torch, ipa_mod, "ipa_attention_fwd",
-                                      args, c_qk, 50)
-            plain_ms = time_ms(
-                torch, lambda: ipa_mod.ipa_attention_plain(*args, c_qk), 20)
-            ops, nbytes, ew_ops = ipa_cost(F, N, H, C, Pq, Pv, Dz)
-            streams = [errs[n] for n in ("o", "o_pt", "o_pair")]
-            report = {
-                "name": "ipa_attention_fwd",
-                "route": "cuda",
-                "source": "dynamicpdb_tpu_torch/csrc/ipa_attention_fwd.cu",
-                "replaces": "dynamicpdb_tpu/ops/pallas/ipa_attention.py:39",
-                "launches": None,  # filled from the serving run
-                "max_abs_err": max(max(e["real"], e["pad"]) for e in streams),
-                "max_abs_err_real_rows": max(e["real"] for e in streams),
-                "max_abs_err_pad_rows": max(e["pad"] for e in streams),
-                "max_abs_err_lse": errs["lse"]["max"],
-                "ms": ms,
-                "ms_kernel": kernel_ms,  # the kernel alone, no host work
-                "plain_ms": plain_ms,
-                **bounds(ops, ew_ops, nbytes),
-                "library_ms": None,  # no single PyTorch call has the pair stream
-            }
-            print(f"kernel ipa_attention_fwd release: {ms:.4f} ms through "
-                  f"the wrapper, {kernel_ms:.4f} ms alone, plain "
-                  f"{plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms "
-                  f"({report['bound_by']}: {ops / 1e9:.3f} GFLOP, "
-                  f"{nbytes / 1e6:.2f} MB), tensor-core bound "
-                  f"{report['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
+        check(errs["lse"]["ok"], f"{kname} {label} lse out of tolerance")
+        if label in dict(TIMED_CASES):
+            reports[label] = fwd_report(torch, ipa_mod, kname, label, args,
+                                        c_qk, errs, card)
+    return [reports[label] for label in REPORTED_CASES]
+
+
+def fwd_report(torch, ipa_mod, kname: str, label: str, args, c_qk, errs,
+               card: str) -> dict:
+    """``kname``'s report at ``label``'s inputs: times through the wrapper
+    and alone, the plain version's time, the bounds."""
+    F, N, H, C = args[0].shape
+    Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
+    ms = time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(*args, c_qk), 50)
+    kernel_ms = ipa_kernel_ms(torch, ipa_mod, kname, args, c_qk, 50)
+    plain_ms = time_ms(torch, lambda: ipa_mod.ipa_attention_plain(*args, c_qk),
+                       20)
+    ops, nbytes, ew_ops = ipa_cost(F, N, H, C, Pq, Pv, Dz)
+    streams = [errs[n] for n in ("o", "o_pt", "o_pair")]
+    report = {
+        "name": kname,
+        "route": "cuda",
+        "source": f"dynamicpdb_tpu_torch/csrc/{kname}.cu",
+        "replaces": "dynamicpdb_tpu/ops/pallas/ipa_attention.py:39",
+        "case": f"{label}: F={F} N={N} H={H} C={C} Pq={Pq} Pv={Pv} Dz={Dz}",
+        "launches": None,  # filled from a run of the path
+        "max_abs_err": max(max(e["real"], e["pad"]) for e in streams),
+        "max_abs_err_real_rows": max(e["real"] for e in streams),
+        "max_abs_err_pad_rows": max(e["pad"] for e in streams),
+        "max_abs_err_lse": errs["lse"]["max"],
+        "ms": ms,
+        "ms_kernel": kernel_ms,  # the kernel alone, no host work
+        "plain_ms": plain_ms,
+        **bounds(ops, ew_ops, nbytes),
+        "library_ms": None,  # no single PyTorch call has the pair stream
+    }
+    print(f"kernel {kname} {label}: {ms:.4f} ms through "
+          f"the wrapper, {kernel_ms:.4f} ms alone, plain "
+          f"{plain_ms:.4f} ms, bound {report['bound_ms']:.4f} ms "
+          f"({report['bound_by']}: {ops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB), tensor-core bound "
+          f"{report['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
     return report
 
 
@@ -471,34 +570,41 @@ BWD_KERNELS = {  # kernel -> (replaced TPU kernel, its gradients)
 
 def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
     """The three backward kernels against their plain versions at every
-    case of IPA_CASES, with cotangents zeroed on pad rows and with
-    cotangents everywhere, and there the autograd Function's backward
-    against autograd of the plain forward on the card; then each kernel's
-    time (through its wrapper and alone) against its plain version."""
+    case of IPA_CASES, on the route its widths select, with cotangents
+    zeroed on pad rows and with cotangents everywhere, and there the
+    autograd Function's backward against autograd of the plain forward on
+    the card; then each kernel's time (through its wrapper and alone)
+    against its plain version at every case of TIMED_CASES. Returns the
+    reports of the tensor-core kernels (release case), then of the wide
+    ones (wide-model case)."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     reports = {}
     for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=10 + len(label), **shape)
+        route = ipa_route(ipa_mod, shape)
         for zero_pad in (True, False):
             case = "pad cotangents 0" if zero_pad else "pad cotangents random"
             inputs, cots = ipa_bwd_inputs(torch, args, c_qk,
                                           zero_pad=zero_pad, seed=3)
+            before = ipa_counts(ipa_mod)
             got = ipa_bwd_grads(torch, inputs, c_qk, plain=False)
             torch.cuda.synchronize()
+            check_launched(ipa_mod, before, BWD_KERNELS, route,
+                           f"{label}, {case}")
             want = ipa_bwd_grads(torch, inputs, c_qk, plain=True)
             pad_scale = None if zero_pad else ipa_bwd_pad_scale(torch, inputs,
                                                                 c_qk)
             errs = ipa_bwd_errors(got, want, pad_scale)
             for name, (err, tol) in errs.items():
-                print(f"kernel backward {label}, {case}: {name} max_abs_err "
-                      f"{err:.3e} (tol {tol:.3e})")
+                print(f"kernel backward {label} ({route}), {case}: {name} "
+                      f"max_abs_err {err:.3e} (tol {tol:.3e})")
                 check(err <= tol, f"backward {label} {case}: {name} "
                       f"{err} > {tol}")
-            if label == "release":
+            if label in dict(TIMED_CASES):
                 for kname, (_, grads) in BWD_KERNELS.items():
                     key = "max_abs_err" if zero_pad else "max_abs_err_pad_cotangents"
-                    reports.setdefault(kname, {})[key] = max(
+                    reports.setdefault((label, kname), {})[key] = max(
                         errs[g][0] for g in grads)
 
             # the Function end to end: kernels against dense autograd
@@ -525,35 +631,45 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
                 check(err <= tol, f"Function backward {label} {case}: {name} "
                       f"{err} > {tol}")
 
-    args, c_qk = ipa_inputs(torch, device, seed=20)
-    inputs, _ = ipa_bwd_inputs(torch, args, c_qk, zero_pad=False, seed=4)
-    F, N, H, C = args[0].shape
-    costs = ipa_bwd_cost(F, N, H, C, args[3].shape[-2], args[5].shape[-2],
-                         args[7].shape[-1])
-    kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    kw = dict(c_b=math.sqrt(1.0 / 3), inf=1e5)
     out = []
-    for kname, (replaces, _) in BWD_KERNELS.items():
-        kernel = getattr(ipa_mod, kname)
-        plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
-                                               "ipa_bwd") + "_plain")
-        ms = time_ms(torch, lambda: kernel(*inputs, **kw), 50)
-        kernel_ms = ipa_kernel_ms(torch, ipa_mod, kname, inputs, c_qk, 50)
-        plain_ms = time_ms(torch, lambda: plain(*inputs, **kw), 20)
-        ops, nbytes, ew_ops = costs[kname]
-        rep = {
-            "name": kname, "route": "cuda",
-            "source": "dynamicpdb_tpu_torch/csrc/ipa_attention_bwd.cu",
-            "replaces": replaces, "launches": None, **reports[kname],
-            "ms": ms, "ms_kernel": kernel_ms, "plain_ms": plain_ms,
-            **bounds(ops, ew_ops, nbytes),
-            "library_ms": None,  # no single PyTorch call computes it
-        }
-        print(f"kernel {kname} release: {ms:.4f} ms through the wrapper, "
-              f"{kernel_ms:.4f} ms alone, plain {plain_ms:.4f} ms, "
-              f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
-              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), tensor-core "
-              f"bound {rep['tc_bound_ms']:.4f} ms, warm L2 [{card}]")
-        out.append(rep)
+    for label, shape in TIMED_CASES:
+        prefix = ("ipa_attention_" if ipa_route(ipa_mod, shape) == "tc"
+                  else "ipa_attention_wide_")
+        args, c_qk = ipa_inputs(torch, device, seed=20, **shape)
+        inputs, _ = ipa_bwd_inputs(torch, args, c_qk, zero_pad=False, seed=4)
+        F, N, H, C = args[0].shape
+        Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
+        costs = ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz)
+        for kname, (replaces, _) in BWD_KERNELS.items():
+            name = kname.replace("ipa_attention_", prefix)
+            kernel = getattr(ipa_mod, kname)
+            plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
+                                                   "ipa_bwd") + "_plain")
+            ms = time_ms(torch, lambda: kernel(*inputs, c_qk=c_qk, **kw), 50)
+            kernel_ms = ipa_kernel_ms(torch, ipa_mod, name, inputs, c_qk, 50)
+            plain_ms = time_ms(torch, lambda: plain(*inputs, c_qk=c_qk, **kw),
+                               20)
+            ops, nbytes, ew_ops = costs[kname]
+            rep = {
+                "name": name, "route": "cuda",
+                "source": f"dynamicpdb_tpu_torch/csrc/{prefix}bwd.cu",
+                "replaces": replaces,
+                "case": f"{label}: F={F} N={N} H={H} C={C} Pq={Pq} Pv={Pv} "
+                        f"Dz={Dz}",
+                "launches": None, **reports[(label, kname)],
+                "ms": ms, "ms_kernel": kernel_ms, "plain_ms": plain_ms,
+                **bounds(ops, ew_ops, nbytes),
+                "library_ms": None,  # no single PyTorch call computes it
+            }
+            print(f"kernel {name} {label}: {ms:.4f} ms through the wrapper, "
+                  f"{kernel_ms:.4f} ms alone, plain {plain_ms:.4f} ms, "
+                  f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
+                  f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+                  f"tensor-core bound {rep['tc_bound_ms']:.4f} ms, warm L2 "
+                  f"[{card}]")
+            if label in REPORTED_CASES:
+                out.append(rep)
     return out
 
 
@@ -918,14 +1034,16 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def grad_flow_phase(seed: int = 0) -> dict:
-    """One train-step loss and backward at a small width in float32, every
-    parameter drawn from a seeded generator (randomize_: the AF2 zero init
-    of linear_out would make every IPA input gradient exactly 0), with the
-    same injected noise on the card and on the CPU. Every parameter's
-    gradient must agree, every IPA projection's gradient must be nonzero
-    on the card, and each backward kernel must have run once per block and
-    window."""
+def grad_flow_phase(seed: int = 0, overrides=tuple(SMALL_OVERRIDES),
+                    label: str = "grad flow") -> dict:
+    """One train-step loss and backward at a small width (or the model of
+    ``overrides``) in float32, every parameter drawn from a seeded
+    generator (randomize_: the AF2 zero init of linear_out would make every
+    IPA input gradient exactly 0), with the same injected noise on the card
+    and on the CPU. Every parameter's gradient must agree, every IPA
+    projection's gradient must be nonzero on the card, and each backward
+    kernel must have run once per block and window, on the route the
+    model's widths select."""
     import torch
 
     from dynamicpdb_tpu_torch import config as config_lib
@@ -935,7 +1053,10 @@ def grad_flow_phase(seed: int = 0) -> dict:
     from dynamicpdb_tpu_torch.train.experiment import Trainer
     from dynamicpdb_tpu_torch.weights import randomize_
 
-    cfg = config_lib.apply_overrides(config_lib.Config(), SMALL_OVERRIDES)
+    cfg = config_lib.apply_overrides(config_lib.Config(), list(overrides))
+    ipa = cfg.model.ipa
+    route = ipa_route(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
+                                    Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
     ws = [pad_window(make_window(n_res=n, frame_time=cfg.data.frame_time,
                                  node_dim=cfg.model.node_repr_dim,
                                  edge_dim=cfg.model.edge_repr_dim,
@@ -949,19 +1070,20 @@ def grad_flow_phase(seed: int = 0) -> dict:
         if dev == "cpu":
             noises = [t.draw_window_noise(cfg.data.frame_time, 16)
                       for _ in ws]
-        ipa_mod.bwd_dq_launches = ipa_mod.bwd_dkv_launches = 0
-        ipa_mod.bwd_pair_launches = 0
+        reset_ipa_counts(ipa_mod)
         loss, _ = t.loss_and_grads(batch, _to(noises, dev))
         if dev == "cuda":
             torch.cuda.synchronize()
-        launched = (ipa_mod.bwd_dq_launches, ipa_mod.bwd_dkv_launches,
-                    ipa_mod.bwd_pair_launches)
+        counts = ipa_counts(ipa_mod)
+        launched = tuple(counts[k][route == "wide"] for k in BWD_KERNELS)
+        other = sum(counts[k][route == "tc"] for k in BWD_KERNELS)
         grads[dev] = (float(loss), {n: p.grad.detach().cpu()
                                     for n, p in t.model.named_parameters()
                                     if p.grad is not None})
     expect = cfg.model.ipa.num_blocks * len(ws)
-    check(launched == (expect,) * 3, f"grad flow: backward kernel launches "
-          f"{launched}, expected {expect} each")
+    check(launched == (expect,) * 3 and other == 0, f"{label}: backward "
+          f"kernel launches {launched} on the {route} route ({other} on the "
+          f"other), expected {expect} each")
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = grads["cpu"], grads["cuda"]
     check(sorted(g_cpu) == sorted(g_gpu), "grad flow: different parameters "
           "received gradients on the card and on the CPU")
@@ -971,30 +1093,35 @@ def grad_flow_phase(seed: int = 0) -> dict:
         tol = GRAD_FLOW_RTOL * max(float(want.abs().max()),
                                    floor / GRAD_FLOW_RTOL)
         err = float((g_gpu[name] - want).abs().max())
-        check(err <= tol, f"grad flow: {name} card vs CPU {err} > {tol}")
+        check(err <= tol, f"{label}: {name} card vs CPU {err} > {tol}")
         worst = max(worst, (err / tol, name))
     for b in range(cfg.model.ipa.num_blocks):
         for proj in IPA_PROJECTIONS:
             key = f"score_model.trunk.ipa_{b}.{proj}" + (
                 "" if proj == "head_weights" else ".weight")
             check(float(g_gpu[key].abs().max()) > 0,
-                  f"grad flow: {key} has a zero gradient on the card")
-    print(f"grad flow: small width, float32, randomised weights: loss card "
-          f"{loss_gpu:.6f} CPU {loss_cpu:.6f}; {len(g_cpu)} parameter "
-          f"gradients agree (worst {worst[1]} at {worst[0]:.3f} of its tol "
+                  f"{label}: {key} has a zero gradient on the card")
+    print(f"{label}: C={ipa.c_hidden} Pq={ipa.no_qk_points} "
+          f"Pv={ipa.no_v_points} Dz={ipa.c_z // 4}, {ipa.num_blocks} "
+          f"block(s), float32, randomised weights: loss card {loss_gpu:.6f} "
+          f"CPU {loss_cpu:.6f}; {len(g_cpu)} parameter gradients agree "
+          f"(worst {worst[1]} at {worst[0]:.3f} of its tol "
           f"{GRAD_FLOW_RTOL:.0e} x max|g|); every IPA projection gradient "
-          f"nonzero on the card; backward kernel launches {launched}")
-    return dict(loss_cuda=loss_gpu, loss_cpu=loss_cpu)
+          f"nonzero on the card; backward kernel launches {launched} on the "
+          f"{route} route")
+    return dict(loss_cuda=loss_gpu, loss_cpu=loss_cpu, route=route)
 
 
-def write_manifest(tmp: str, lengths, n_frames: int, seed: int = 0) -> str:
+def write_manifest(tmp: str, lengths, n_frames: int, seed: int = 0,
+                   rot_wiggle: float = 0.0) -> str:
     """make_trajectory_npz bundles and their CSV manifest in ``tmp``."""
     from dynamicpdb_tpu_torch.data.synthetic import make_trajectory_npz
 
     rows = []
     for i, n in enumerate(lengths):
         path = make_trajectory_npz(os.path.join(tmp, f"prot{i}.npz"),
-                                   n_res=n, n_frames=n_frames, seed=seed + i)
+                                   n_res=n, n_frames=n_frames, seed=seed + i,
+                                   rot_wiggle=rot_wiggle)
         rows.append(f"prot{i},{path},{n}")
     csv = os.path.join(tmp, "train.csv")
     with open(csv, "w") as f:
@@ -1025,14 +1152,20 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    ipa_mod.launches = ipa_mod.bwd_dq_launches = 0  # the main path starts
-    ipa_mod.bwd_dkv_launches = ipa_mod.bwd_pair_launches = 0
+    reset_ipa_counts(ipa_mod)  # the main path starts
     t0 = time.perf_counter()
     exp = train_cli.main(argv)
     wall = time.perf_counter() - t0
-    launched = dict(fwd=ipa_mod.launches, dq=ipa_mod.bwd_dq_launches,
-                    dkv=ipa_mod.bwd_dkv_launches, pair=ipa_mod.bwd_pair_launches)
     cfg, trainer = exp.cfg, exp.trainer
+    ipa = cfg.model.ipa
+    route = (ipa_route(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
+                                     Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
+             if on_card else "tc")
+    counts = ipa_counts(ipa_mod)
+    launched = {k: counts[name][route == "wide"] for k, name in
+                zip(("fwd", "dq", "dkv", "pair"), IPA_COUNTERS)}
+    other = sum(c[route == "tc"] for c in counts.values())
+    check(other == 0, f"train: {other} launches off the {route} route")
     check(trainer.diffuser.so3d.tables.cache_hit, "IGSO3 table "
           f"{trainer.diffuser.so3d.tables.cache_file} was rebuilt, not read "
           "from the cache")
@@ -1069,12 +1202,13 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     print(f"train: {max_steps} steps in {wall:.2f} s of train_cli; steady "
           f"steps (step 1 apart) {steady}; peak "
           f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
-          f"launches {launched} ({len(moved)} of {len(now)} tensors "
-          f"moved){tag}")
+          f"launches {launched} on the {route} route ({len(moved)} of "
+          f"{len(now)} tensors moved){tag}")
     ckpt = os.path.join(cfg.experiment.ckpt_dir, f"step_{exp.step}.ckpt")
     check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
-    return dict(ckpt=ckpt, launched=launched, steps=exp.step_metrics,
-                peak_bytes=peak, wall=wall, batch=B)
+    return dict(ckpt=ckpt, launched=launched, route=route,
+                steps=exp.step_metrics, peak_bytes=peak, wall=wall, batch=B,
+                csv=csv)
 
 
 def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
@@ -1098,13 +1232,13 @@ def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
         w = make_window(n_res=n_res, frame_time=2,
                         node_dim=cfg.node_repr_dim, edge_dim=cfg.edge_repr_dim,
                         seed=7)
-        ipa_mod.launches = 0
+        reset_ipa_counts(ipa_mod)
         t0 = time.perf_counter()
         out = _post(f"http://{args.host}:{server.server_address[1]}",
                     {k: w[k] for k in serve_cli.RAW_KEYS},
                     "n_steps=2&fast_x0=1&seed=0")
         dt = time.perf_counter() - t0
-        launched = ipa_mod.launches
+        launched = sum(ipa_counts(ipa_mod)["ipa_attention_fwd"])
     finally:
         server.shutdown()
         server.server_close()
@@ -1121,6 +1255,300 @@ def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
     print(f"serve from checkpoint: {os.path.basename(ckpt)} (step "
           f"{service.step}), one fast_x0 request n_res={n_res} n_steps=2: "
           f"{dt:.3f} s, {launched} kernel launches{tag}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the wide IPA route in a model
+# ---------------------------------------------------------------------------
+# the release model with the IPA widths past the tensor-core kernels'
+# (C = 384, Pq*3 = 36, Dz = 64): it runs the wide kernels
+WIDE_MODEL = ["model.edge_embed_size=256", "model.ipa.c_z=256",
+              "model.ipa.c_hidden=384", "model.ipa.no_qk_points=12"]
+# depth 1, float32, for the card-against-CPU gradients
+WIDE_OVERRIDES = WIDE_MODEL + [
+    "model.ipa.num_blocks=1",
+    f"diffuser.so3.cache_dir={os.path.join(ROOT, '.cache', 'igso3')}",
+]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: evaluation
+# ---------------------------------------------------------------------------
+def forwards_per_protein(num_t: int, cfg_gamma) -> int:
+    """Model forwards of one reverse_sample: num_t, and one more for each
+    of the num_t - 1 SDE steps with classifier-free guidance."""
+    return num_t + (num_t - 1 if cfg_gamma is not None else 0)
+
+
+def eval_phase(device: str, config: str, ckpt: str, csv: str,
+               extra: list[str], tmp: str, tag: str = "") -> dict:
+    """The eval slice on a train_cli checkpoint of ``config`` (release
+    width on the card): eval_cli over the proteins of ``csv`` (every
+    metric finite, the IPA forward launched once per block and forward on
+    the card, never on the CPU);
+    eval_cli --extension 4 --save-dcd (the DCD read back with the
+    topology's atom count and 4 frames); then ``evaluate`` one protein at a
+    time, plain and with classifier-free guidance and aux_traj, for the
+    seconds per protein."""
+    import torch
+
+    from dynamicpdb_tpu_torch import eval_cli
+    from dynamicpdb_tpu_torch.analysis.pdb_io import read_pdb
+    from dynamicpdb_tpu_torch.train_cli import EVAL_METRICS
+    from dynamicpdb_tpu_torch.data.dataset import (
+        TrajectoryDataset,
+        eval_windows,
+    )
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.preprocess.dcd import read_dcd
+    from dynamicpdb_tpu_torch.sampling.evaluate import evaluate
+
+    base = ["--ckpt", ckpt, "--config", config, "--device", device,
+            f"data.test_csv_path={csv}", *extra]
+    on_card = device == "cuda"
+    os.makedirs(tmp, exist_ok=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_ipa_counts(ipa_mod)  # eval_cli's path starts
+    t0 = time.perf_counter()
+    res = eval_cli.main(base + ["--metrics-json",
+                                os.path.join(tmp, "metrics.json")])
+    wall = time.perf_counter() - t0
+    counts = ipa_counts(ipa_mod)
+    args = eval_cli.parse_args(base)
+    cfg, trainer = eval_cli.load_model(args, eval_cli.config_from_args(args),
+                                       torch.device(device))
+    n_prot, num_t = len(res["rows"]), cfg.data.num_t
+    blocks = cfg.model.ipa.num_blocks if on_card else 0
+    cfg_gamma = cfg.model.cfg_gamma if cfg.model.cfg_drop_rate > 0.01 else None
+    expect = n_prot * blocks * forwards_per_protein(num_t, cfg_gamma)
+    check(n_prot == 2, f"eval: {n_prot} rows, not 2")
+    check(counts["ipa_attention_fwd"] == (expect, 0), f"eval: IPA forward "
+          f"launches {counts['ipa_attention_fwd']}, expected ({expect}, 0)")
+    for row in res["rows"]:
+        bad = {k: v for k, v in row.items() if k != "name"
+               and not math.isfinite(v)}
+        check(not bad, f"eval: {row['name']} non-finite {bad}")
+        print(f"eval: {row['name']}: " + " ".join(
+            f"{k}={row[k]:.4f}" for k in EVAL_METRICS))
+    with open(os.path.join(tmp, "metrics.json")) as f:
+        check(json.load(f)["means"] == res["means"], "eval: --metrics-json "
+              "differs from the returned means")
+    print(f"eval: eval_cli, {n_prot} proteins, num_t={num_t}, cfg_gamma="
+          f"{cfg_gamma}: {wall:.3f} s of the CLI (weights loaded included), "
+          f"IPA forward launches {counts['ipa_attention_fwd'][0]}{tag}")
+
+    ext_dir = os.path.join(tmp, "extension")
+    reset_ipa_counts(ipa_mod)
+    t0 = time.perf_counter()
+    out = eval_cli.main(base + ["--extension", "4", "--save-dcd",
+                                "--save-dir", ext_dir])
+    ext_wall = time.perf_counter() - t0
+    launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
+    check(launched == (n_prot * 4 * num_t * blocks, 0), f"eval extension: "
+          f"IPA forward launches {launched}")
+    for path in out["extension"]:
+        stem = path[:-len("_extension.npz")]
+        topo = read_pdb(f"{stem}_topology.pdb")
+        xyz = read_dcd(f"{stem}_extension.dcd")["xyz"]
+        n_atoms = int(topo[1].sum())
+        check(xyz.shape == (4, n_atoms, 3) and np.isfinite(xyz).all(),
+              f"eval extension: {stem}.dcd holds {xyz.shape}, the topology "
+              f"{n_atoms} atoms")
+        print(f"eval extension: {os.path.basename(stem)}: 4 frames x "
+              f"{n_atoms} atoms read back from the DCD")
+    print(f"eval extension: --extension 4 --save-dcd, {n_prot} proteins in "
+          f"{ext_wall:.3f} s of the CLI, {launched[0]} IPA forward launches"
+          f"{tag}")
+
+    # evaluate one protein at a time: plain, then guided with aux_traj
+    dataset = TrajectoryDataset(cfg.data, split="test",
+                                pad_to=cfg.data.filtering.max_len)
+    windows = list(eval_windows(dataset))
+    timing = {}
+    for label, gamma, aux in (("plain", cfg_gamma, False),
+                              ("cfg", 2.0, True)):
+        seconds = []
+        for w in windows:
+            reset_ipa_counts(ipa_mod)
+            g = torch.Generator(device=device).manual_seed(0)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, _ = evaluate(trainer.model, trainer.diffuser, [w],
+                               num_t=num_t, min_t=cfg.data.min_t,
+                               noise_scale=cfg.experiment.noise_scale,
+                               cfg_gamma=gamma, aux_traj=aux,
+                               save_dir=os.path.join(tmp, label) if aux
+                               else None, generator=g)
+            seconds.append(time.perf_counter() - t0)  # rows are floats
+            n_fwd = blocks * forwards_per_protein(num_t, gamma)
+            launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
+            check(launched == (n_fwd, 0), f"evaluate {label}: IPA forward "
+                  f"launches {launched}, expected ({n_fwd}, 0)")
+            if aux:
+                with np.load(os.path.join(tmp, label,
+                                          f"{w['name']}_pred.npz")) as z:
+                    traj = z["prot_traj"]
+                check(traj.shape[0] == num_t and np.isfinite(traj).all(),
+                      f"evaluate cfg: prot_traj {traj.shape}, finite "
+                      f"{np.isfinite(traj).all()}")
+        timing[label] = seconds
+        print(f"eval: evaluate {label} (cfg_gamma={gamma}, aux_traj={aux}): "
+              f"s per protein {[round(x, 4) for x in seconds]} (N="
+              f"{cfg.data.filtering.max_len} padded), {n_fwd} IPA forward "
+              f"launches each{tag}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    print(f"eval: peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB"
+          f"{tag}")
+    return dict(rows=res["rows"], seconds=timing, peak_bytes=peak,
+                launches=counts["ipa_attention_fwd"][0])
+
+
+# card against CPU on the metric rows: float32 with TF32 off on both, the
+# rows are means over residues of one x0 prediction, whose coordinates
+# agree to 1e-3 of their scale (phase 3's small check): 2e-3 relative, and
+# 2e-3 absolute. Every angle compared is degrees from zero (the weights are
+# random and the residues rotate from frame to frame), where
+# 2 acos(|<q1, q2>|) is well conditioned
+EVAL_RTOL, EVAL_ATOL = 2e-3, 2e-3
+# radians of the correlated per-residue rotation each synthetic frame adds
+# (make_window's rot_wiggle): the reference's last two frames then differ
+# by degrees, so ref_ave_rot measures something
+EVAL_ROT_WIGGLE = 0.1
+# a reference-format copy of the same weights runs the same arithmetic
+EVAL_REF_RTOL = 1e-5
+SMALL_EVAL = SMALL_OVERRIDES + [
+    # the synthetic bundles carry embeddings of the release widths
+    "model.node_repr_dim=256", "model.edge_repr_dim=128",
+    "model.cfg_drop_rate=0.1", "experiment.ema_decay=0.99",
+    "experiment.batch_size=2", "data.filtering.max_len=16", "data.num_t=3",
+]
+
+
+def _rows_close(a: list, b: list, rtol: float, atol: float,
+                label: str) -> tuple[float, dict]:
+    """Every metric of rows ``a`` within ``atol`` + ``rtol`` x |b| of
+    ``b``'s; returns the worst ratio of error to tolerance and each
+    metric's largest absolute gap."""
+    check([r["name"] for r in a] == [r["name"] for r in b],
+          f"{label}: rows {[r['name'] for r in a]} {[r['name'] for r in b]}")
+    worst, gaps = 0.0, {}
+    for ra, rb in zip(a, b):
+        for k, v in rb.items():
+            if k == "name" or (math.isnan(v) and math.isnan(ra[k])):
+                continue
+            err = abs(ra[k] - v)
+            tol = atol + rtol * abs(v)
+            check(err <= tol, f"{label}: {rb['name']} {k} {ra[k]} vs {v}")
+            worst = max(worst, err / tol if tol else 0.0)
+            gaps[k] = max(gaps.get(k, 0.0), err)
+    return worst, gaps
+
+
+def write_reference_checkpoint(ckpt: str, model_cfg, path: str) -> str:
+    """The EMA weights of train_cli checkpoint ``ckpt`` in the reference's
+    format: 'module.' prefixes, the dead embedding_layer.* entries (the
+    reference embedder's LayerNorms and time projections) and a pickled
+    conf object whose class does not import when the file is read."""
+    import types
+
+    import torch
+
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.train.checkpoint import restore
+    from dynamicpdb_tpu_torch.train.optim import AMSGrad, ema_state_dict
+
+    model = DFoldScoreNetwork(model_cfg, device="cpu")
+    opt = AMSGrad(model.parameters(), 1e-4)
+    restore(ckpt, model, opt)
+    sd = ema_state_dict(opt, model)
+    ns, es = model_cfg.node_embed_size, model_cfg.edge_embed_size
+    for name, d_out in (("node", ns), ("edge", es)):
+        pre = f"embedding_layer.{name}_timestep_proj"
+        sd[f"{pre}.0.weight"] = torch.zeros(d_out // 2, ns)
+        sd[f"{pre}.0.bias"] = torch.zeros(d_out // 2)
+        sd[f"{pre}.2.weight"] = torch.zeros(d_out, d_out // 2)
+        sd[f"{pre}.2.bias"] = torch.zeros(d_out)
+        sd[f"embedding_layer.{name}_ln.weight"] = torch.ones(d_out)
+        sd[f"embedding_layer.{name}_ln.bias"] = torch.zeros(d_out)
+    mod = types.ModuleType("reference_conf_absent_at_load")
+    conf_cls = type("DictConfig", (), {"__module__": mod.__name__})
+    mod.DictConfig = conf_cls
+    conf = conf_cls()
+    conf.model = {"ipa": {"c_s": model_cfg.ipa.c_s}}
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
+                    "conf": conf, "optimizer": None, "epoch": 0, "step": 1},
+                   path)
+    finally:
+        del sys.modules[mod.__name__]
+    return path
+
+
+def eval_card_vs_cpu(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """A small model (classifier-free guidance on, EMA kept) with seeded
+    random weights (weights.randomize_: its zero-initialised backbone
+    update then moves the frames), trained one step on the CPU from them on
+    trajectories whose residues rotate (EVAL_ROT_WIGGLE), evaluated by
+    eval_cli --ema on each device, and again through --ref-ckpt from a
+    reference-format file of the same EMA weights: the rows of the two
+    devices agree (EVAL_RTOL, EVAL_ATOL), and each device's --ref-ckpt rows
+    equal its --ema rows (EVAL_REF_RTOL)."""
+    import torch
+
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch import eval_cli, train_cli
+    from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
+    from dynamicpdb_tpu_torch.train.experiment import Trainer
+    from dynamicpdb_tpu_torch.train.optim import make_optimizer
+    from dynamicpdb_tpu_torch.train_cli import EVAL_METRICS
+    from dynamicpdb_tpu_torch.weights import randomize_
+
+    os.makedirs(tmp, exist_ok=True)
+    csv = write_manifest(tmp, (16, 12), n_frames=6, seed=3,
+                         rot_wiggle=EVAL_ROT_WIGGLE)
+    cfg = config_lib.apply_overrides(config_lib.Config(), SMALL_EVAL)
+    init = Trainer(cfg, device="cpu")
+    with torch.no_grad():
+        randomize_(init.model, seed=5)
+    # the EMA starts at the parameters the optimizer is made with
+    opt = make_optimizer(init.model.parameters(), cfg.experiment)
+    start = os.path.join(tmp, "random_init.ckpt")
+    ckpt_lib.save(start, init.model, opt, step=0, epoch=0)
+    exp = train_cli.main(["--max-steps", "1", "--device", "cpu",
+                          f"data.csv_path={csv}",
+                          f"experiment.ckpt_dir={os.path.join(tmp, 'ckpt')}",
+                          f"experiment.eval_dir={os.path.join(tmp, 'logs')}",
+                          f"experiment.warm_start={start}", *SMALL_EVAL])
+    ckpt = os.path.join(tmp, "ckpt", "step_1.ckpt")
+    ref = write_reference_checkpoint(ckpt, cfg.model,
+                                     os.path.join(tmp, "reference.pth"))
+    out = {}
+    for dev in devices:
+        common = ["--device", dev, f"data.csv_path={csv}", *SMALL_EVAL]
+        out[dev] = eval_cli.main(["--ckpt", ckpt, "--ema"] + common)
+        out[f"{dev}-ref"] = eval_cli.main(["--ckpt", ref, "--ref-ckpt"]
+                                          + common)
+        worst, _ = _rows_close(out[f"{dev}-ref"]["rows"], out[dev]["rows"],
+                               EVAL_REF_RTOL, 0.0, f"eval {dev} --ref-ckpt")
+        print(f"eval {dev}: --ema and --ref-ckpt rows agree (worst "
+              f"{worst:.3f} of tol {EVAL_REF_RTOL:.0e} relative); step "
+              f"{exp.step}, cfg_gamma {cfg.model.cfg_gamma}")
+        for row in out[dev]["rows"]:
+            print(f"eval {dev}: {row['name']}: " + " ".join(
+                f"{k}={row[k]:.5f}" for k in EVAL_METRICS + ("ref_ave_rot",)))
+    if len(devices) == 2:
+        worst, gaps = _rows_close(out[devices[0]]["rows"],
+                                  out[devices[1]]["rows"], EVAL_RTOL,
+                                  EVAL_ATOL, "eval card vs CPU")
+        print("eval card vs CPU: largest gap per metric " + " ".join(
+            f"{k}={v:.3e}" for k, v in gaps.items()))
+        print(f"eval card vs CPU: every metric of {len(out['cuda']['rows'])} "
+              f"rows agrees (worst {worst:.3f} of its tol {EVAL_RTOL:.0e} "
+              f"relative + {EVAL_ATOL:.0e})")
     return out
 
 
@@ -1312,6 +1740,13 @@ def main() -> int:
     for which, kname in enumerate(BWD_KERNELS):
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
               " bytes of dynamic shared memory per block at the release shapes")
+    w = WIDE_CASE
+    for kname in IPA_COUNTERS:
+        need = ipa_mod.wide_smem(kname, w["C"], 3 * w["Pq"], 3 * w["Pv"],
+                                 w["Dz"])
+        print(f"build: {kname} wide route: {need} bytes of dynamic shared "
+              f"memory per block at the wide case (limit "
+              f"{ipa_mod.wide_smem_limit()})")
     for gname, shp in GEOM_SHAPES.items():
         print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
               f" bytes of dynamic shared memory per block at d={shp['d']}")
@@ -1337,7 +1772,7 @@ def main() -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    fwd_report = kernel_phase(torch, device, card)
+    fwd_report, wide_fwd_report = kernel_phase(torch, device, card)
     bwd_reports = bwd_kernel_phase(torch, device, card)
     geom_reports = geom_kernel_phase(torch, device, card)
     print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
@@ -1366,22 +1801,58 @@ def main() -> int:
             check(err <= tol, f"small request {i} {key}: card and CPU "
                   f"differ by {err} > {tol}")
 
-    # phase 4: gradients through the kernels, then training at release width
-    grad_flow_phase()
+    release = os.path.join("configs", "release.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 4: gradients through the kernels, then training at release
+        # width
+        grad_flow_phase()
+        t0 = time.perf_counter()
+        train = train_phase("cuda", release, [], lengths=(256, 200),
+                            n_frames=8, max_steps=3, tmp=tmp,
+                            tag=f" [{card}]")
+        serve_checkpoint("cuda", release, train["ckpt"], [], n_res=200,
+                         pad_to=256, tag=f" [{card}]")
+        print(f"train: release width through train_cli and serve_cli in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        check(train["route"] == "tc", "train: the release widths left the "
+              "tensor-core kernels")
+        launched = train["launched"]
+        fwd_report["launches"] = launched["fwd"]
+        for rep, key in zip(bwd_reports[:3], ("dq", "dkv", "pair")):
+            rep["launches"] = launched[key]
+
+        # phase 6: evaluation at release width on the checkpoint phase 4
+        # wrote
+        t0 = time.perf_counter()
+        ev = eval_phase("cuda", release, train["ckpt"], train["csv"], [],
+                        os.path.join(tmp, "eval6"), tag=f" [{card}]")
+        fwd_report["launches_eval"] = ev["launches"]
+        print(f"eval: release width in {time.perf_counter() - t0:.2f} s "
+              f"[{card}]")
+
+    # phase 4b: the wide route in a model: one block's gradients on the card
+    # against the CPU, then train_cli and serve_cli at release depth
+    t0 = time.perf_counter()
+    grad_flow_phase(overrides=WIDE_OVERRIDES, label="grad flow wide")
+    with tempfile.TemporaryDirectory() as tmp:
+        wide = train_phase("cuda", release, WIDE_MODEL + [
+            "experiment.batch_size=2"], lengths=(256, 200), n_frames=8,
+            max_steps=3, tmp=tmp, tag=f" [wide, {card}]")
+        serve_checkpoint("cuda", release, wide["ckpt"], WIDE_MODEL,
+                         n_res=200, pad_to=256, tag=f" [wide, {card}]")
+    check(wide["route"] == "wide", f"train wide: ran the {wide['route']} "
+          "route")
+    wide_fwd_report["launches"] = wide["launched"]["fwd"]
+    for rep, key in zip(bwd_reports[3:], ("dq", "dkv", "pair")):
+        rep["launches"] = wide["launched"][key]
+    print(f"wide: grad flow, train_cli and serve_cli in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    # phase 6b: eval on the card against the CPU, --ema and --ref-ckpt
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        train = train_phase("cuda", os.path.join("configs", "release.yaml"),
-                            [], lengths=(256, 200), n_frames=8, max_steps=3,
-                            tmp=tmp, tag=f" [{card}]")
-        serve_checkpoint("cuda", os.path.join("configs", "release.yaml"),
-                         train["ckpt"], [], n_res=200, pad_to=256,
-                         tag=f" [{card}]")
-    print(f"train: release width through train_cli and serve_cli in "
-          f"{time.perf_counter() - t0:.2f} s [{card}]")
-    launched = train["launched"]
-    fwd_report["launches"] = launched["fwd"]
-    for rep, key in zip(bwd_reports, ("dq", "dkv", "pair")):
-        rep["launches"] = launched[key]
+        eval_card_vs_cpu(tmp)
+    print(f"eval: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
     # phase 5: OmegaFold embedding extraction at release width and depth
     t0 = time.perf_counter()
@@ -1400,7 +1871,7 @@ def main() -> int:
         extract_card_vs_cpu(tmp)
     print(f"extract: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
-    reports = [fwd_report] + bwd_reports + geom_reports
+    reports = [fwd_report, wide_fwd_report] + bwd_reports + geom_reports
     for rep in reports:
         check(rep["launches"] > 0, f"{rep['name']} never launched on its "
               "main path")

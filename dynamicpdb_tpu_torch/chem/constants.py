@@ -26,6 +26,14 @@ ATOM37_NAMES = [
 ATOM_ORDER = {name: i for i, name in enumerate(ATOM37_NAMES)}
 CA_IDX = ATOM_ORDER["CA"]
 
+RESTYPE_1TO3 = {
+    "A": "ALA", "R": "ARG", "N": "ASN", "D": "ASP", "C": "CYS", "Q": "GLN",
+    "E": "GLU", "G": "GLY", "H": "HIS", "I": "ILE", "L": "LEU", "K": "LYS",
+    "M": "MET", "F": "PHE", "P": "PRO", "S": "SER", "T": "THR", "W": "TRP",
+    "Y": "TYR", "V": "VAL",
+}
+RESTYPE_3TO1 = {v: k for k, v in RESTYPE_1TO3.items()}
+
 TABLES_PATH = os.path.join(os.path.dirname(__file__), "tables.npz")
 
 

@@ -13,7 +13,8 @@ only; the manifest is read with ``csv``, not pandas):
     four sample modes (time_batch, length_batch, cluster_time_batch,
     cluster_length_batch), ``read_clusters``/``assign_clusters`` parse the
     cluster file;
-  * ``batch_iterator`` stacks ``[B, ...]`` numpy batches.
+  * ``batch_iterator`` stacks ``[B, ...]`` numpy batches;
+  * ``eval_windows`` yields one deterministic window per protein.
 
 The same seeds give the same windows and indices as the JAX package. The
 single-bundle npz of ``data/synthetic.make_trajectory_npz`` is accepted as
@@ -323,3 +324,10 @@ def batch_iterator(dataset: TrajectoryDataset, sampler: EpochSampler,
             for w in windows:
                 w.pop("name", None)
         yield {k: np.stack([w[k] for w in windows]) for k in windows[0]}
+
+
+def eval_windows(dataset: TrajectoryDataset):
+    """One deterministic window per protein for evaluation (window i drawn
+    with ``np.random.default_rng(i)``)."""
+    for i in range(len(dataset)):
+        yield dataset.get_window(i, np.random.default_rng(i))

@@ -107,11 +107,14 @@ def make_window(
     }
 
 
-def make_trajectory_npz(path, n_res=32, n_frames=64, seed=0):
+def make_trajectory_npz(path, n_res=32, n_frames=64, seed=0, rot_wiggle=0.0):
     """Write a synthetic trajectory bundle in the on-disk dataset layout
     (see data/dataset.py): one npz with positions, per-frame force/vel and
-    embeddings; the same arrays as the JAX package's function."""
-    w = make_window(n_res=n_res, frame_time=n_frames, seed=seed)
+    embeddings; with ``rot_wiggle=0`` the same arrays as the JAX package's
+    function, whose residues only translate from frame to frame
+    (``make_window`` says what ``rot_wiggle`` adds)."""
+    w = make_window(n_res=n_res, frame_time=n_frames, seed=seed,
+                    rot_wiggle=rot_wiggle)
     np.savez_compressed(
         path,
         all_atom_positions=w["atom37"],

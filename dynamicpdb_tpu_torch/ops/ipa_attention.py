@@ -12,11 +12,16 @@ runs three kernels that replace the Pallas backward kernels:
   ``ipa_attention_bwd_dkv``  <- ``_bwd_dkv_kernel`` (:297):  dk, dkp, dv, dvp
   ``ipa_attention_bwd_pair`` <- ``_bwd_pair_kernel`` (:338): dbias, dpz
 
-For CUDA tensors each wrapper launches its hand-written kernel
-(``csrc/ipa_attention_fwd.cu``, ``csrc/ipa_attention_bwd.cu``, built by
-``nvcc``, loaded with ``ctypes``); for CPU tensors it runs its plain
+For CUDA tensors each wrapper launches a hand-written kernel, built by
+``nvcc`` and loaded with ``ctypes``, on one of two routes that
+``kernel_route`` picks from the widths: within ``TILE_LIMITS`` the
+tensor-core kernels (``csrc/ipa_attention_fwd.cu``,
+``csrc/ipa_attention_bwd.cu``), past them the CUDA-core kernels of the
+wide route (``csrc/ipa_attention_wide_fwd.cu``,
+``csrc/ipa_attention_wide_bwd.cu``), which take any width whose tiles fit
+a block's shared memory. For CPU tensors a wrapper runs its plain
 version, the same function in plain PyTorch. Nothing falls back from one
-to the other: a CUDA call that a kernel cannot take raises. Because the CPU
+to the other: a CUDA call that no kernel can take raises. Because the CPU
 runs the same autograd function with the plain inner calls, the CPU tests
 reach all of the wiring the card runs (D, the layouts, the dhw reduction).
 
@@ -27,15 +32,17 @@ compulsory traffic at the release shapes, so arithmetic bounds all four
 (about 19, 28, 37 and 20 us); with the products on the TF32 tensor cores
 in three passes, about 9 (the bytes), 12, 15 and 12 us. The kernels keep
 every N x N quantity in shared memory and registers, so traffic stays near
-the compulsory bytes. All four run their products on the tensor cores
-(3xTF32, float32 accuracy), which bounds their widths: C <= 256,
-Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``; the wrappers raise
-past them).
+the compulsory bytes. All four tensor-core kernels run their products on
+the tensor cores (3xTF32, float32 accuracy), which bounds their widths:
+C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``). The wide
+kernels run every operation on the CUDA cores in float32.
 
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
-``bwd_pair_launches`` count the kernel launches of this process; a run
-that must show the kernels were on its path sets them to 0 before and
-reads them after.
+``bwd_pair_launches`` count the tensor-core kernels' launches of this
+process, ``wide_launches``, ``wide_bwd_dq_launches``,
+``wide_bwd_dkv_launches`` and ``wide_bwd_pair_launches`` the wide
+kernels'; a run that must show the kernels were on its path sets them to
+0 before and reads them after.
 """
 from __future__ import annotations
 
@@ -49,6 +56,10 @@ launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 bwd_pair_launches = 0
+wide_launches = 0
+wide_bwd_dq_launches = 0
+wide_bwd_dkv_launches = 0
+wide_bwd_pair_launches = 0
 
 INPUT_NAMES = ("q", "k", "v", "q_pts", "k_pts", "v_pts", "bias", "pair_z",
                "mask", "head_weights")
@@ -156,26 +167,30 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """``lib`` (built from ``csrc/<name>.cu``) with every argument of its
-    functions typed (pointers and the stream as c_void_p)."""
+    functions typed (pointers and the stream as c_void_p). The wide
+    libraries export the same functions as the tensor-core ones, under
+    names of their own."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shapes = [i] * 7 + [f] * 3 + [i, p]
-    if name == "ipa_attention_fwd":
-        lib.ipa_attention_fwd.argtypes = [p] * 14 + shapes
-        lib.ipa_attention_fwd.restype = i
-        lib.ipa_attention_error_string.argtypes = [i]
-        lib.ipa_attention_error_string.restype = ctypes.c_char_p
-        lib.ipa_attention_fwd_smem.argtypes = [i] * 4
-        lib.ipa_attention_fwd_smem.restype = ctypes.c_longlong
+    if name in ("ipa_attention_fwd", "ipa_attention_wide_fwd"):
+        getattr(lib, name).argtypes = [p] * 14 + shapes
+        getattr(lib, name).restype = i
+        err = name.removesuffix("_fwd") + "_error_string"
+        n_smem_args = 4
+        if name == "ipa_attention_wide_fwd":
+            lib.ipa_attention_wide_smem_limit.argtypes = []
+            lib.ipa_attention_wide_smem_limit.restype = ctypes.c_longlong
     else:
-        for fn, n_out in (("ipa_attention_bwd_dq", 3),
-                          ("ipa_attention_bwd_dkv", 4),
-                          ("ipa_attention_bwd_pair", 2)):
-            getattr(lib, fn).argtypes = [p] * (15 + n_out) + shapes
-            getattr(lib, fn).restype = i
-        lib.ipa_attention_bwd_error_string.argtypes = [i]
-        lib.ipa_attention_bwd_error_string.restype = ctypes.c_char_p
-        lib.ipa_attention_bwd_smem.argtypes = [i] * 5
-        lib.ipa_attention_bwd_smem.restype = ctypes.c_longlong
+        for kind, n_out in (("dq", 3), ("dkv", 4), ("pair", 2)):
+            getattr(lib, f"{name}_{kind}").argtypes = [p] * (15 + n_out) + shapes
+            getattr(lib, f"{name}_{kind}").restype = i
+        err = f"{name}_error_string"
+        n_smem_args = 5
+    getattr(lib, err).argtypes = [i]
+    getattr(lib, err).restype = ctypes.c_char_p
+    getattr(lib, f"{name}_smem").argtypes = [i] * n_smem_args
+    getattr(lib, f"{name}_smem").restype = ctypes.c_longlong
+    lib.error_string = getattr(lib, err)
     return lib
 
 
@@ -206,26 +221,78 @@ def _check_kernel_inputs(fn: str, named: dict, expected: dict, C: int):
 # the widest operands the tensor-core kernels (all four) take: C, Pq*3,
 # Pv*3 and Dz (csrc/ipa_tile.cuh kMaxC, kMaxP3q, kMaxP3v, kMaxDz)
 TILE_LIMITS = {"C": 256, "Pq*3": 32, "Pv*3": 48, "Dz": 32}
+# each wrapper's kernel on the wide route: (library, launcher, shared-memory
+# query, its kernel index or None)
+WIDE_KERNELS = {
+    "ipa_attention_fwd": ("ipa_attention_wide_fwd", "ipa_attention_wide_fwd",
+                          "ipa_attention_wide_fwd_smem", None),
+    "ipa_attention_bwd_dq": ("ipa_attention_wide_bwd",
+                             "ipa_attention_wide_bwd_dq",
+                             "ipa_attention_wide_bwd_smem", 0),
+    "ipa_attention_bwd_dkv": ("ipa_attention_wide_bwd",
+                              "ipa_attention_wide_bwd_dkv",
+                              "ipa_attention_wide_bwd_smem", 1),
+    "ipa_attention_bwd_pair": ("ipa_attention_wide_bwd",
+                               "ipa_attention_wide_bwd_pair",
+                               "ipa_attention_wide_bwd_smem", 2),
+}
 
 
-def _check_tile_limits(fn: str, C: int, P3q: int, P3v: int, Dz: int):
-    for name, val in zip(TILE_LIMITS, (C, P3q, P3v, Dz)):
-        if val > TILE_LIMITS[name]:
-            raise ValueError(f"{fn}: {name}={val} is above "
-                             f"{TILE_LIMITS[name]}, the most the kernel takes")
+def wide_smem(fn: str, C: int, P3q: int, P3v: int, Dz: int) -> int:
+    """Bytes of dynamic shared memory a block of ``fn``'s wide kernel needs
+    at these widths, from the wide library's own query (builds it)."""
+    lib_name, _, query, which = WIDE_KERNELS[fn]
+    args = (C, P3q // 3, P3v // 3, Dz)
+    query = getattr(_lib(lib_name), query)
+    return int(query(*args) if which is None else query(which, *args))
 
 
-def _launch(lib, fn: str, error_string, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk,
-            c_b, inf, device):
+def wide_smem_limit() -> int:
+    """Bytes of dynamic shared memory a block of a wide kernel may use, the
+    figure the wide launchers refuse past (``csrc/ipa_wide_smem.cuh``)."""
+    return int(_lib("ipa_attention_wide_fwd").ipa_attention_wide_smem_limit())
+
+
+def kernel_route(fn: str, C: int, P3q: int, P3v: int, Dz: int,
+                 smem=wide_smem, smem_limit=wide_smem_limit) -> str:
+    """The kernel that wrapper ``fn`` launches on the card at these widths:
+    ``"tc"`` (the tensor-core kernel) within ``TILE_LIMITS``, else
+    ``"wide"`` (the CUDA-core kernel) when its tiles, as
+    ``smem(fn, C, P3q, P3v, Dz)`` counts them, fit the ``smem_limit()``
+    bytes of shared memory a block may use; past that, ValueError naming
+    the widths and the limit."""
+    widths = dict(zip(TILE_LIMITS, (C, P3q, P3v, Dz)))
+    if all(widths[k] <= TILE_LIMITS[k] for k in TILE_LIMITS):
+        return "tc"
+    need, limit = smem(fn, C, P3q, P3v, Dz), smem_limit()
+    if need > limit:
+        shown = ", ".join(f"{k}={v}" for k, v in widths.items())
+        raise ValueError(
+            f"{fn}: {shown} is past the tensor-core kernels' widths "
+            f"{TILE_LIMITS}, and its wide kernel needs {need} bytes of "
+            f"shared memory a block, above the {limit} a block may use")
+    return "wide"
+
+
+def _launch(fn: str, route: str, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, c_b,
+            inf, device):
+    """Launch wrapper ``fn``'s kernel on ``route`` on the current stream."""
+    if route == "tc":
+        lib = _lib("ipa_attention_fwd" if fn == "ipa_attention_fwd"
+                   else "ipa_attention_bwd")
+        launcher = fn
+    else:
+        lib_name, launcher, _, _ = WIDE_KERNELS[fn]
+        lib = _lib(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn)(
+    rc = getattr(lib, launcher)(
         *ptrs, F, N, H, C, Pq, Pv, Dz, float(c_qk), float(c_b), float(inf),
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: "
-                           f"{error_string(rc).decode()} (code {rc})")
+        raise RuntimeError(f"{launcher} launch failed: "
+                           f"{lib.error_string(rc).decode()} (code {rc})")
 
 
 def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
@@ -238,7 +305,7 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     softplus'ed and scaled). Returns (o [F, N, H, C], o_pt [F, N, H, Pv, 3],
     o_pair [F, N, H, Dz], lse [F, H, N]), all float32.
     """
-    global launches
+    global launches, wide_launches
     args = (q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights)
     device = _device_of("ipa_attention", args)
     if device.type == "cpu":
@@ -254,7 +321,7 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     }
     _check_kernel_inputs("ipa_attention", dict(zip(INPUT_NAMES, args)),
                          expected, C)
-    _check_tile_limits("ipa_attention", C, 3 * Pq, 3 * Pv, Dz)
+    route = kernel_route("ipa_attention_fwd", C, 3 * Pq, 3 * Pv, Dz)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("ipa_attention: q, k and v must be 16-byte aligned")
 
@@ -262,11 +329,13 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     o_pt = torch.empty((F, N, H, Pv, 3), dtype=torch.float32, device=device)
     o_pair = torch.empty((F, N, H, Dz), dtype=torch.float32, device=device)
     lse = torch.empty((F, H, N), dtype=torch.float32, device=device)
-    lib = _lib("ipa_attention_fwd")
-    _launch(lib, "ipa_attention_fwd", lib.ipa_attention_error_string,
+    _launch("ipa_attention_fwd", route,
             [t.data_ptr() for t in args + (o, o_pt, o_pair, lse)],
             F, N, H, C, Pq, Pv, Dz, c_qk, c_b, inf, device)
-    launches += 1
+    if route == "tc":
+        launches += 1
+    else:
+        wide_launches += 1
     return o, o_pt, o_pair, lse
 
 
@@ -276,11 +345,11 @@ BWD_INPUT_NAMES = INPUT_NAMES + ("lse", "dvec", "g_o", "g_opt", "g_pair")
 def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
     """Run backward kernel ``fn`` (or ``plain`` on the CPU) on the 15
     backward inputs (points flattened to P*3); ``out_shapes(F, N, H, C,
-    P3q, P3v, Dz)`` gives the shapes of its outputs. Every kernel has the
-    tensor-core width limits (``TILE_LIMITS``)."""
+    P3q, P3v, Dz)`` gives the shapes of its outputs. Returns the outputs
+    and the route that ran (``kernel_route``; None on the CPU)."""
     device = _device_of(fn, inputs)
     if device.type == "cpu":
-        return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf)
+        return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf), None
     q, q_pts, v_pts, pair_z = inputs[0], inputs[3], inputs[5], inputs[7]
     F, N, H, C = q.shape
     P3q, P3v, Dz = q_pts.shape[-1], v_pts.shape[-1], pair_z.shape[-1]
@@ -296,54 +365,58 @@ def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
     }
     named = dict(zip(BWD_INPUT_NAMES, inputs))
     _check_kernel_inputs(fn, named, expected, C)
-    _check_tile_limits(fn, C, P3q, P3v, Dz)
+    route = kernel_route(fn, C, P3q, P3v, Dz)
     if any(named[n].data_ptr() % 16 for n in ("q", "k", "v", "g_o")):
         raise ValueError(f"{fn}: q, k, v and g_o must be 16-byte aligned")
     outs = [torch.empty(shape, dtype=torch.float32, device=device)
             for shape in out_shapes(F, N, H, C, P3q, P3v, Dz)]
-    lib = _lib("ipa_attention_bwd")
-    _launch(lib, fn, lib.ipa_attention_bwd_error_string,
-            [t.data_ptr() for t in tuple(inputs) + tuple(outs)],
+    _launch(fn, route, [t.data_ptr() for t in tuple(inputs) + tuple(outs)],
             F, N, H, C, P3q // 3, P3v // 3, Dz, c_qk, c_b, inf, device)
-    return tuple(outs)
+    return tuple(outs), route
 
 
 def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
     """Kernel A on the backward inputs (``BWD_INPUT_NAMES``, points
     [F, N, H, P*3], lse and dvec [F, H, N]): (dq, dqp, dhw_rows [F, H, N])."""
-    global bwd_dq_launches
-    out = _bwd_call(
+    global bwd_dq_launches, wide_bwd_dq_launches
+    out, route = _bwd_call(
         "ipa_attention_bwd_dq", ipa_bwd_dq_plain,
         lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
                                           (F, H, N)),
         inputs, c_qk, c_b, inf)
-    if inputs[0].is_cuda:
+    if route == "tc":
         bwd_dq_launches += 1
+    elif route == "wide":
+        wide_bwd_dq_launches += 1
     return out
 
 
 def ipa_attention_bwd_dkv(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
     """Kernel B on the backward inputs: (dk, dkp, dv, dvp)."""
-    global bwd_dkv_launches
-    out = _bwd_call(
+    global bwd_dkv_launches, wide_bwd_dkv_launches
+    out, route = _bwd_call(
         "ipa_attention_bwd_dkv", ipa_bwd_dkv_plain,
         lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
                                           (F, N, H, C), (F, N, H, P3v)),
         inputs, c_qk, c_b, inf)
-    if inputs[0].is_cuda:
+    if route == "tc":
         bwd_dkv_launches += 1
+    elif route == "wide":
+        wide_bwd_dkv_launches += 1
     return out
 
 
 def ipa_attention_bwd_pair(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
     """Kernel C on the backward inputs: (dbias [N, N, H], dpz [N, N, Dz])."""
-    global bwd_pair_launches
-    out = _bwd_call(
+    global bwd_pair_launches, wide_bwd_pair_launches
+    out, route = _bwd_call(
         "ipa_attention_bwd_pair", ipa_bwd_pair_plain,
         lambda F, N, H, C, P3q, P3v, Dz: ((N, N, H), (N, N, Dz)),
         inputs, c_qk, c_b, inf)
-    if inputs[0].is_cuda:
+    if route == "tc":
         bwd_pair_launches += 1
+    elif route == "wide":
+        wide_bwd_pair_launches += 1
     return out
 
 

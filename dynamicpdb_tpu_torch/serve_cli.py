@@ -5,7 +5,7 @@ model once and answers HTTP requests with rollouts, with the same API:
 
     python -m dynamicpdb_tpu_torch.serve_cli --ckpt weights.pt \
         [--port 8765] [--pad-to 256] [--device cuda] [--config c.yaml] \
-        [overrides...]
+        [--ema] [overrides...]
 
   GET  /healthz             -> {"status": "ok", device, step, pad_to}
   POST /rollout?n_steps=64[&num_t=10&noise_scale=0.1&fast_x0=0&seed=0]
@@ -15,7 +15,8 @@ model once and answers HTTP requests with rollouts, with the same API:
 
 ``--ckpt`` is a training checkpoint of ``train_cli`` or a ``torch.save``d
 state dict of ``DFoldScoreNetwork`` (``weights.state_dict_from_jax`` makes
-one from JAX params). Requests are
+one from JAX params); with ``--ema`` the EMA weights of a training
+checkpoint's optimizer state are served instead. Requests are
 padded to ``--pad-to`` residues; the device work of one request at a time
 runs behind a lock, while the threaded HTTP layer keeps health checks
 answering. Logs go to stderr.
@@ -40,7 +41,8 @@ from dynamicpdb_tpu_torch.data.featurize import eval_init_window, featurize_wind
 from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
 from dynamicpdb_tpu_torch.sampling.reverse import rollout
-from dynamicpdb_tpu_torch.train.checkpoint import model_state_dict
+from dynamicpdb_tpu_torch.train.checkpoint import model_state_dict, restore
+from dynamicpdb_tpu_torch.train.optim import ema_state_dict, make_optimizer
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger("serve")
@@ -175,6 +177,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="fixed residue count every request pads to "
                              "(default: data.filtering.max_len)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--ema", action="store_true",
+                        help="serve the EMA weights from the checkpoint's "
+                             "optimizer state (trained with "
+                             "experiment.ema_decay)")
     parser.add_argument("overrides", nargs="*")
     return parser.parse_args(argv)
 
@@ -188,8 +194,17 @@ def service_from_args(args: argparse.Namespace) -> RolloutService:
     )
     device = resolve_device(args.device)
     model = DFoldScoreNetwork(cfg.model, device=device)
-    state, step = model_state_dict(args.ckpt, map_location=device)
-    model.load_state_dict(state, strict=True)
+    if args.ema:
+        optimizer = make_optimizer(model.parameters(), cfg.experiment)
+        payload = restore(args.ckpt, model, optimizer)
+        if payload.get("optimizer") is None:
+            raise SystemExit("--ema: the checkpoint has no optimizer state")
+        model.load_state_dict(ema_state_dict(optimizer, model))
+        step = payload["step"]
+        log.info("serving the EMA weights of %s", args.ckpt)
+    else:
+        state, step = model_state_dict(args.ckpt, map_location=device)
+        model.load_state_dict(state, strict=True)
     diffuser = SE3Diffuser(cfg.diffuser, device=device)
     return RolloutService(model, diffuser,
                           args.pad_to or cfg.data.filtering.max_len, step=step)

@@ -211,14 +211,22 @@ class Trainer:
 
 
 class Experiment:
-    """Epoch loop, logging and checkpointing around a Trainer."""
+    """Epoch loop, logging, evaluation and checkpointing around a Trainer.
+
+    ``eval_fn(model, diffuser) -> {metric: value}`` (lower is better) runs
+    after every ``eval_every``-th completed epoch; its metrics go to the
+    metrics writer as ``eval/<metric>``, ``best`` keeps each metric's best
+    value, and ``<ckpt_dir>/best.ckpt`` is written whenever one improves."""
 
     def __init__(self, cfg: Config, data_iter_factory, *, device="cuda",
-                 metrics_writer=None):
+                 metrics_writer=None, eval_fn=None, eval_every: int = 0):
         self.cfg = cfg
         self.trainer = Trainer(cfg, device=device)
         self.data_iter_factory = data_iter_factory  # epoch -> raw batches
         self.metrics_writer = metrics_writer
+        self.eval_fn = eval_fn
+        self.eval_every = eval_every  # epochs between evals (0 = off)
+        self.best: dict[str, float] = {}
         self.step = 0
         self.epoch = 0
         # every step's aux, its seconds in train_step and the seconds its
@@ -226,6 +234,25 @@ class Experiment:
         self.step_metrics: list[dict] = []
         n_params = sum(p.numel() for p in self.trainer.model.parameters())
         log.info("model parameters: %.1fM", n_params / 1e6)
+
+    def run_eval(self) -> dict:
+        t = self.trainer
+        metrics = {k: float(v)
+                   for k, v in self.eval_fn(t.model, t.diffuser).items()}
+        if self.metrics_writer is not None:
+            self.metrics_writer.write(
+                self.step, {f"eval/{k}": v for k, v in metrics.items()})
+        improved = []
+        for k, v in metrics.items():
+            if k not in self.best or v < self.best[k]:
+                self.best[k] = v
+                improved.append(k)
+        log.info("eval @ step %d: %s%s", self.step,
+                 " ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
+                 f" (new best: {', '.join(improved)})" if improved else "")
+        if improved and self.cfg.experiment.ckpt_dir:
+            self.save_checkpoint(f"{self.cfg.experiment.ckpt_dir}/best.ckpt")
+        return metrics
 
     def train(self, num_epochs: int | None = None,
               max_steps: int | None = None):
@@ -268,6 +295,9 @@ class Experiment:
                     self.epoch = epoch
                     return history
             self.epoch = epoch + 1  # completed: resume starts the next one
+            if (self.eval_fn is not None and self.eval_every
+                    and epoch % self.eval_every == 0):
+                self.run_eval()
             if cfg.ckpt_dir and epoch and epoch % cfg.ckpt_freq == 0:
                 self.save_checkpoint()
         return history

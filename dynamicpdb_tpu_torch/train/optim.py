@@ -16,7 +16,8 @@ runs the same sequence in the same order:
     ``optax.scale_by_schedule`` counts;
   * with ``ema_decay`` the state also holds an EMA of the parameters,
     ``ema = decay * ema + (1 - decay) * new_params``, starting at the
-    initial parameters.
+    initial parameters; ``ema_state_dict`` gives the model's state dict
+    with those EMA weights.
 """
 from __future__ import annotations
 
@@ -169,3 +170,19 @@ def make_optimizer(params, experiment_cfg) -> AMSGrad:
         clip_norm=experiment_cfg.grad_clip_norm or None,
         ema_decay=getattr(experiment_cfg, "ema_decay", None),
     )
+
+
+def ema_state_dict(optimizer: AMSGrad, model: torch.nn.Module) -> dict:
+    """``model``'s state dict with every parameter replaced by its EMA from
+    ``optimizer``'s state (the counterpart of the JAX package's
+    ``ema_params``). Raises ValueError when the state holds no EMA (train
+    with ``experiment.ema_decay``)."""
+    sd = model.state_dict()
+    for name, p in model.named_parameters():
+        ema = optimizer.state.get(p, {}).get("ema")
+        if ema is None:
+            raise ValueError(
+                f"no EMA of {name} in the optimizer state: the checkpoint "
+                "was trained without experiment.ema_decay")
+        sd[name] = ema.to(p.dtype)
+    return sd

@@ -12,8 +12,11 @@ writes ``<experiment.ckpt_dir>/step_<n>.ckpt`` at the end; metrics go to
 the newest ``step_*.ckpt`` in ``experiment.ckpt_dir`` (model, optimizer,
 step, epoch and noise generator); ``experiment.warm_start`` loads a given
 checkpoint. ``experiment.batch_size`` is the batch of the one device.
-Evaluation during training (``--eval-every``) is not ported yet and
-raises. ``main`` returns the ``Experiment``.
+``--eval-every N`` evaluates the model on the ``val`` split
+(``sampling/evaluate.py``) after every N-th completed epoch, logs
+``eval/ave_rot``, ``eval/ave_trans``, ``eval/all_atom_mae`` and
+``eval/all_atom_rmsd`` and writes ``<experiment.ckpt_dir>/best.ckpt``
+whenever one of them improves. ``main`` returns the ``Experiment``.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(default: data.filtering.max_len)")
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--eval-every", type=int, default=0,
-                        help="epochs between eval passes (not ported: must "
-                             "be 0)")
+                        help="epochs between eval passes on the val split "
+                             "(0: none)")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the newest checkpoint in "
                              "experiment.ckpt_dir")
@@ -49,6 +52,30 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return max(ckpts, key=lambda p: int(re.search(r"step_(\d+)", p).group(1)))
 
 
+EVAL_METRICS = ("ave_rot", "ave_trans", "all_atom_mae", "all_atom_rmsd")
+
+
+def make_eval_fn(cfg, val_dataset, device):
+    """(model, diffuser) -> the means of ``EVAL_METRICS`` over one window
+    per protein of ``val_dataset``, with the sampler's noise drawn from
+    seed + 1 afresh at every call (the same draws every eval)."""
+    import torch
+
+    from dynamicpdb_tpu_torch.data.dataset import eval_windows
+    from dynamicpdb_tpu_torch.sampling.evaluate import evaluate
+
+    def eval_fn(model, diffuser):
+        generator = torch.Generator(device=device).manual_seed(
+            cfg.experiment.seed + 1)
+        _, means = evaluate(
+            model, diffuser, eval_windows(val_dataset),
+            num_t=cfg.data.num_t, min_t=cfg.data.min_t,
+            noise_scale=cfg.experiment.noise_scale, generator=generator)
+        return {k: means[k] for k in EVAL_METRICS}
+
+    return eval_fn
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(
@@ -56,9 +83,6 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     log = logging.getLogger("train")
-    if args.eval_every:
-        raise NotImplementedError(
-            "--eval-every: evaluation during training is not ported yet")
 
     from dynamicpdb_tpu_torch.config import Config, apply_overrides, load_yaml
     from dynamicpdb_tpu_torch.data.dataset import (
@@ -84,9 +108,16 @@ def main(argv=None):
     log.info("device=%s batch=%d pad_to=%d", device,
              cfg.experiment.batch_size, pad_to)
 
+    eval_fn = None
+    if args.eval_every:
+        eval_fn = make_eval_fn(
+            cfg, TrajectoryDataset(cfg.data, split="val", pad_to=pad_to),
+            device)
+
     writer = MetricsWriter(os.path.join(cfg.experiment.eval_dir, "logs"))
     exp = Experiment(cfg, lambda epoch: batch_iterator(dataset, sampler, epoch),
-                     device=device, metrics_writer=writer)
+                     device=device, metrics_writer=writer, eval_fn=eval_fn,
+                     eval_every=args.eval_every)
     if cfg.experiment.warm_start:
         exp.load_checkpoint(cfg.experiment.warm_start)
         log.info("warm start from %s at step %d", cfg.experiment.warm_start,

@@ -51,3 +51,42 @@ def test_mixed_devices_raise():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         ipa_mod.ipa_attention(*args, c_qk)
+
+
+WRAPPERS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
+            "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
+
+
+@pytest.mark.parametrize("fn", WRAPPERS)
+def test_kernel_route(fn):
+    """Which kernel a wrapper launches on the card, decided on the CPU: the
+    tensor-core kernel within TILE_LIMITS (the wide library is not asked),
+    the wide kernel past any one of them while its tiles fit a block's
+    shared memory, and a ValueError naming the widths and the limit past
+    that. ``smem`` and ``limit`` stand in for the wide library's
+    shared-memory queries."""
+    asked = []
+
+    def smem(name, C, P3q, P3v, Dz):
+        asked.append(name)
+        return 200_000 if C < 1024 else 300_000
+
+    def limit():
+        return 232_448
+
+    for widths in ((256, 24, 36, 32), (8, 12, 18, 4)):  # release, tiny
+        assert ipa_mod.kernel_route(fn, *widths, smem=smem,
+                                    smem_limit=limit) == "tc"
+    assert asked == []
+    # model.ipa.c_z=256 (Dz 64), c_hidden=384, no_qk_points=12 (Pq*3 36),
+    # no_v_points=18 (Pv*3 54), and all of them at once
+    for widths in ((256, 24, 36, 64), (384, 24, 36, 32), (256, 36, 36, 32),
+                   (256, 24, 54, 32), (384, 36, 54, 64)):
+        assert ipa_mod.kernel_route(fn, *widths, smem=smem,
+                                    smem_limit=limit) == "wide"
+    assert asked == [fn] * 5
+    with pytest.raises(ValueError, match=r"C=1024, Pq\*3=24, Pv\*3=36, "
+                       r"Dz=32 is past .* needs 300000 bytes .* above the "
+                       r"232448"):
+        ipa_mod.kernel_route(fn, 1024, 24, 36, 32, smem=smem,
+                             smem_limit=limit)

@@ -93,6 +93,27 @@ def test_extraction_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+def test_eval_modules_load_without_jax():
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.eval_cli\n"
+        "import dynamicpdb_tpu_torch.sampling.evaluate\n"
+        "import dynamicpdb_tpu_torch.analysis.decomposition\n"
+        "import dynamicpdb_tpu_torch.analysis.interactive\n"
+        "import dynamicpdb_tpu_torch.analysis.pdb_io\n"
+        "import dynamicpdb_tpu_torch.preprocess.dcd\n"
+        "import dynamicpdb_tpu_torch.train.import_torch\n"
+        "import dynamicpdb_tpu_torch.train.experiment\n"
+        "import dynamicpdb_tpu_torch.sampling.reverse\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib',)!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 @pytest.mark.parametrize("name", ["tables.npz", "omegafold_tables.npz"])
 def test_chem_tables_copy_is_byte_identical(name):
     a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", name), "rb")

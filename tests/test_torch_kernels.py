@@ -66,7 +66,10 @@ def cuda():
 # one 32-row block and one 16-key step) and a long ragged 611; the tiny
 # width (C = 8) with and without pad rows; and the first 40 residues pad, so
 # that every row's first key steps are all pad and its online softmax
-# starts from a running max near -1e5.
+# starts from a running max near -1e5. "wide" and "wide-dz" are past the
+# tensor-core kernels' widths (ipa_attention.TILE_LIMITS), so they run the
+# wide route's CUDA-core kernels: C = 384, Pq = 12, Pv = 18, Dz = 64 at
+# N = 203, and the release widths with Dz = 64 (model.ipa.c_z = 256).
 RELEASE_WIDTHS = dict(H=8, C=256, Pq=8, Pv=12, Dz=32)
 IPA_SHAPES = {
     "release": dict(N=256, masked=56, **RELEASE_WIDTHS),
@@ -78,7 +81,29 @@ IPA_SHAPES = {
     "tiny-masked": dict(N=37, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=5),
     "first-key-tile-pad": dict(N=203, masked=5, lead_masked=40,
                                **RELEASE_WIDTHS),
+    "wide": dict(N=203, masked=11, H=4, C=384, Pq=12, Pv=18, Dz=64),
+    "wide-dz": dict(N=256, masked=56, **dict(RELEASE_WIDTHS, Dz=64)),
+    # chip_smoke's phase 4b model: c_z 256, c_hidden 384, no_qk_points 12
+    "wide-model": dict(N=256, masked=56,
+                       **dict(RELEASE_WIDTHS, C=384, Pq=12, Dz=64)),
 }
+
+
+def counter(fn, shape):
+    """The launch counter that wrapper ``fn`` moves at ``shape``'s widths:
+    the tensor-core kernel's, or the wide kernel's past TILE_LIMITS."""
+    widths = dict(RELEASE_WIDTHS, **shape)
+    route = ipa_mod.kernel_route(fn, widths["C"], 3 * widths["Pq"],
+                                 3 * widths["Pv"], widths["Dz"])
+    name = {"ipa_attention_fwd": "launches",
+            "ipa_attention_bwd_dq": "bwd_dq_launches",
+            "ipa_attention_bwd_dkv": "bwd_dkv_launches",
+            "ipa_attention_bwd_pair": "bwd_pair_launches"}[fn]
+    return name if route == "tc" else f"wide_{name}"
+
+
+BWD_FNS = ("ipa_attention_bwd_dq", "ipa_attention_bwd_dkv",
+           "ipa_attention_bwd_pair")
 
 
 @pytest.mark.cuda
@@ -87,10 +112,11 @@ IPA_SHAPES = {
 def test_kernel_matches_plain(cuda, shape):
     d, c_qk = make_inputs(3, F=2, **shape)
     args = _torch(d, cuda)
-    before = ipa_mod.launches
+    count = counter("ipa_attention_fwd", shape)
+    before = getattr(ipa_mod, count)
     got = ipa_mod.ipa_attention(*args, c_qk)
     torch.cuda.synchronize()
-    assert ipa_mod.launches == before + 1
+    assert getattr(ipa_mod, count) == before + 1
     want = ipa_mod.ipa_attention_plain(*args, c_qk)
     # tolerances and their reasons: chip_smoke.ipa_errors
     errs = chip_smoke.ipa_errors(got, want, args)
@@ -105,12 +131,16 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     d, c_qk = make_inputs(4, C=6)  # C not a multiple of 4
     with pytest.raises(ValueError, match="multiple of 4"):
         ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
-    # past the tensor-core kernels' widths (ops.ipa_attention.TILE_LIMITS)
-    for over, name in ((dict(C=260), "C=260"), (dict(Pq=11), r"Pq\*3=33"),
-                       (dict(Pv=17), r"Pv\*3=51"), (dict(Dz=33), "Dz=33")):
+    # past one entry of ops.ipa_attention.TILE_LIMITS the wide kernel runs
+    for over in (dict(C=260), dict(Pq=11), dict(Pv=17), dict(Dz=33)):
         d, c_qk = make_inputs(4, **over)
-        with pytest.raises(ValueError, match=f"{name} is above"):
-            ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
+        before = ipa_mod.wide_launches
+        ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
+        assert ipa_mod.wide_launches == before + 1, over
+    # past the wide kernel's shared memory (its tiles at C = 2048) it raises
+    d, c_qk = make_inputs(4, C=2048)
+    with pytest.raises(ValueError, match=f"above the {ipa_mod.wide_smem_limit()}"):
+        ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
     d, c_qk = make_inputs(4)
     args = _torch(d, cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -118,6 +148,19 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention(args[0].transpose(0, 1).contiguous()
                               .transpose(0, 1), *args[1:], c_qk)
+
+
+@pytest.mark.cuda
+def test_wide_route_shared_memory_from_the_library(cuda):
+    """kernel_route reads the wide kernels' shared memory from their
+    library: the release widths stay on the tensor cores, the wide case
+    fits every wide kernel, and C = 2048 fits none."""
+    for fn in ("ipa_attention_fwd",) + BWD_FNS:
+        assert ipa_mod.kernel_route(fn, 256, 24, 36, 32) == "tc"
+        assert ipa_mod.kernel_route(fn, 384, 36, 54, 64) == "wide"
+        assert 0 < ipa_mod.wide_smem(fn, 384, 36, 54, 64) <= ipa_mod.wide_smem_limit()
+        with pytest.raises(ValueError, match="shared memory"):
+            ipa_mod.kernel_route(fn, 2048, 24, 36, 32)
 
 
 @pytest.mark.cuda
@@ -131,12 +174,11 @@ def test_backward_kernels_match_plain(cuda, shape, zero_pad):
     args, c_qk = chip_smoke.ipa_inputs(torch, cuda, seed=5, **shape)
     inputs, _ = chip_smoke.ipa_bwd_inputs(torch, args, c_qk,
                                           zero_pad=zero_pad, seed=6)
-    counts = (ipa_mod.bwd_dq_launches, ipa_mod.bwd_dkv_launches,
-              ipa_mod.bwd_pair_launches)
+    names = [counter(fn, shape) for fn in BWD_FNS]
+    counts = [getattr(ipa_mod, n) for n in names]
     got = chip_smoke.ipa_bwd_grads(torch, inputs, c_qk, plain=False)
     torch.cuda.synchronize()
-    assert (ipa_mod.bwd_dq_launches, ipa_mod.bwd_dkv_launches,
-            ipa_mod.bwd_pair_launches) == tuple(c + 1 for c in counts)
+    assert [getattr(ipa_mod, n) for n in names] == [c + 1 for c in counts]
     want = chip_smoke.ipa_bwd_grads(torch, inputs, c_qk, plain=True)
     pad_scale = (None if zero_pad
                  else chip_smoke.ipa_bwd_pad_scale(torch, inputs, c_qk))
@@ -192,11 +234,11 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     bad[6] = bad[6].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
-    # all three run on the tensor cores: each raises past every entry of
-    # ops.ipa_attention.TILE_LIMITS
+    # past one entry of ops.ipa_attention.TILE_LIMITS each runs its wide
+    # kernel; past the wide kernels' shared memory (C = 2048) each raises
     small = dict(N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3)
-    for over, name in ((dict(C=260), "C=260"), (dict(Pq=11), r"Pq\*3=33"),
-                       (dict(Pv=17), r"Pv\*3=51"), (dict(Dz=33), "Dz=33")):
+    for over in (dict(C=260), dict(Pq=11), dict(Pv=17), dict(Dz=33),
+                 dict(C=2048)):
         shape = {**small, **over}
         args, c_qk = chip_smoke.ipa_inputs(torch, cuda, seed=9, **shape)
         outs = (torch.zeros_like(args[0]), torch.zeros_like(args[5]),
@@ -204,10 +246,16 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
                 torch.zeros((2, 2, 16), device=cuda))
         inputs = ipa_mod.backward_inputs(
             tuple(args) + outs, *(torch.zeros_like(o) for o in outs[:3]))
-        for fn in (ipa_mod.ipa_attention_bwd_dq, ipa_mod.ipa_attention_bwd_dkv,
-                   ipa_mod.ipa_attention_bwd_pair):
-            with pytest.raises(ValueError, match=f"{name} is above"):
-                fn(*inputs, c_qk=c_qk)
+        for name in BWD_FNS:
+            fn = getattr(ipa_mod, name)
+            if over == dict(C=2048):
+                with pytest.raises(ValueError, match="shared memory"):
+                    fn(*inputs, c_qk=c_qk)
+                continue
+            count = f"wide_{counter(name, {})}"
+            before = getattr(ipa_mod, count)
+            fn(*inputs, c_qk=c_qk)
+            assert getattr(ipa_mod, count) == before + 1, (name, over)
 
 
 # ---------------------------------------------------------------------------

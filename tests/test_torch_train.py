@@ -31,6 +31,7 @@ Tolerances, float32 on both sides:
     the whole model within 2e-2 of the norm of JAX's update (measured
     7.1e-3)."""
 import dataclasses
+import json
 import math
 import os
 
@@ -63,6 +64,7 @@ from dynamicpdb_tpu_torch.data.featurize import perturb_conditioning_rigids
 from dynamicpdb_tpu_torch.data.synthetic import make_trajectory_npz
 from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from dynamicpdb_tpu_torch.ops.rigid import Rigid
+from dynamicpdb_tpu_torch.train import checkpoint as pckpt
 from dynamicpdb_tpu_torch.train import optim as poptim
 from dynamicpdb_tpu_torch.train.experiment import Trainer
 from dynamicpdb_tpu_torch.train.losses import dfold_loss
@@ -613,6 +615,23 @@ def test_train_cli_checkpoint_resume_and_serve(manifest, tmp_path):
     assert np.isfinite(out["atom_traj"]).all()
 
 
-def test_train_cli_refuses_eval_every():
-    with pytest.raises(NotImplementedError, match="eval"):
-        train_cli.main(["--eval-every", "1", "--device", "cpu"])
+def test_train_cli_eval_every_logs_and_keeps_best(manifest, tmp_path):
+    """--eval-every 1: one epoch with an eval pass over the val split logs
+    every eval/* metric and keeps a best checkpoint."""
+    csv, _ = manifest
+    exp = train_cli.main(
+        ["--eval-every", "1"] + TINY_ARGS
+        + [f"data.csv_path={csv}", "experiment.num_epoch=1",
+           f"experiment.ckpt_dir={tmp_path / 'ckpt'}",
+           f"experiment.eval_dir={tmp_path / 'eval'}"])
+    assert exp.epoch == 1 and exp.step > 0
+    assert sorted(exp.best) == sorted(train_cli.EVAL_METRICS)
+    with open(tmp_path / "eval" / "logs" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    evals = [r for r in records if "eval/ave_rot" in r]
+    assert len(evals) == 1 and evals[0]["step"] == exp.step
+    for k in train_cli.EVAL_METRICS:
+        assert math.isfinite(evals[0][f"eval/{k}"])
+        assert evals[0][f"eval/{k}"] == exp.best[k]
+    best = pckpt.load(str(tmp_path / "ckpt" / "best.ckpt"))
+    assert best["step"] == exp.step
