@@ -26,12 +26,25 @@ Phases, each printing its own lines:
      the kernel launch counts of that run checked against the model's
      structure; then the same path at a small width on the card and on the
      CPU, which must agree;
+  3c. batched rollout: sampling/reverse.batched_rollout over two windows
+     (256 and 200 residues padded to 256) at release width, 2 frames, full
+     sampler and fast_x0, each trajectory against rollout on its window,
+     the IPA forward launches checked;
+  3d. Picard: sampling/picard.picard_reverse_sample on a 256-residue
+     window at release width, num_t 10, tol 0, 9 sweeps, against
+     reverse_sample on the same noise (the last sweep's chain and the
+     prediction), its (9 x 9 + 1) forwards' IPA launches checked, both
+     timed;
   4. train: one loss and backward at a small width with randomised weights
      on the card and on the CPU (every gradient must agree, every IPA
      projection's must be nonzero); then train_cli at release width
      (configs/release.yaml, B=8, remat, bfloat16) for 3 steps on two
-     synthetic trajectories, with the launch counts of that run checked,
-     and serve_cli answering one request from the checkpoint it wrote;
+     synthetic trajectories, fed by the prefetcher (data/prefetch.py):
+     every batch the steps received on the card must equal the plain
+     iterator's on the host, in order, no prefetcher thread may outlive
+     train_cli, each steady step's wait for its batch is printed; the
+     launch counts of that run checked, and serve_cli answering one
+     request from the checkpoint it wrote;
   4b. wide: one IPA block at c_z 256, c_hidden 384, no_qk_points 12 with
      randomised weights, gradients on the card against the CPU; then that
      model at release depth trained 3 steps (B = 2) by train_cli and served
@@ -53,7 +66,14 @@ Phases, each printing its own lines:
      against the DFOLD contract and the launch counts of both GeoFormer
      attention kernels checked; then the same CLI at release width and a
      reduced depth on the card and on the CPU, which must agree and select
-     the same cycle, and in bfloat16 on the card against float32.
+     the same cycle, and in bfloat16 on the card against float32;
+  7. fold: fold_cli with phase 5's checkpoint on two sequences (256 and
+     203 residues, padded to multiples of 32, 3 cycles): PDB files that
+     read back with the sequences, B-factors = pLDDT x 100, sidecars, the
+     launch counts of both GeoFormer kernels, seconds per sequence and per
+     cycle; then fold_cli.fold at release width and a reduced depth on the
+     card and on the CPU: pos14, pLDDT, confidences and the selected cycle
+     must agree.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
@@ -62,8 +82,10 @@ operation on the CUDA cores in float32, tc_bound_ms with the products on
 the TF32 tensor cores in three passes (bounds()).
 The line before the last is the kernel report (launches: the tensor-core
 IPA kernels' from the release training run, the wide ones' from the wide
-training run, the GeoFormer kernels' from the extraction run; errors and
-times at the same shapes),
+training run, the GeoFormer kernels' from the extraction run; the IPA
+forward's report adds those of serving, batched rollout, Picard and eval,
+the GeoFormer kernels' those of fold_cli; errors and times at the same
+shapes),
 the last line {"ok": true, "device": {...}}. Any failed check exits
 nonzero; with no CUDA device, or without the package beside it, the script
 exits 1 and prints no result.
@@ -1014,6 +1036,228 @@ def serve_phase(device: str, overrides: list[str], *, lengths, pad_to: int,
 
 
 # ---------------------------------------------------------------------------
+# phases 3c and 3d: batched rollout and the Picard sampler
+# ---------------------------------------------------------------------------
+# one computation against the same computation arranged another way on the
+# same device (a batch against its windows one by one, fast_x0 against the
+# full sampler, Picard's fixed point against the sequential chain): the
+# same kernels on the same inputs, held to 1e-4 of the coordinates' scale,
+# phase 3's bar for fast_x0 against the full sampler
+SAME_PATH_RTOL = 1e-4
+
+
+def sampling_setup(device: str, overrides: list[str], lengths, pad_to: int,
+                   seed: int):
+    """A model with seeded random weights at ``overrides``, its diffuser,
+    and one featurized window per entry of ``lengths`` (synthetic, padded
+    to ``pad_to``, reference noise from a seeded generator), on
+    ``device``."""
+    import torch
+
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch.data.dataset import pad_window
+    from dynamicpdb_tpu_torch.data.featurize import (
+        eval_init_window,
+        featurize_window,
+    )
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.serve_cli import RAW_KEYS
+    from dynamicpdb_tpu_torch.weights import randomize_
+
+    cfg = config_lib.apply_overrides(config_lib.Config(), overrides)
+    model = randomize_(DFoldScoreNetwork(cfg.model, device=device),
+                       seed).eval()
+    diffuser = SE3Diffuser(cfg.diffuser, device=device)
+    tables = diffuser.so3d.tables
+    check(tables.cache_hit, f"IGSO3 table {tables.cache_file} was rebuilt, "
+          "not read from the cache")
+    feats = []
+    with torch.inference_mode():
+        for i, n in enumerate(lengths):
+            w = make_window(n_res=n, frame_time=cfg.data.frame_time,
+                            node_dim=cfg.model.node_repr_dim,
+                            edge_dim=cfg.model.edge_repr_dim, seed=seed + i,
+                            rot_wiggle=0.1)
+            raw = pad_window({k: w[k] for k in RAW_KEYS}, pad_to)
+            g = torch.Generator(device=device).manual_seed(seed + i)
+            feats.append(eval_init_window(featurize_window(
+                {k: torch.as_tensor(v, device=device) for k, v in raw.items()}),
+                diffuser, generator=g))
+    return cfg, model, diffuser, feats
+
+
+def _sync(torch, device: str):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def same_path_error(torch, got, want) -> tuple[float, float]:
+    """(max abs error, tolerance: SAME_PATH_RTOL of want's scale)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, SAME_PATH_RTOL * max(1.0, float(want.abs().max()))
+
+
+def batched_rollout_phase(device: str, overrides: list[str], *, lengths,
+                          pad_to: int, n_steps: int, num_t: int,
+                          seed: int = 0, tag: str = "") -> dict:
+    """batched_rollout over B = len(lengths) windows stacked on axis 0,
+    with the full sampler and with fast_x0: shapes, finiteness, the IPA
+    forward launches (blocks x forwards per frame x frames x windows on the
+    card, none on the CPU), each window's trajectory against rollout on
+    that window with its generator, and fast_x0 against the full
+    sampler."""
+    import torch
+
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.sampling.reverse import (
+        batched_rollout,
+        rollout,
+        window_generators,
+    )
+
+    cfg, model, diffuser, feats = sampling_setup(device, overrides, lengths,
+                                                 pad_to, seed)
+    noise_scale = cfg.experiment.noise_scale
+    batch = {k: torch.stack([f[k] for f in feats]) for k in feats[0]}
+    B = len(lengths)
+    per_forward = cfg.model.ipa.num_blocks if device == "cuda" else 0
+    out = {}
+    for fast in (False, True):
+        reset_ipa_counts(ipa_mod)  # the path starts
+        t0 = time.perf_counter()
+        atoms, rigids = batched_rollout(
+            model, diffuser, batch, n_steps=n_steps, num_t=num_t,
+            noise_scale=noise_scale, fast_x0=fast, seed=seed)
+        _sync(torch, device)
+        dt = time.perf_counter() - t0
+        launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
+        expect = B * n_steps * (1 if fast else num_t) * per_forward
+        check(launched == (expect, 0), f"batched rollout fast_x0={fast}: IPA "
+              f"forward launches {launched}, expected ({expect}, 0)")
+        check(atoms.shape == (B, n_steps, pad_to, 37, 3)
+              and rigids.shape == (B, n_steps, pad_to, 7),
+              f"batched rollout: shapes {tuple(atoms.shape)} "
+              f"{tuple(rigids.shape)}")
+        check(bool(torch.isfinite(atoms).all() and torch.isfinite(rigids).all()),
+              "batched rollout: non-finite output")
+        out[fast] = dict(atoms=atoms, rigids=rigids, seconds=dt,
+                         launches=launched[0])
+        print(f"batched rollout: B={B} windows (n_res {list(lengths)} padded "
+              f"to {pad_to}) n_steps={n_steps} num_t={num_t} fast_x0={fast}: "
+              f"{dt:.3f} s, {B * n_steps / dt:.2f} frames/s, {launched[0]} "
+              f"IPA forward launches{tag}")
+    gens = window_generators(seed, B, device)
+    looped = 0.0
+    for b in range(B):
+        t0 = time.perf_counter()
+        a, r = rollout(model, diffuser, {k: v[b] for k, v in batch.items()},
+                       n_steps=n_steps, num_t=num_t, noise_scale=noise_scale,
+                       generator=gens[b])
+        _sync(torch, device)
+        looped += time.perf_counter() - t0
+        for name, got, want in (("atom37", out[False]["atoms"][b], a),
+                                ("rigids", out[False]["rigids"][b], r),
+                                ("atom37 fast_x0", out[True]["atoms"][b], a)):
+            err, tol = same_path_error(torch, got, want)
+            print(f"batched rollout: window {b} {name} against rollout on "
+                  f"the window: max_abs_err {err:.3e} tol {tol:.3e}")
+            check(err <= tol, f"batched rollout window {b} {name}: {err} > "
+                  f"{tol}")
+    print(f"batched rollout: rollout on each window in turn, full sampler: "
+          f"{looped:.3f} s, {B * n_steps / looped:.2f} frames/s{tag}")
+    return dict(launches=out[False]["launches"],
+                launches_fast_x0=out[True]["launches"],
+                seconds=out[False]["seconds"],
+                seconds_fast_x0=out[True]["seconds"],
+                frames_per_s=B * n_steps / out[False]["seconds"],
+                frames_per_s_fast_x0=B * n_steps / out[True]["seconds"])
+
+
+def recording(fn, outputs: list):
+    """``fn`` that also appends each of its results to ``outputs``."""
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        outputs.append(out)
+        return out
+    return wrapped
+
+
+def picard_phase(device: str, overrides: list[str], *, n_res: int,
+                 pad_to: int, num_t: int, seed: int = 0,
+                 tag: str = "") -> dict:
+    """picard_reverse_sample with tol 0 and max_sweeps num_t - 1 against
+    reverse_sample on the same noise (num_t - 1 pairs drawn up front from
+    a seeded generator): num_t - 1 sweeps, the last sweep's chain equal to
+    the sequential chain step for step, the same prediction, and
+    ((num_t - 1)^2 + 1) forwards' IPA launches on the card. Both timed."""
+    import torch
+
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.sampling.picard import (
+        draw_reverse_noise,
+        picard_reverse_sample,
+    )
+    from dynamicpdb_tpu_torch.sampling.reverse import reverse_sample
+
+    cfg, model, diffuser, (feats,) = sampling_setup(device, overrides,
+                                                    (n_res,), pad_to, seed)
+    noise_scale = cfg.experiment.noise_scale
+    g = torch.Generator(device=device).manual_seed(seed)
+    noise = draw_reverse_noise(diffuser, feats["rigids_t"].shape[:-1], num_t,
+                               generator=g, device=device)
+    chains = {"seq": [], "picard": []}
+    reverse = diffuser.reverse
+    try:
+        diffuser.reverse = recording(reverse, chains["seq"])
+        t0 = time.perf_counter()
+        seq = reverse_sample(model, diffuser, feats, num_t=num_t,
+                             noise_scale=noise_scale, noise=noise)
+        _sync(torch, device)
+        seq_s = time.perf_counter() - t0
+        diffuser.reverse = recording(reverse, chains["picard"])
+        reset_ipa_counts(ipa_mod)  # the path starts
+        t0 = time.perf_counter()
+        par = picard_reverse_sample(model, diffuser, feats, num_t=num_t,
+                                    noise_scale=noise_scale, tol=0.0,
+                                    max_sweeps=num_t - 1, noise=noise)
+        _sync(torch, device)
+        par_s = time.perf_counter() - t0
+        launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
+    finally:
+        diffuser.reverse = reverse
+    per_forward = cfg.model.ipa.num_blocks if device == "cuda" else 0
+    expect = ((num_t - 1) ** 2 + 1) * per_forward
+    check(launched == (expect, 0), f"picard: IPA forward launches "
+          f"{launched}, expected ({expect}, 0)")
+    check(par["n_sweeps"] == num_t - 1, f"picard: {par['n_sweeps']} sweeps, "
+          f"expected {num_t - 1}")
+    last_sweep = chains["picard"][-(num_t - 1):]
+    worst = 0.0
+    for k, (p, q) in enumerate(zip(last_sweep, chains["seq"])):
+        err, tol = same_path_error(torch, p.to_tensor_7(), q.to_tensor_7())
+        check(err <= tol, f"picard: chain step {k} differs from the "
+              f"sequential chain by {err} > {tol}")
+        worst = max(worst, err / tol)
+    for key in ("rigids", "atom37"):
+        err, tol = same_path_error(torch, par[key], seq[key])
+        print(f"picard: final {key} against reverse_sample on the same "
+              f"noise: max_abs_err {err:.3e} tol {tol:.3e}")
+        check(err <= tol, f"picard final {key}: {err} > {tol}")
+    print(f"picard: the last sweep's {num_t - 1} steps equal the sequential "
+          f"chain (worst {worst:.3f} of tol); sweep delta "
+          f"{float(par['sweep_delta']):.4e}")
+    print(f"picard: n_res={n_res} num_t={num_t} tol=0 max_sweeps={num_t - 1}: "
+          f"{par['n_sweeps']} sweeps in {par_s:.3f} s "
+          f"({par_s / par['n_sweeps']:.3f} s a sweep), reverse_sample "
+          f"{seq_s:.3f} s on the same noise; {launched[0]} IPA forward "
+          f"launches{tag}")
+    return dict(launches=launched[0], seconds=par_s, seconds_reverse=seq_s,
+                n_sweeps=par["n_sweeps"])
+
+
+# ---------------------------------------------------------------------------
 # phase 4: gradients on the card, and training at release width
 # ---------------------------------------------------------------------------
 IPA_PROJECTIONS = ("linear_q", "linear_kv", "linear_q_points",
@@ -1141,7 +1385,9 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     import torch
 
     from dynamicpdb_tpu_torch import train_cli
+    from dynamicpdb_tpu_torch.data.prefetch import THREAD_NAME
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.train.experiment import Trainer
     from dynamicpdb_tpu_torch.weights import init_like_jax_
 
     csv = write_manifest(tmp, lengths, n_frames)
@@ -1152,11 +1398,27 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    recorder = BatchRecorder(torch, max_steps)
+    train_step = Trainer.train_step
+
+    def recorded_step(self, raw_batch, noises=None):
+        recorder(raw_batch)
+        return train_step(self, raw_batch, noises)
+
+    Trainer.train_step = recorded_step
     reset_ipa_counts(ipa_mod)  # the main path starts
     t0 = time.perf_counter()
-    exp = train_cli.main(argv)
+    try:
+        exp = train_cli.main(argv)
+    finally:
+        Trainer.train_step = train_step
     wall = time.perf_counter() - t0
     cfg, trainer = exp.cfg, exp.trainer
+    alive = [t for t in threading.enumerate()
+             if t.name == THREAD_NAME and t.is_alive()]
+    check(not alive, f"train: {len(alive)} prefetcher thread(s) alive after "
+          "train_cli returned")
+    check_received_batches(torch, recorder, cfg, device)
     ipa = cfg.model.ipa
     route = (ipa_route(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
                                      Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
@@ -1199,6 +1461,8 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
               f" s train_step, {m['data_seconds']:.3f} s waiting for the "
               f"batch), {B / total:.2f} windows/s{tag}")
     steady = [m["seconds"] + m["data_seconds"] for m in exp.step_metrics[1:]]
+    print(f"train: steady steps' data_seconds (waiting for the prefetcher) "
+          f"{[m['data_seconds'] for m in exp.step_metrics[1:]]}{tag}")
     print(f"train: {max_steps} steps in {wall:.2f} s of train_cli; steady "
           f"steps (step 1 apart) {steady}; peak "
           f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
@@ -1209,6 +1473,75 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     return dict(ckpt=ckpt, launched=launched, route=route,
                 steps=exp.step_metrics, peak_bytes=peak, wall=wall, batch=B,
                 csv=csv)
+
+
+class BatchRecorder:
+    """A host copy of each batch a train step receives, and the device each
+    tensor was on. On the card the copies run on a stream of their own,
+    which first waits on the step's stream (so they read what the step
+    reads, after the prefetcher's event); the step's stream never waits on
+    them, so a timed step only queues them. The pinned buffers they fill
+    are allocated for every step by the first step."""
+
+    def __init__(self, torch, steps: int):
+        self.torch, self.steps = torch, steps
+        self.buffers, self.devices, self.stream = None, [], None
+
+    def __call__(self, batch: dict):
+        torch = self.torch
+        if self.buffers is None:
+            self.buffers = [
+                {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+                 for k, v in batch.items()} for _ in range(self.steps)]
+            if any(v.is_cuda for v in batch.values()):
+                self.stream = torch.cuda.Stream()
+        buf = self.buffers[len(self.devices)]
+        self.devices.append({v.device.type for v in batch.values()})
+        if self.stream is None:
+            for k, v in batch.items():
+                buf[k].copy_(v)
+            return
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            for k, v in batch.items():
+                buf[k].copy_(v, non_blocking=True)
+                if v.is_cuda:  # the step may free it before the copy ends
+                    v.record_stream(self.stream)
+
+
+def check_received_batches(torch, recorder: BatchRecorder, cfg, device: str):
+    """Every batch the steps received equals, in order, the plain
+    iterator's on the host (the same dataset, sampler and epochs as
+    train_cli's), bit for bit, and was on ``device``."""
+    from dynamicpdb_tpu_torch.data.dataset import (
+        TrajectoryDataset,
+        batch_iterator,
+        make_sampler,
+    )
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dataset = TrajectoryDataset(cfg.data, split="train",
+                                pad_to=cfg.data.filtering.max_len)
+    sampler = make_sampler(dataset, cfg.data,
+                           batch_size=cfg.experiment.batch_size,
+                           seed=cfg.experiment.seed)
+    plain, epoch = [], 0
+    while len(plain) < len(recorder.devices):
+        plain += list(batch_iterator(dataset, sampler, epoch))
+        epoch += 1
+    for i, (got, devices) in enumerate(zip(recorder.buffers,
+                                           recorder.devices)):
+        check(devices == {torch.device(device).type}, f"train: step {i + 1} "
+              f"received tensors on {devices}, not {device}")
+        want = plain[i]
+        check(sorted(got) == sorted(want), f"train: step {i + 1} received "
+              f"keys {sorted(got)}, the iterator gave {sorted(want)}")
+        for k, v in want.items():
+            check(torch.equal(got[k], torch.as_tensor(v)), f"train: step "
+                  f"{i + 1}'s {k} differs from the plain iterator's")
+    print(f"train: the {len(recorder.devices)} batches the steps received on "
+          f"{device} equal the plain iterator's on the host, in order")
 
 
 def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
@@ -1626,7 +1959,7 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
           f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
           f"launches {launched}{tag}")
     return dict(records=records, launches=launched, params=n_params,
-                peak_bytes=peak, wall=wall, arrays=arrays)
+                peak_bytes=peak, wall=wall, arrays=arrays, ckpt=ckpt)
 
 
 # card against CPU: float32 with TF32 off on both, sums in other orders
@@ -1689,6 +2022,152 @@ def extract_card_vs_cpu(tmp: str) -> None:
                   f"err {err:.3e} tol {tol:.3e} (max abs err "
                   f"{float(np.abs(b[key] - a[key]).max()):.3e})")
             check(err <= tol, f"extract bf16 vs f32: {key} {err} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: structure prediction through fold_cli
+# ---------------------------------------------------------------------------
+def pdb_b_factors(path: str) -> np.ndarray:
+    with open(path) as f:
+        return np.asarray([float(line[60:66]) for line in f
+                           if line.startswith("ATOM")])
+
+
+def fold_phase(device: str, cfg, ckpt: str, *, lengths, num_cycles: int,
+               num_pseudo_msa: int, pad_multiple: int, tmp: str,
+               seed: int = 0, tag: str = "") -> dict:
+    """fold_cli.main on random sequences of ``lengths`` with the OmegaFold
+    checkpoint ``ckpt`` (of ``cfg``): one PDB per sequence that reads back
+    with the sequence's residues, finite coordinates and B-factors = pLDDT
+    x 100 in [0, 100] whose mean is the sidecar's mean_plddt, a sidecar
+    with a confidence in [0, 1], and the launch counts of both GeoFormer
+    attention kernels (as extraction's; none on the CPU). Returns the
+    records, counts and times."""
+    import torch
+
+    from dynamicpdb_tpu_torch import fold_cli
+    from dynamicpdb_tpu_torch.analysis.pdb_io import read_pdb
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+
+    rng = np.random.default_rng(seed + 100)
+    seqs = {f"fold{i}_{n}": "".join(rng.choice(list(RESTYPES), n))
+            for i, n in enumerate(lengths)}
+    fasta = os.path.join(tmp, f"fold_{device}.fasta")
+    with open(fasta, "w") as f:
+        f.writelines(f">{name}\n{seq}\n" for name, seq in seqs.items())
+    out_dir = os.path.join(tmp, f"fold_{device}")
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    t0 = time.perf_counter()
+    records = fold_cli.main(["--fasta", fasta, "--out-dir", out_dir,
+                             "--weights", ckpt, "--num-cycles",
+                             str(num_cycles), "--num-pseudo-msa",
+                             str(num_pseudo_msa), "--pad-multiple",
+                             str(pad_multiple), "--device", device])
+    wall = time.perf_counter() - t0
+    launched = {"geom_attention": geom_mod.geom_launches,
+                "node_attention": geom_mod.node_launches}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    per_cycle = cfg.geo_num_blocks if on_card else 0
+    expect = {"geom_attention": len(lengths) * num_cycles * per_cycle
+              * cfg.geom_count,
+              "node_attention": len(lengths) * num_cycles * per_cycle}
+    check(launched == expect, f"fold: kernel launches {launched}, expected "
+          f"{expect}")
+    check(sorted(r["name"] for r in records) == sorted(seqs),
+          f"fold: folded {[r['name'] for r in records]}")
+    for r in records:
+        seq = seqs[r["name"]]
+        atom37, mask, aatype, _ = read_pdb(r["pdb"])
+        check(atom37.shape == (len(seq), 37, 3) and r["n_res"] == len(seq),
+              f"fold {r['name']}: atoms {atom37.shape} for {len(seq)} "
+              "residues")
+        check("".join(RESTYPES[a] for a in aatype) == seq,
+              f"fold {r['name']}: the PDB's residues are not the sequence")
+        check(bool(np.isfinite(atom37).all()) and mask.sum() > 0,
+              f"fold {r['name']}: non-finite or no atoms")
+        b = pdb_b_factors(r["pdb"])
+        with open(r["json"]) as f:
+            side = json.load(f)
+        check(sorted(side) == ["confidence_overall", "mean_plddt"],
+              f"fold {r['name']}: sidecar keys {sorted(side)}")
+        check(0.0 <= side["confidence_overall"] <= 1.0
+              and 0.0 <= side["mean_plddt"] <= 1.0,
+              f"fold {r['name']}: sidecar {side}")
+        check(bool(((b >= 0) & (b <= 100)).all()), f"fold {r['name']}: "
+              f"B-factors outside [0, 100]: {b.min()} {b.max()}")
+        # every atom of a residue carries its pLDDT x 100 (2 decimals); the
+        # mean over residues is the sidecar's
+        counts = mask.sum(1).astype(int)
+        per_res = b[np.cumsum(counts) - counts] / 100
+        check(abs(per_res.mean() - side["mean_plddt"]) <= 1e-4,
+              f"fold {r['name']}: B-factors' mean {per_res.mean()} against "
+              f"mean_plddt {side['mean_plddt']}")
+        print(f"fold: {r['name']} n_res={r['n_res']} padded={r['padded']} "
+              f"{num_cycles} cycles x {num_pseudo_msa + 1} pseudo-MSA rows: "
+              f"{r['seconds']:.3f} s ({r['seconds'] / num_cycles:.3f} s a "
+              f"cycle), cycle {r['cycle']} selected, confidence "
+              f"{side['confidence_overall']:.5f}, mean pLDDT "
+              f"{side['mean_plddt']:.5f}{tag}")
+    print(f"fold: {len(records)} sequences in {wall:.2f} s of fold_cli "
+          f"(weights loaded and moved included); peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
+          f"launches {launched}{tag}")
+    return dict(records=records, launches=launched, wall=wall,
+                peak_bytes=peak)
+
+
+def fold_card_vs_cpu(seed: int = 2, devices=("cuda", "cpu")) -> None:
+    """fold_cli.fold at the release widths and a reduced depth (2 PLM
+    layers, 2 GeoFormer blocks, 2 structure cycles; N = 40, 4 pseudo-MSA
+    rows, 4 cycles) on one seeded random state dict, on the card and on
+    the CPU (``devices``): pos14, pLDDT, the confidences and the selected
+    cycle must agree (EXTRACT_RTOL of each output's scale,
+    EXTRACT_CONF_ATOL)."""
+    from dynamicpdb_tpu_torch import fold_cli
+    from dynamicpdb_tpu_torch.models.omegafold.model import (
+        OmegaFoldConfig,
+        StructConfig,
+        omegafold_from_state_dict,
+    )
+    from dynamicpdb_tpu_torch.models.omegafold.plm import PLMConfig
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
+
+    cfg = OmegaFoldConfig(plm=PLMConfig(num_layers=2), geo_num_blocks=2,
+                          struct=StructConfig(num_cycle=2))
+    sd = random_omegafold_state_dict(cfg, seed)
+    rng = np.random.default_rng(seed)
+    lines = [">f40\n", "".join(rng.choice(list(RESTYPES), 40)) + "\n"]
+    runs = []
+    for dev in devices:
+        model = omegafold_from_state_dict(sd, device=dev)
+        geom_mod.geom_launches = geom_mod.node_launches = 0
+        runs.append(next(fold_cli.fold(lines, model, num_cycles=4,
+                                       num_pseudo_msa=3))[1])
+        launched = (geom_mod.geom_launches, geom_mod.node_launches)
+        expect = (4 * 2 * cfg.geom_count, 4 * 2) if dev == "cuda" else (0, 0)
+        check(launched == expect, f"fold card vs CPU on {dev}: launches "
+              f"{launched}, expected {expect}")
+        del model
+    gpu, cpu = runs
+    check(gpu["cycle"] == cpu["cycle"], f"fold card vs CPU: cycle "
+          f"{gpu['cycle']} selected on the card, {cpu['cycle']} on the CPU")
+    for key in ("pos14", "plddt", "atom37"):
+        err = float(np.abs(gpu[key] - cpu[key]).max())
+        tol = EXTRACT_RTOL * max(1.0, float(np.abs(cpu[key]).max()))
+        print(f"fold card vs CPU: {key} max_abs_err {err:.3e} tol {tol:.3e}")
+        check(err <= tol, f"fold card vs CPU: {key} {err} > {tol}")
+    conf_err = max(abs(a - b) for a, b in zip(
+        gpu["confidences"] + [gpu["confidence_overall"]],
+        cpu["confidences"] + [cpu["confidence_overall"]]))
+    check(conf_err <= EXTRACT_CONF_ATOL, f"fold card vs CPU: confidences "
+          f"differ by {conf_err}")
+    print(f"fold card vs CPU: cycle {gpu['cycle']} selected on both "
+          f"(confidences {[round(c, 5) for c in cpu['confidences']]}); "
+          f"confidences within {conf_err:.3e}")
 
 
 def main() -> int:
@@ -1801,6 +2280,23 @@ def main() -> int:
             check(err <= tol, f"small request {i} {key}: card and CPU "
                   f"differ by {err} > {tol}")
 
+    # phase 3c: batched rollout at release width
+    t0 = time.perf_counter()
+    batched = batched_rollout_phase("cuda", RELEASE_OVERRIDES,
+                                    lengths=(256, 200), pad_to=256,
+                                    n_steps=2, num_t=10, tag=f" [{card}]")
+    fwd_report["launches_batched_rollout"] = batched["launches"]
+    print(f"batched rollout: release width in {time.perf_counter() - t0:.2f} "
+          f"s [{card}]")
+
+    # phase 3d: the Picard sampler at release width
+    t0 = time.perf_counter()
+    picard = picard_phase("cuda", RELEASE_OVERRIDES, n_res=256, pad_to=256,
+                          num_t=10, tag=f" [{card}]")
+    fwd_report["launches_picard"] = picard["launches"]
+    print(f"picard: release width in {time.perf_counter() - t0:.2f} s "
+          f"[{card}]")
+
     release = os.path.join("configs", "release.yaml")
     with tempfile.TemporaryDirectory() as tmp:
         # phase 4: gradients through the kernels, then training at release
@@ -1860,16 +2356,29 @@ def main() -> int:
         ext = extract_phase("cuda", OmegaFoldConfig(), lengths=(256, 203),
                             num_cycles=10, num_pseudo_msa=15, pad_multiple=32,
                             tmp=tmp, tag=f" [{card}]")
+        print(f"extract: release width and depth, 2 sequences in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+        # phase 7: fold_cli on the same checkpoint
+        t0 = time.perf_counter()
+        fold = fold_phase("cuda", OmegaFoldConfig(), ext["ckpt"],
+                          lengths=(256, 203), num_cycles=3,
+                          num_pseudo_msa=15, pad_multiple=32, tmp=tmp,
+                          tag=f" [{card}]")
+        print(f"fold: release width and depth, 2 sequences in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
     check(ext["params"] == 795_074_210, f"extract: the release model has "
           f"{ext['params']:,} parameters, not 795,074,210")
     for rep in geom_reports:
         rep["launches"] = ext["launches"][rep["name"]]
-    print(f"extract: release width and depth, 2 sequences in "
-          f"{time.perf_counter() - t0:.2f} s [{card}]")
+        rep["launches_fold"] = fold["launches"][rep["name"]]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         extract_card_vs_cpu(tmp)
     print(f"extract: card vs CPU in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fold_card_vs_cpu()
+    print(f"fold: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
     reports = [fwd_report, wide_fwd_report] + bwd_reports + geom_reports
     for rep in reports:

@@ -14,7 +14,10 @@ only; the manifest is read with ``csv``, not pandas):
     cluster_length_batch), ``read_clusters``/``assign_clusters`` parse the
     cluster file;
   * ``batch_iterator`` stacks ``[B, ...]`` numpy batches;
-  * ``eval_windows`` yields one deterministic window per protein.
+  * ``eval_windows`` yields one deterministic window per protein;
+  * ``StaticPdbDataset`` serves single structures (``.npz`` chains from
+    ``preprocess/mmcif.process_mmcif_dir``, ``.cif``/``.cif.gz``, ``.pdb``)
+    as windows of F identical frames.
 
 The same seeds give the same windows and indices as the JAX package. The
 single-bundle npz of ``data/synthetic.make_trajectory_npz`` is accepted as
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import csv
 import logging
+import os
 import pickle
 from dataclasses import dataclass
 
@@ -331,3 +335,66 @@ def eval_windows(dataset: TrajectoryDataset):
     with ``np.random.default_rng(i)``)."""
     for i in range(len(dataset)):
         yield dataset.get_window(i, np.random.default_rng(i))
+
+
+class StaticPdbDataset:
+    """Windows over single structures (no MD trajectory): each item holds
+    ``frame_time`` copies of the structure, zero force and velocity, and
+    zero embeddings or those of ``embed_paths`` (one npz per structure),
+    zero-padded to ``pad_to`` residues when given. Inputs: ``.npz`` chains
+    (atom37, atom37_mask, aatype, residue_index), ``.cif``/``.cif.gz``
+    (the first chain) or ``.pdb`` (the first model)."""
+
+    def __init__(self, pdb_paths: list, *, frame_time: int = 2,
+                 pad_to: int | None = None, embed_paths: list | None = None):
+        self.pdb_paths = list(pdb_paths)
+        self.frame_time = frame_time
+        self.pad_to = pad_to
+        self.embed_paths = embed_paths
+
+    def __len__(self):
+        return len(self.pdb_paths)
+
+    def get_window(self, idx: int, rng=None) -> dict:
+        path = self.pdb_paths[idx]
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                atom37 = np.asarray(z["atom37"], np.float32)
+                mask = np.asarray(z["atom37_mask"], np.float32)
+                aatype = np.asarray(z["aatype"], np.int32)
+                residue_index = np.asarray(z["residue_index"], np.int32)
+        elif path.endswith(".cif") or path.endswith(".cif.gz"):
+            from dynamicpdb_tpu_torch.preprocess.mmcif import parse_mmcif
+
+            ch = next(iter(parse_mmcif(path).chains.values()))
+            atom37, mask = ch.atom37, ch.atom37_mask
+            aatype, residue_index = ch.aatype, ch.residue_index
+        else:
+            from dynamicpdb_tpu_torch.analysis.pdb_io import read_pdb
+
+            atom37, mask, aatype, residue_index = read_pdb(path)
+        n = len(aatype)
+        F = self.frame_time
+        if self.embed_paths is not None:
+            with np.load(self.embed_paths[idx]) as z:
+                node_repr = np.asarray(z["node_repr"], np.float32)
+                edge_repr = np.asarray(z["edge_repr"], np.float32)
+        else:
+            node_repr = np.zeros((n, 256), np.float32)
+            edge_repr = np.zeros((n, n, 128), np.float32)
+        raw = {
+            "name": os.path.splitext(os.path.basename(path))[0],
+            "atom37": np.repeat(atom37[None], F, axis=0),
+            "atom37_mask": mask,
+            "aatype": aatype,
+            "residue_index": residue_index,
+            "force": np.zeros((F, n, 3), np.float32),
+            "vel": np.zeros((F, n, 3), np.float32),
+            "node_repr": node_repr,
+            "edge_repr": edge_repr,
+        }
+        if self.pad_to:
+            name = raw.pop("name")
+            raw = pad_window(raw, self.pad_to)
+            raw["name"] = name
+        return raw

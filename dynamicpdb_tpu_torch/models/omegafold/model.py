@@ -148,22 +148,32 @@ def omegafold_cycle(model: OmegaFold, p_msa, p_msa_mask, prev_node,
 @dataclass
 class Embedding:
     """The reprs of the selected cycle (float32, on the model's device)
-    and, fetched once at the end, the confidences."""
+    and, fetched once at the end, the confidences. With
+    ``return_structure`` also that cycle's fold: ``pos14`` [L, 14, 3] and
+    ``plddt`` [L] (float32, on the device)."""
 
     edge: torch.Tensor  # [L, L, edge_dim]
     node: torch.Tensor  # [L, node_dim]
-    confidence: float  # the selected cycle's
+    confidence: float  # the best cycle's (the selected one's by default)
     cycle: int  # the selected cycle's index
     confidences: list  # every cycle's
+    pos14: torch.Tensor | None = None
+    plddt: torch.Tensor | None = None
 
 
 @torch.inference_mode()
 def omegafold_embed(model: OmegaFold, cycle_inputs, *,
-                    pad_safe: bool = False) -> Embedding:
+                    predict_with_confidence: bool = True,
+                    pad_safe: bool = False,
+                    return_structure: bool = False) -> Embedding:
     """Run every recycling cycle of ``cycle_inputs`` (the pipeline's
     {p_msa, p_msa_mask} dicts) on the model's device and dtype; keep the
-    most confident cycle's reprs. ``pad_safe`` for inputs padded by the
-    pipeline (the outputs then carry the padded length)."""
+    most confident cycle's reprs, or the last cycle's when
+    ``predict_with_confidence`` is False (``confidence`` is the best
+    cycle's either way, as in the JAX package). ``return_structure`` also
+    keeps the selected cycle's pos14 and pLDDT, selected on the device like
+    the reprs. ``pad_safe`` for inputs padded by the pipeline (the outputs
+    then carry the padded length)."""
     w = model.plm_node_embedder.weight
     dev, act = w.device, w.dtype
     cfg = model.cfg
@@ -174,24 +184,32 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
     best_conf = torch.zeros((), dtype=torch.float32, device=dev)
     best_cycle = torch.zeros((), dtype=torch.int64, device=dev)
     best_node, best_edge, confs = prev_node, prev_edge, []
+    best_pos14 = best_plddt = None
     for i, cyc in enumerate(cycle_inputs):
         p_msa = torch.as_tensor(cyc["p_msa"], device=dev)
         mask = torch.as_tensor(cyc["p_msa_mask"], device=dev).to(act)
-        node, edge, conf, _, pos14 = omegafold_cycle(
+        node, edge, conf, plddt, pos14 = omegafold_cycle(
             model, p_msa, mask, prev_node, prev_edge, prev_x,
             pad_safe=pad_safe)
         prev_node, prev_edge, prev_x = node.to(act), edge.to(act), pos14.to(act)
         better = conf > best_conf
-        if i == 0:  # the first cycle always fills the outputs
+        if i == 0 or not predict_with_confidence:  # this cycle fills them
             better = torch.ones_like(better)
         best_node = torch.where(better, prev_node, best_node)
         best_edge = torch.where(better, prev_edge, best_edge)
         best_cycle = torch.where(better, i, best_cycle)
+        if return_structure:
+            pos14, plddt = pos14.float(), plddt.float()
+            best_pos14 = pos14 if i == 0 else torch.where(better, pos14,
+                                                          best_pos14)
+            best_plddt = plddt if i == 0 else torch.where(better, plddt,
+                                                          best_plddt)
         best_conf = torch.where(conf > best_conf, conf.float(), best_conf)
         confs.append(conf.float())
     return Embedding(edge=best_edge.float(), node=best_node.float(),
                      confidence=float(best_conf), cycle=int(best_cycle),
-                     confidences=torch.stack(confs).tolist())
+                     confidences=torch.stack(confs).tolist(),
+                     pos14=best_pos14, plddt=best_plddt)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Port of ``dynamicpdb_tpu/ops/frames.py`` (the AF2/OpenFold chain the
 reference runs per data window): atom37 -> backbone and rigid-group frames,
-atom37 -> torsion angles, rigids + torsions -> frames -> atom14 -> atom37.
+atom37 -> torsion angles, atom37 -> atom14, rigids + torsions -> frames ->
+atom14 or atom37, atom14 -> atom37.
 Residue-type loops are table gathers; frames are (rotmat, trans) pairs.
 Leading batch dims broadcast: ``aatype`` and the masks may carry fewer of
 them than the coordinates.
@@ -19,9 +20,12 @@ from dynamicpdb_tpu_torch.ops.rigid import Rigid
 
 DEFAULT_FRAMES = np.asarray(chem.restype_rigid_group_default_frame)  # [21,8,4,4]
 GROUP_IDX14 = np.asarray(chem.restype_atom14_to_rigid_group)  # [21,14]
+GROUP_IDX37 = np.asarray(chem.restype_atom37_to_rigid_group)  # [21,37]
 ATOM14_MASK = np.asarray(chem.restype_atom14_mask)  # [21,14]
 ATOM37_MASK = np.asarray(chem.restype_atom37_mask)  # [21,37]
 IDEAL_POS14 = np.asarray(chem.restype_atom14_rigid_group_positions)  # [21,14,3]
+IDEAL_POS37 = np.asarray(chem.restype_atom37_rigid_group_positions)  # [21,37,3]
+A14_TO_A37 = np.asarray(chem.restype_atom14_to_atom37)  # [21,14]
 A37_TO_A14 = np.asarray(chem.restype_atom37_to_atom14)  # [21,37]
 CHI_ATOM_IDX = np.asarray(chem.chi_atom_indices)  # [21,4,4]
 CHI_MASK = np.asarray(chem.chi_angles_mask)  # [21,4]
@@ -265,6 +269,11 @@ def frames_to_atom14_pos(frames: Frames8, aatype) -> torch.Tensor:
     return _frames_to_atom_pos(frames, aatype, GROUP_IDX14, IDEAL_POS14, ATOM14_MASK)
 
 
+def frames_to_atom37_pos(frames: Frames8, aatype) -> torch.Tensor:
+    """Idealized atom37 coordinates from rigid-group frames."""
+    return _frames_to_atom_pos(frames, aatype, GROUP_IDX37, IDEAL_POS37, ATOM37_MASK)
+
+
 def atom14_to_atom37(atom14: torch.Tensor, aatype):
     """[..., N, 14, ...] -> ([..., N, 37, ...], mask [..., N, 37])."""
     idx = _table(A37_TO_A14, atom14)[aatype]  # [..., N, 37]
@@ -275,3 +284,21 @@ def atom14_to_atom37(atom14: torch.Tensor, aatype):
     atom37 = _gather(atom14, idx.ndim - 1, gather_idx)
     mask = _table(ATOM37_MASK, atom14)[aatype]
     return atom37 * mask.reshape(mask.shape + (1,) * extra), mask
+
+
+def atom37_to_atom14(atom37: torch.Tensor, aatype, atom37_mask):
+    """Ground-truth atom14 positions [..., N, 14, 3] and their mask
+    [..., N, 14] from atom37."""
+    idx = _table(A14_TO_A37, atom37)[aatype]  # [..., N, 14]
+    exists = _table(ATOM14_MASK, atom37)[aatype] * _gather(atom37_mask, -1,
+                                                           idx)
+    pos = _gather(atom37, -2, idx[..., None].expand(idx.shape + (3,)))
+    return pos * exists[..., None], exists
+
+
+def compute_backbone_atom37(bb: Rigid, aatype, torsions):
+    """Rigids + torsions -> (atom37 [..., N, 37, 3], mask: the atoms not at
+    the origin)."""
+    atom37 = frames_to_atom37_pos(torsion_angles_to_frames(bb, torsions,
+                                                           aatype), aatype)
+    return atom37, torch.any(atom37 != 0, dim=-1)

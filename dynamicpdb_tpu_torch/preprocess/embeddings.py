@@ -1,12 +1,16 @@
 """Sequence-embedding artifacts: the OmegaFold node/edge representations
 that DFOLD reads.
 
-Port of ``dynamicpdb_tpu/preprocess/embeddings.py`` (``validate`` and
-``zero_embeddings``): each protein's ``{pid}.npz`` holds node_repr
-[N, 256] and edge_repr [N, N, 128], made offline by
-``preprocess/extract_embeddings.py``.
+Port of ``dynamicpdb_tpu/preprocess/embeddings.py`` (``validate``,
+``zero_embeddings``, ``extract_with_omegafold``): each protein's
+``{pid}.npz`` holds node_repr [N, 256] and edge_repr [N, N, 128], made
+offline by ``preprocess/extract_embeddings.py`` or by an external
+OmegaFold checkout.
 """
 from __future__ import annotations
+
+import subprocess
+import sys
 
 import numpy as np
 
@@ -42,3 +46,33 @@ def zero_embeddings(n_res: int) -> dict:
         "node_repr": np.zeros((n_res, NODE_DIM), np.float32),
         "edge_repr": np.zeros((n_res, n_res, EDGE_DIM), np.float32),
     }
+
+
+def extract_with_omegafold(
+    fasta_path: str,
+    out_npz: str,
+    *,
+    omegafold_repo: str,
+    weights_path: str,
+    num_cycles: int = 10,
+    device: str = "cuda",
+) -> str:
+    """Run an external OmegaFold checkout's extractor as a subprocess (its
+    ``omegafold.__main__.OmegaFoldModel(weights, device).inference(lines,
+    num_cycles)`` -> (edge, node) lists of tensors), save the first
+    sequence's reprs to ``out_npz`` and validate them against the model's
+    contract. Unlike the JAX package's default (cpu), ``device`` defaults
+    to the card."""
+    script = (
+        "import sys, numpy as np, torch;"
+        f"sys.path.insert(0, {omegafold_repo!r});"
+        "from omegafold.__main__ import OmegaFoldModel;"
+        f"m = OmegaFoldModel({weights_path!r}, device={device!r});"
+        f"lines = open({fasta_path!r}).read().splitlines();"
+        f"edge, node = m.inference(lines, {num_cycles});"
+        f"np.savez_compressed({out_npz!r}, node_repr=node[0].cpu().numpy(),"
+        " edge_repr=edge[0].cpu().numpy())"
+    )
+    subprocess.run([sys.executable, "-c", script], check=True)
+    validate(out_npz)
+    return out_npz

@@ -1,22 +1,25 @@
 """Reverse-diffusion sampling and autoregressive rollout.
 
-Port of ``set_t_feats``, ``reverse_sample``, ``make_sampler``,
-``refresh_window_conditioning`` and ``rollout`` from
-``dynamicpdb_tpu/sampling/reverse.py``; the JAX scans are Python loops.
+Port of ``dynamicpdb_tpu/sampling/reverse.py`` (``set_t_feats``,
+``reverse_sample``, ``make_sampler``, ``refresh_window_conditioning``,
+``rollout``, ``batched_rollout``); the JAX scans are Python loops.
 
   * reverse steps = linspace(min_t, 1, num_t) reversed, dt = 1/num_t;
   * for t > min_t: model forward -> scores -> SE(3) reverse SDE step;
     with classifier-free guidance (``cfg_gamma``) a second forward without
     the reference frames guides the translation score;
   * at t = min_t the model's x0 prediction is taken directly;
-  * the rollout slides the window: rigids_0 <- cat(pred[1:], pred[-1:]).
+  * the rollout slides the window: rigids_0 <- cat(pred[1:], pred[-1:]);
+  * ``batched_rollout`` runs the rollout of several windows, one after
+    another (the network has no batch axis), each with its own generator.
 
-``batched_rollout`` and the Picard sampler are not ported yet.
+The parallel-in-time sampler is ``sampling/picard.py``.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from dynamicpdb_tpu_torch.models.score_network import score_forward
@@ -178,4 +181,42 @@ def rollout(model, diffuser, init_feats: dict[str, Any], *, n_steps: int,
                                                       dt_ps)
         atoms.append(out["atom37"][-1])
         rigids.append(pred[-1])
+    return torch.stack(atoms), torch.stack(rigids)
+
+
+def window_generators(seed: int, n: int, device) -> list[torch.Generator]:
+    """One generator per window on ``device``, window b's seeded from
+    (seed, b)."""
+    return [torch.Generator(device=device).manual_seed(int(
+        np.random.SeedSequence([seed, b]).generate_state(1, np.uint64)[0]))
+            for b in range(n)]
+
+
+@torch.no_grad()
+def batched_rollout(model, diffuser, init_feats_batch: dict[str, Any], *,
+                    n_steps: int, num_t: int = 10, min_t: float = 0.01,
+                    noise_scale: float = 1.0, center: bool = True,
+                    fast_x0: bool = False, seed: int = 0):
+    """``rollout`` over B featurized windows stacked on axis 0 ([B, F, N,
+    ...]; different proteins padded to one N, or different starting
+    windows), window b with the generator ``window_generators(seed, B)[b]``.
+    The windows run one after another: the network has no batch axis, and
+    every GlobalStatNorm statistic stays per window as under the JAX
+    package's ``vmap``. The returned frames do not depend on the noise (the
+    network predicts x0 from the clean reference frames; see ``rollout``),
+    so replicas of one window differ only through their conditioning.
+
+    Returns (atom37_traj [B, n_steps, N, 37, 3], rigid_traj [B, n_steps, N,
+    7])."""
+    B = init_feats_batch["res_mask"].shape[0]
+    gens = window_generators(seed, B, init_feats_batch["res_mask"].device)
+    atoms, rigids = [], []
+    for b in range(B):
+        a, r = rollout(model, diffuser,
+                       {k: v[b] for k, v in init_feats_batch.items()},
+                       n_steps=n_steps, num_t=num_t, min_t=min_t,
+                       noise_scale=noise_scale, center=center,
+                       fast_x0=fast_x0, generator=gens[b])
+        atoms.append(a)
+        rigids.append(r)
     return torch.stack(atoms), torch.stack(rigids)

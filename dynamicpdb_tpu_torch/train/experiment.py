@@ -17,7 +17,9 @@ Every random draw of a step comes from ``draw_window_noise`` (a
 ``torch.Generator`` seeded from ``experiment.seed``) unless the caller
 passes the noise, so a test can hand the port the numbers JAX drew. The
 mesh, ZeRO sharding and ``multi_train_step`` of the JAX package are not
-ported (one device).
+ported (one device). The epoch loop takes its batches from
+``data/prefetch.py``: the next batches are read, stacked and copied to the
+device by a worker thread while the current step runs, as in the JAX loop.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from dynamicpdb_tpu_torch.data.featurize import (
     featurize_window,
     perturb_conditioning_rigids,
 )
+from dynamicpdb_tpu_torch.data.prefetch import prefetch_to_device
 from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from dynamicpdb_tpu_torch.models.score_network import (
     DFoldScoreNetwork,
@@ -173,7 +176,9 @@ class Trainer:
         return torch.stack(losses).mean(), aux
 
     def to_device(self, raw_batch: dict) -> dict:
-        return {k: torch.as_tensor(raw_batch[k]).to(self.device)
+        """The batch's RAW_KEYS as tensors on the device; a tensor already
+        there (the prefetcher's) passes through without a copy."""
+        return {k: torch.as_tensor(raw_batch[k], device=self.device)
                 for k in RAW_KEYS}
 
     def loss_and_grads(self, raw_batch: dict, noises=None):
@@ -229,8 +234,8 @@ class Experiment:
         self.best: dict[str, float] = {}
         self.step = 0
         self.epoch = 0
-        # every step's aux, its seconds in train_step and the seconds its
-        # batch took to arrive from the data iterator
+        # every step's aux, its seconds in train_step and the seconds it
+        # waited for its batch from the prefetcher
         self.step_metrics: list[dict] = []
         n_params = sum(p.numel() for p in self.trainer.model.parameters())
         log.info("model parameters: %.1fM", n_params / 1e6)
@@ -261,39 +266,44 @@ class Experiment:
         timer = StepTimer()
         epochs = num_epochs if num_epochs is not None else cfg.num_epoch
         for epoch in range(self.epoch, self.epoch + epochs):
-            batches = iter(self.data_iter_factory(epoch))
-            while True:
-                t_data = time.perf_counter()
-                raw_batch = next(batches, None)
-                if raw_batch is None:
-                    break
-                t0 = time.perf_counter()
-                aux = self.trainer.train_step(raw_batch)  # floats: synced
-                self.step += 1
-                self.step_metrics.append(
-                    dict(aux, step=self.step, data_seconds=t0 - t_data,
-                         seconds=time.perf_counter() - t0))
-                rolling.append(aux)
-                timer.tick()
-                if self.step == 1 or self.step % cfg.log_freq == 0:
-                    means = {k: float(np.mean([a[k] for a in rolling]))
-                             for k in rolling[0]}
-                    sps = timer.steps_per_sec
-                    log.info("epoch %d step %d: %s steps/sec=%.3f", epoch,
-                             self.step, " ".join(f"{k}={v:.4f}"
-                                                 for k, v in means.items()),
-                             sps)
-                    history.append({"step": self.step, **means,
-                                    "steps_per_sec": sps})
-                    if self.metrics_writer is not None:
-                        self.metrics_writer.write(
-                            self.step, {**means, "steps_per_sec": sps})
-                    rolling = []
-                    timer.reset()
-                if max_steps is not None and self.step >= max_steps:
-                    # partial epoch: resume restarts it
-                    self.epoch = epoch
-                    return history
+            # close() on every exit path: an abandoned prefetcher leaves its
+            # worker blocked in its put, holding device batches
+            with prefetch_to_device(self.data_iter_factory(epoch),
+                                    buffer_size=2,
+                                    device=self.trainer.device) as prefetcher:
+                batches = iter(prefetcher)
+                while True:
+                    t_data = time.perf_counter()
+                    raw_batch = next(batches, None)
+                    if raw_batch is None:
+                        break
+                    t0 = time.perf_counter()
+                    aux = self.trainer.train_step(raw_batch)  # floats: synced
+                    self.step += 1
+                    self.step_metrics.append(
+                        dict(aux, step=self.step, data_seconds=t0 - t_data,
+                             seconds=time.perf_counter() - t0))
+                    rolling.append(aux)
+                    timer.tick()
+                    if self.step == 1 or self.step % cfg.log_freq == 0:
+                        means = {k: float(np.mean([a[k] for a in rolling]))
+                                 for k in rolling[0]}
+                        sps = timer.steps_per_sec
+                        log.info("epoch %d step %d: %s steps/sec=%.3f",
+                                 epoch, self.step,
+                                 " ".join(f"{k}={v:.4f}"
+                                          for k, v in means.items()), sps)
+                        history.append({"step": self.step, **means,
+                                        "steps_per_sec": sps})
+                        if self.metrics_writer is not None:
+                            self.metrics_writer.write(
+                                self.step, {**means, "steps_per_sec": sps})
+                        rolling = []
+                        timer.reset()
+                    if max_steps is not None and self.step >= max_steps:
+                        # partial epoch: resume restarts it
+                        self.epoch = epoch
+                        return history
             self.epoch = epoch + 1  # completed: resume starts the next one
             if (self.eval_fn is not None and self.eval_every
                     and epoch % self.eval_every == 0):
