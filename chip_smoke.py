@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (dynamicpdb_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp-cards   # data parallel over every card (NCCL)
 
 Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
@@ -74,6 +75,21 @@ Phases, each printing its own lines:
      cycle; then fold_cli.fold at release width and a reduced depth on the
      card and on the CPU: pos14, pLDDT, confidences and the selected cycle
      must agree.
+  8. data parallel (run after phase 6, on phase 4's manifest and against
+     its one process at B = 8): 8a, tools/dp_step.py on two ranks started
+     by torch.distributed.run, joined with gloo and sharing cuda:0 (NCCL
+     refuses two ranks on one card), B = 4 each, ZeRO on, 3 steps: both
+     ranks' parameters equal, their parameters, gathered AMSGrad moments,
+     losses and grad norms within the stated bounds of one process's, each
+     rank's IPA launches those of its 4 windows (32 forward and 16 of each
+     backward kernel a step); 8b, the same with ZeRO off, whose parameters
+     must equal 8a's bit for bit; 8c, train_cli under the launcher at world
+     1 on NCCL with experiment.mesh_shape=(1,) for 2 steps, whose
+     checkpoint must equal a run without a launcher bit for bit; 8d, two
+     ranks on a (1, 2) ('data', 'model') mesh at B = 8, bit-equal to phase
+     4 and within the bounds of 8a; each rank's step and all-reduce
+     seconds, peak memory and the memory its parameters and optimizer
+     state hold between steps printed.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
@@ -1592,6 +1608,418 @@ def serve_checkpoint(device: str, config: str, ckpt: str, extra: list[str], *,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: data parallel
+# ---------------------------------------------------------------------------
+# The machine has one card and NCCL refuses two ranks on one device, so the
+# two-rank runs join with gloo on cuda:0: gloo's all_reduce takes CUDA
+# tensors, and the port's gathers (ZeRO, 'model') go through host memory
+# under gloo. Two ranks sharing a card measure correctness and the
+# collectives' overhead, not scaling.
+LAUNCHER = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT", "GROUP_RANK", "ROLE_RANK",
+                "TORCHELASTIC_RUN_ID")
+# two ranks against one process on the global batch: the same windows and
+# noise, the gradient summed in another order (each rank's 4 windows, then
+# the all-reduce of the two sums). Losses and grad norms to 1e-3 relative,
+# as in tests/test_torch_parallel.py. The update (the parameters' move from
+# their start) and each AMSGrad moment are held over the whole model, each
+# as its distance from one process's over its norm, to a bound of its own
+# taken from the card: the update read 8.513e-3, mu 3.4e-4, nu 4.9e-5 and
+# nu_max 2.4e-5 (from step 2 on the gradients follow parameters that differ
+# slightly, through a release-init network whose first gradient norm is
+# ~1e5, so an element can move far: bb_update's mu by 4% of its tensor's
+# largest). A control, one process at half the global batch (the gradient
+# a rank would take without the other's windows), must read above every
+# bound, so that each bound catches that fault. One process is
+# bit-reproducible on the card (two runs measured equal).
+DP_LOSS_RTOL = 1e-3
+DP_GAP_BOUNDS = {"update": 2e-2, "mu": 5e-3, "nu": 1e-3, "nu_max": 1e-3}
+
+
+def run_command(cmd: list[str], label: str, timeout: float = 900) -> str:
+    """``cmd`` from the repo root without any launcher variables of this
+    process, in a session of its own that is killed whole on a timeout;
+    fails unless it exits 0. Returns its output."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise CheckFailed(f"{label}: no end within {timeout} s")
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}\n"
+          f"{out[-6000:]}")
+    return out
+
+
+def dp_run(torch, label: str, nproc: int, tmp: str, csv: str, config: str,
+           overrides: list[str], steps: int, card: str, device: str,
+           backend: str = "gloo") -> list[dict]:
+    """tools/dp_step.py on ``nproc`` ranks (gloo ranks sharing cuda:0 on
+    one card), over the manifest's batches; prints each rank's step and all-reduce seconds, its
+    peak memory and the memory its parameters and optimizer state hold
+    between steps; returns every rank's result."""
+    out = os.path.join(tmp, label)
+    cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "-m",
+                      "dynamicpdb_tpu_torch.tools.dp_step", "--config", config,
+                      "--device", device, "--backend", backend, "--steps",
+                      str(steps), "--csv", csv, "--out", out, *overrides]
+    t0 = time.perf_counter()
+    run_command(cmd, f"dp {label}")
+    wall = time.perf_counter() - t0
+    results = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                          weights_only=True) for r in range(nproc)]
+    for res in results:
+        print(f"dp {label}: rank {res['rank']} of {nproc} ({res['mesh']}): "
+              f"step seconds {[round(s, 4) for s in res['seconds']]}, "
+              f"all-reduce seconds {[round(s, 4) for s in res['comm_seconds']]}"
+              f", peak {res['peak_bytes'] / 2**30:.3f} GiB, parameters and "
+              f"optimizer state between steps {res['state_bytes'] / 2**30:.3f}"
+              f" GiB, IPA launches {res['launches']} [{card}]")
+    print(f"dp {label}: {nproc} ranks, {steps} steps in {wall:.2f} s of "
+          f"launcher wall [{card}]")
+    return results
+
+
+def dp_train_cli(torch, label: str, nproc: int, tmp: str, csv: str,
+                 config: str, overrides: list[str], steps: int, card: str,
+                 device: str, backend: str) -> dict:
+    """train_cli on ``nproc`` ranks under the launcher, with ``--backend``
+    and ``--device`` given (gloo ranks sharing cuda:0 on one card), a
+    metrics line a step; returns rank 0's checkpoint (params, optimizer
+    with the moments gathered whole, rng) and its metrics lines (aux)."""
+    from dynamicpdb_tpu_torch.config import load_yaml
+    from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
+
+    run_dir = os.path.join(tmp, f"{label}-cli")
+    local = load_yaml(config, overrides).experiment.batch_size
+    t0 = time.perf_counter()
+    out = run_command(LAUNCHER + [
+        f"--nproc_per_node={nproc}", "-m", "dynamicpdb_tpu_torch.train_cli",
+        "--config", config, "--max-steps", str(steps), "--device", device,
+        "--backend", backend, *overrides, f"data.csv_path={csv}",
+        f"experiment.ckpt_dir={run_dir}/ckpt",
+        f"experiment.eval_dir={run_dir}/eval", "experiment.log_freq=1"],
+        f"dp {label} train_cli")
+    wall = time.perf_counter() - t0
+    check(f"global_batch={local * nproc} ({local} a rank)" in out,
+          f"dp {label}: train_cli did not train on {nproc} data ranks")
+    saved = ckpt_lib.load(os.path.join(run_dir, "ckpt", f"step_{steps}.ckpt"))
+    with open(os.path.join(run_dir, "eval", "logs", "metrics.jsonl")) as f:
+        aux = [json.loads(line) for line in f]
+    check(saved["step"] == steps
+          and [a["step"] for a in aux] == list(range(1, steps + 1)),
+          f"dp {label} train_cli: step {saved['step']}, metric lines of "
+          f"steps {[a['step'] for a in aux]}")
+    print(f"dp {label}: train_cli on {nproc} ranks ({backend}, {device}), "
+          f"{steps} steps in {wall:.2f} s of launcher wall: rank 0 wrote "
+          f"step_{steps}.ckpt and {len(aux)} metric lines [{card}]")
+    return dict(params=saved["model"], optimizer=saved["optimizer"],
+                rng=saved["rng"], aux=aux)
+
+
+def dp_launches_ok(results: list[dict], cfg, steps: int, label: str,
+                   on_card: bool):
+    """Each rank ran every block's forward twice (remat) and each backward
+    kernel once per window of its batch, all on the tensor-core route (none
+    off the card)."""
+    B, blocks = cfg.experiment.batch_size, cfg.model.ipa.num_blocks
+    per_step = B * blocks if on_card else 0
+    want = dict(launches=2 * per_step * steps, bwd_dq_launches=per_step * steps,
+                bwd_dkv_launches=per_step * steps,
+                bwd_pair_launches=per_step * steps, wide_launches=0,
+                wide_bwd_dq_launches=0, wide_bwd_dkv_launches=0,
+                wide_bwd_pair_launches=0)
+    for res in results:
+        check(res["launches"] == want, f"dp {label}: rank {res['rank']} "
+              f"launched {res['launches']}, expected {want}")
+
+
+def state_gaps(torch, label: str, got: dict, want: dict,
+               start: dict) -> dict:
+    """The distance of ``got``'s update (its parameters' move from
+    ``start``) and of each of its gathered AMSGrad moments from ``want``'s,
+    over the norm of ``want``'s, each over the whole model."""
+    diff2 = norm2 = 0.0
+    for name, w in want["model"].items():
+        g = got["params"][name].to(w.dtype)
+        diff2 += float((g - w).double().pow(2).sum())
+        norm2 += float((w - start[name]).double().pow(2).sum())
+    gaps = {"update": math.sqrt(diff2) / max(math.sqrt(norm2), 1e-30)}
+    sg, sw = got["optimizer"]["state"], want["optimizer"]["state"]
+    check(sorted(sg) == sorted(sw), f"dp {label}: optimizer state of "
+          f"{len(sg)} tensors, one process has {len(sw)}")
+    for k in sorted({k for st in sw.values() for k in st}):
+        diff2 = norm2 = 0.0
+        for i, st in sw.items():
+            if k not in st:  # an EMA without moments: never a gradient
+                continue
+            w, g = st[k].float().cpu(), sg[i][k].float().cpu()
+            check(g.shape == w.shape, f"dp {label}: moment {i} {k} has shape "
+                  f"{tuple(g.shape)}, not {tuple(w.shape)}")
+            diff2 += float((g - w).double().pow(2).sum())
+            norm2 += float(w.double().pow(2).sum())
+        gaps[k] = math.sqrt(diff2) / max(math.sqrt(norm2), 1e-30)
+    missing = sorted(gaps.keys() - DP_GAP_BOUNDS.keys())
+    check(not missing, f"dp {label}: no bound for {missing}")
+    return gaps
+
+
+def dp_against_one_process(torch, label: str, got: dict, want: dict,
+                           start: dict, control: dict | None = None):
+    """``got`` (params, optimizer with gathered moments, per-step aux)
+    against the one-process run ``want`` (model, optimizer, aux): each
+    step's loss and grad norm, the update and each moment within
+    ``DP_GAP_BOUNDS``; a ``control`` run must read past every bound."""
+    for i, (g, w) in enumerate(zip(got["aux"], want["aux"])):
+        for k in ("total_loss", "grad_norm"):
+            err = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            check(err <= DP_LOSS_RTOL, f"dp {label}: step {i + 1} {k} "
+                  f"{g[k]} against {w[k]} (relative {err:.3e})")
+    gaps = state_gaps(torch, label, got, want, start)
+    for k, v in gaps.items():
+        check(v <= DP_GAP_BOUNDS[k], f"dp {label}: {k} is {v:.3e} of its "
+              f"norm from one process's (bound {DP_GAP_BOUNDS[k]})")
+    line = {k: float(f"{v:.4g}") for k, v in gaps.items()}
+    if control is not None:
+        far = state_gaps(torch, f"{label} control", control, want, start)
+        for k, v in far.items():
+            check(v > DP_GAP_BOUNDS[k], f"dp {label}: the control reads {k} "
+                  f"{v:.3e} of its norm, within its bound "
+                  f"{DP_GAP_BOUNDS[k]}: the bound would not catch it")
+        line = {k: (v, float(f"{far[k]:.4g}")) for k, v in line.items()}
+    print(f"dp {label}: against one process, of their norms: "
+          f"{line}{' (reading, control)' if control is not None else ''}, "
+          f"bounds {DP_GAP_BOUNDS}; losses "
+          f"{[a['total_loss'] for a in got['aux']]} against "
+          f"{[a['total_loss'] for a in want['aux']]}")
+
+
+def equal_to(torch, label: str, got: dict, want: dict):
+    """Bit-equal parameters and gathered moments."""
+    for k, v in want["model"].items():
+        check(torch.equal(got["params"][k].cpu(), v.cpu()),
+              f"dp {label}: {k} differs")
+    for i, st in want["optimizer"]["state"].items():
+        for k, v in st.items():
+            check(torch.equal(got["optimizer"]["state"][i][k].cpu(), v.cpu()),
+                  f"dp {label}: moment {i} {k} differs")
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float().to(a[k].device)).abs().max())
+               for k in a)
+
+
+def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
+             device: str = "cuda", extra: tuple = ()) -> dict:
+    """8a: train_cli on two gloo ranks sharing cuda:0 at B = 4 each (ZeRO
+    on, the default) against phase 4's one process at B = 8, the same
+    manifest, seed and steps, with a control at B = 4 in one process; then
+    the same steps through tools/dp_step.py, for each rank's launches,
+    seconds and memory, bit-equal to train_cli's; 8b: dp_step with ZeRO
+    off, whose parameters must equal 8a's; 8c: train_cli under a launcher
+    at world 1 on NCCL with experiment.mesh_shape=(1,), whose checkpoint
+    must equal, bit for bit, a run without a launcher or mesh; 8d: two
+    ranks on a (1, 2) ('data', 'model') mesh at B = 8 each, whose ranks run
+    one process's rows and sums: bit-equal to phase 4, and within the
+    bounds of 8a. ``extra``: phase 4's config overrides (a CPU rehearsal
+    runs a small width)."""
+    from dynamicpdb_tpu_torch.config import load_yaml
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
+    from dynamicpdb_tpu_torch.weights import init_like_jax_
+
+    extra = list(extra)
+    cfg = load_yaml(config, extra)
+    on_card = device == "cuda"
+    rank_device = "cuda:0" if on_card else device
+    steps = len(train["steps"])
+    one = ckpt_lib.load(train["ckpt"])
+    want = dict(model=one["model"], optimizer=one["optimizer"],
+                aux=train["steps"])
+    start = init_like_jax_(DFoldScoreNetwork(cfg.model, device="cpu"),
+                           cfg.experiment.seed).state_dict()
+    half = extra + [f"experiment.batch_size={cfg.experiment.batch_size // 2}"]
+
+    # 8a: the real entry point on two ranks, against one process
+    cli = dp_train_cli(torch, "8a", 2, tmp, train["csv"], config, half,
+                       steps, card, rank_device, "gloo")
+    check(torch.equal(cli["rng"], one["rng"]), "dp 8a: the ranks' noise "
+          "generator left one process's")
+    out = os.path.join(tmp, "8a-control")
+    run_command([sys.executable, "-m", "dynamicpdb_tpu_torch.tools.dp_step",
+                 "--config", config, "--device", rank_device, "--steps",
+                 str(steps), "--csv", train["csv"], "--out", out, *half],
+                "dp 8a control")
+    control = torch.load(os.path.join(out, "rank0.pt"), weights_only=True)
+    dp_against_one_process(torch, "8a", cli, want, start, control)
+    # the same steps through dp_step: each rank's launches and memory
+    a = dp_run(torch, "8a", 2, tmp, train["csv"], config, half, steps, card,
+               rank_device)
+    dp_launches_ok(a, load_yaml(config, half), steps, "8a", on_card)
+    check(max_param_diff(a[0]["params"], a[1]["params"]) == 0.0,
+          "dp 8a: the two ranks' parameters differ")
+    check(torch.equal(a[0]["rng"], a[1]["rng"]), "dp 8a: the ranks' noise "
+          "generators left lock step")
+    equal_to(torch, "8a dp_step against train_cli", a[0],
+             dict(model=cli["params"], optimizer=cli["optimizer"]))
+    check([x["total_loss"] for x in a[0]["aux"]]
+          == [x["total_loss"] for x in cli["aux"]], "dp 8a: dp_step's losses "
+          "differ from train_cli's")
+    print("dp 8a: dp_step's ranks equal train_cli's checkpoint bit for bit")
+
+    # 8b
+    b = dp_run(torch, "8b", 2, tmp, train["csv"], config,
+               half + ["experiment.zero_opt_state=false"], steps, card,
+               rank_device)
+    diff = max_param_diff(a[0]["params"], b[0]["params"])
+    print(f"dp 8b: ZeRO off against on: parameters differ by at most "
+          f"{diff:.3e} (bound 0: the AMSGrad update is elementwise)")
+    equal_to(torch, "8b", b[0], dict(model=a[0]["params"],
+                                     optimizer=a[0]["optimizer"]))
+
+    # 8c
+    base = ["--config", config, "--max-steps", "2", "--device", device,
+            *extra, f"data.csv_path={train['csv']}"]
+    ckpts = {}
+    for name, cmd, mesh_args in (
+            ("launcher", LAUNCHER + ["--nproc_per_node=1", "-m"],
+             ["experiment.mesh_shape=(1,)"]),
+            ("plain", [sys.executable, "-m"], [])):
+        run_dir = os.path.join(tmp, f"8c-{name}")
+        t0 = time.perf_counter()
+        out = run_command(cmd + ["dynamicpdb_tpu_torch.train_cli", *base,
+                                 f"experiment.ckpt_dir={run_dir}/ckpt",
+                                 f"experiment.eval_dir={run_dir}/eval",
+                                 *mesh_args], f"dp 8c {name}")
+        print(f"dp 8c: train_cli {name}, 2 steps, in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        if name == "launcher":
+            check("mesh=Mesh({'data': 1}" in out, "dp 8c: train_cli under "
+                  "the launcher did not build the (1,) mesh")
+        ckpts[name] = ckpt_lib.load(os.path.join(run_dir, "ckpt",
+                                                 "step_2.ckpt"))
+    got, ref = ckpts["launcher"], ckpts["plain"]
+    for k, v in ref["model"].items():
+        check(torch.equal(got["model"][k], v), f"dp 8c: {k} differs between "
+              "NCCL at world 1 and no launcher")
+    for i, st in ref["optimizer"]["state"].items():
+        for k, v in st.items():
+            check(torch.equal(got["optimizer"]["state"][i][k], v),
+                  f"dp 8c: moment {i} {k} differs")
+    check(torch.equal(got["rng"], ref["rng"]), "dp 8c: generator states differ")
+    print("dp 8c: NCCL at world 1 through train_cli: the checkpoint equals "
+          "the run without a launcher, bit for bit")
+
+    # 8d
+    d = dp_run(torch, "8d", 2, tmp, train["csv"], config,
+               extra + ["experiment.mesh_shape=(1,2)",
+                        "experiment.mesh_axes=(data,model)"], steps, card,
+               rank_device)
+    dp_launches_ok(d, cfg, steps, "8d", on_card)
+    diff = max_param_diff(d[0]["params"], d[1]["params"])
+    check(diff == 0.0, f"dp 8d: the 'model' ranks' parameters differ by {diff}")
+    # the 'model' ranks run one process's rows and sums: bit-equal to it
+    equal_to(torch, "8d", d[0], want)
+    check([x["total_loss"] for x in d[0]["aux"]]
+          == [x["total_loss"] for x in want["aux"]], "dp 8d: losses differ "
+          "from one process's")
+    print("dp 8d: ('data', 'model') = (1, 2): parameters and moments equal "
+          "one process's bit for bit")
+    dp_against_one_process(torch, "8d against 8a", d[0], dict(
+        model=a[0]["params"], optimizer=a[0]["optimizer"], aux=a[0]["aux"]),
+        start)
+    print(f"dp 8d: per-rank peak memory {[r['peak_bytes'] / 2**30 for r in d]}"
+          f" GiB against 8a's {[r['peak_bytes'] / 2**30 for r in a]}; held "
+          f"between steps {[r['state_bytes'] / 2**30 for r in d]} against "
+          f"{[r['state_bytes'] / 2**30 for r in a]} (8b, ZeRO off: "
+          f"{[r['state_bytes'] / 2**30 for r in b]}) GiB [{card}]")
+    return dict(a=a, b=b, d=d)
+
+
+def dp_cards_phase(torch, card: str, device: str = "cuda",
+                   extra: tuple = ()) -> dict:
+    """``chip_smoke.py --dp-cards``: data parallel over every card of the
+    host on NCCL, one rank a card, at the release config and phase 4's
+    bundles, global B = 8, 3 steps: one process on one card, then every
+    card with ZeRO (B = 8 / n a rank), without, and on an (n / 2, 2)
+    ('data', 'model') mesh (B = 16 / n); each against the one process
+    with phase 8's bounds, each rank's replicas equal, ZeRO off equal to
+    on; then train_cli on every card with ZeRO, within the same bounds and
+    equal to dp_step's ZeRO run bit for bit. ``device="cpu"``
+    rehearses it with gloo on 4 processes at a small width (``extra``)."""
+    from dynamicpdb_tpu_torch.config import load_yaml
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.weights import init_like_jax_
+
+    on_card = device == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    n = torch.cuda.device_count() if on_card else 4
+    check(n >= 2 and n % 2 == 0, f"--dp-cards needs an even number of cards "
+          f"(at least 2), not {n}")
+    extra = list(extra)
+    config = os.path.join("configs",
+                          "release.yaml" if on_card else "tiny.yaml")
+    cfg = load_yaml(config, extra)
+    B, steps = 8, 3
+    start = init_like_jax_(DFoldScoreNetwork(cfg.model, device="cpu"),
+                           cfg.experiment.seed).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = write_manifest(tmp, (256, 200) if on_card else (12, 10),
+                             8 if on_card else 6)
+        out = os.path.join(tmp, "one")
+        run_command([sys.executable, "-m", "dynamicpdb_tpu_torch.tools.dp_step",
+                     "--config", config, "--device", device, "--steps",
+                     str(steps), "--csv", csv, "--out", out, *extra,
+                     f"experiment.batch_size={B}"], "dp one process")
+        one = torch.load(os.path.join(out, "rank0.pt"), weights_only=True)
+        print(f"dp one process B={B}: step seconds {one['seconds']}, peak "
+              f"{one['peak_bytes'] / 2**30:.3f} GiB, held "
+              f"{one['state_bytes'] / 2**30:.3f} GiB [{card}]")
+        want = dict(model=one["params"], optimizer=one["optimizer"],
+                    aux=one["aux"])
+        runs = {
+            "zero": [f"experiment.batch_size={B // n}"],
+            "no-zero": [f"experiment.batch_size={B // n}",
+                        "experiment.zero_opt_state=false"],
+            "data-model": [f"experiment.batch_size={2 * B // n}",
+                           f"experiment.mesh_shape=({n // 2},2)",
+                           "experiment.mesh_axes=(data,model)"],
+        }
+        res = {}
+        for label, ov in runs.items():
+            res[label] = r = dp_run(torch, f"x{n} {label}", n, tmp, csv,
+                                    config, extra + ov, steps, card, device,
+                                    backend)
+            dp_launches_ok(r, load_yaml(config, extra + ov), steps, label,
+                           on_card)
+            for other in r[1:]:
+                equal_to(torch, f"x{n} {label} rank {other['rank']}", other,
+                         dict(model=r[0]["params"],
+                              optimizer=r[0]["optimizer"]))
+            dp_against_one_process(torch, f"x{n} {label}", r[0], want, start)
+        equal_to(torch, f"x{n} ZeRO off against on", res["no-zero"][0],
+                 dict(model=res["zero"][0]["params"],
+                      optimizer=res["zero"][0]["optimizer"]))
+        print(f"dp x{n}: ZeRO off equals ZeRO on, bit for bit")
+        # the real entry point on every card, ZeRO on: dp_step's twin
+        cli = dp_train_cli(torch, f"x{n}", n, tmp, csv, config,
+                           extra + runs["zero"], steps, card, device, backend)
+        dp_against_one_process(torch, f"x{n} train_cli", cli, want, start)
+        equal_to(torch, f"x{n} train_cli against dp_step", res["zero"][0],
+                 dict(model=cli["params"], optimizer=cli["optimizer"]))
+        check(torch.equal(cli["rng"], one["rng"]), f"dp x{n} train_cli: the "
+              "noise generator left one process's")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the wide IPA route in a model
 # ---------------------------------------------------------------------------
 # the release model with the IPA widths past the tensor-core kernels'
@@ -2170,13 +2598,31 @@ def fold_card_vs_cpu(seed: int = 2, devices=("cuda", "cpu")) -> None:
           f"confidences within {conf_err:.3e}")
 
 
+def dp_cards_main() -> int:
+    """``--dp-cards``: only the data-parallel check across every card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from dynamicpdb_tpu_torch.ops import _build
+
+    card = card_line()
+    print(card)
+    _build.build(sorted(os.path.basename(p)[:-3] for p in
+                        glob.glob(os.path.join(_build.CSRC_DIR, "*.cu"))))
+    t0 = time.perf_counter()
+    dp_cards_phase(torch, card)
+    print(f"dp: {torch.cuda.device_count()} cards in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    return 0
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     t_start = time.perf_counter()
-    if not os.path.isdir(os.path.join(ROOT, "dynamicpdb_tpu_torch")):
-        print("chip_smoke: dynamicpdb_tpu_torch is not beside this script",
-              file=sys.stderr)
-        return 1
     import torch
 
     if not torch.cuda.is_available():
@@ -2326,6 +2772,11 @@ def main() -> int:
         print(f"eval: release width in {time.perf_counter() - t0:.2f} s "
               f"[{card}]")
 
+        # phase 8: data parallel, against phase 4's one process
+        t0 = time.perf_counter()
+        dp_phase(torch, release, train, tmp, card)
+        print(f"dp: phase in {time.perf_counter() - t0:.2f} s [{card}]")
+
     # phase 4b: the wide route in a model: one block's gradients on the card
     # against the CPU, then train_cli and serve_cli at release depth
     t0 = time.perf_counter()
@@ -2395,4 +2846,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if not os.path.isdir(os.path.join(ROOT, "dynamicpdb_tpu_torch")):
+        print("chip_smoke: dynamicpdb_tpu_torch is not beside this script",
+              file=sys.stderr)
+        sys.exit(1)
+    sys.exit(dp_cards_main() if sys.argv[1:] == ["--dp-cards"] else main())

@@ -176,9 +176,9 @@ def _coerce(value: str, current: Any, allows_str: bool = True) -> Any:
     if isinstance(current, tuple):
         if not value.strip("()[] "):
             return ()
-        return tuple(
+        return tuple(  # "(1,)" is a one-tuple
             _coerce(v.strip(), current[0] if current else "0")
-            for v in value.strip("()[]").split(",")
+            for v in value.strip("()[]").split(",") if v.strip()
         )
     return value
 

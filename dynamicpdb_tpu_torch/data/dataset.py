@@ -13,13 +13,16 @@ only; the manifest is read with ``csv``, not pandas):
     four sample modes (time_batch, length_batch, cluster_time_batch,
     cluster_length_batch), ``read_clusters``/``assign_clusters`` parse the
     cluster file;
-  * ``batch_iterator`` stacks ``[B, ...]`` numpy batches;
+  * ``batch_iterator`` stacks ``[B, ...]`` numpy batches (under host
+    striding, each host's rows of the one-host batches: see there);
   * ``eval_windows`` yields one deterministic window per protein;
   * ``StaticPdbDataset`` serves single structures (``.npz`` chains from
     ``preprocess/mmcif.process_mmcif_dir``, ``.cif``/``.cif.gz``, ``.pdb``)
     as windows of F identical frames.
 
-The same seeds give the same windows and indices as the JAX package. The
+The same seeds give the same windows and indices as the JAX package on one
+host (on several, the JAX package draws each host's windows from a
+generator of its own; here the hosts share one, see ``batch_iterator``). The
 single-bundle npz of ``data/synthetic.make_trajectory_npz`` is accepted as
 well as the reference layout (trajectory npz + force/vel pickles +
 embedding npz).
@@ -30,6 +33,7 @@ import csv
 import logging
 import os
 import pickle
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +79,16 @@ def pad_window(raw: dict, pad_to: int) -> dict:
     return out
 
 
+def npz_array_shape(path: str, key: str) -> tuple:
+    """The shape of array ``key`` in the npz at ``path``, read from the
+    array's header alone."""
+    with zipfile.ZipFile(path) as zf, zf.open(f"{key}.npy") as f:
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        return read(f)[0]
+
+
 class TrajectoryDataset:
     """Index-addressable set of proteins; ``get_window`` draws one window."""
 
@@ -84,6 +98,7 @@ class TrajectoryDataset:
         self.split = split
         self.pad_to = pad_to
         self._bundle_cache: dict[str, dict] = {}
+        self._n_frames: dict[str, int] = {}
         csv_path = {
             "train": cfg.csv_path,
             "val": cfg.val_csv_path or cfg.csv_path,
@@ -142,11 +157,29 @@ class TrajectoryDataset:
             cache[path] = cache.pop(path)  # mark most recently used
         return cache[path]
 
+    def n_frames(self, idx: int) -> int:
+        """The frame count of row ``idx``'s trajectory, kept per bundle: from
+        the bundle when it is loaded, else from the header of its
+        ``all_atom_positions`` array, without decompressing any array."""
+        path = self.rows[idx]["atlas_npz"]
+        if path not in self._n_frames:
+            if path in self._bundle_cache:
+                shape = self._bundle_cache[path]["all_atom_positions"].shape
+            else:
+                shape = npz_array_shape(path, "all_atom_positions")
+            self._n_frames[path] = int(shape[0])
+        return self._n_frames[path]
+
+    def select_window(self, idx: int, rng: np.random.Generator) -> slice:
+        """The frames ``get_window(idx, rng)`` takes, drawn as it draws
+        them; loads no bundle."""
+        return self._select_window(self.n_frames(idx), rng)
+
     def get_window(self, idx: int, rng: np.random.Generator) -> dict:
         row = self.rows[idx]
         bundle = self._load_bundle(row["atlas_npz"])
         positions = bundle["all_atom_positions"]
-        sel = self._select_window(positions.shape[0], rng)
+        sel = self.select_window(idx, rng)
 
         if "force" in bundle:
             force, vel = bundle["force"], bundle["vel"]
@@ -263,6 +296,12 @@ class EpochSampler:
         return self.batch_size // self.num_hosts
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
+        """This host's rows of ``global_indices``: every num_hosts-th."""
+        return self.global_indices(epoch)[self.host_index :: self.num_hosts]
+
+    def global_indices(self, epoch: int) -> np.ndarray:
+        """Every host's rows of the epoch in order, padded to a multiple of
+        num_hosts; global batch i is rows [i B, (i + 1) B)."""
         rng = np.random.default_rng(self.seed + epoch)
         if self.sample_mode.startswith("cluster"):
             clusters = np.asarray(self.clusters)[: self.n_items]
@@ -287,7 +326,7 @@ class EpochSampler:
         total = int(np.ceil(len(idx) / self.num_hosts)) * self.num_hosts
         if total > len(idx):
             idx = np.concatenate([idx, idx[: total - len(idx)]])
-        return idx[self.host_index :: self.num_hosts]
+        return idx
 
 
 def make_sampler(dataset: TrajectoryDataset, cfg: DataConfig, *,
@@ -316,14 +355,24 @@ def make_sampler(dataset: TrajectoryDataset, cfg: DataConfig, *,
 
 def batch_iterator(dataset: TrajectoryDataset, sampler: EpochSampler,
                    epoch: int, *, drop_names: bool = True):
-    """Yield stacked [B, ...] numpy batches for one epoch."""
-    idx = sampler.epoch_indices(epoch)
-    rng = np.random.default_rng(
-        np.random.SeedSequence([sampler.seed, epoch, sampler.host_index])
-    )
-    B = sampler.local_batch_size
+    """Yield stacked [local B, ...] numpy batches for one epoch: host h of
+    H takes rows h, h + H, ... of each global batch (``epoch_indices``).
+    Every host walks every row with one window generator, seeded from
+    (seed, epoch), drawing the frames of the rows it does not take
+    (``select_window``, which reads a bundle's frame count, not its
+    arrays), so the hosts' batches together are the one-host batches at the
+    same global batch size, window for window, and a host loads only the
+    bundles of its own rows."""
+    idx = sampler.global_indices(epoch)
+    rng = np.random.default_rng(np.random.SeedSequence([sampler.seed, epoch, 0]))
+    B, H, h = sampler.batch_size, sampler.num_hosts, sampler.host_index
     for i in range(0, len(idx) - B + 1, B):
-        windows = [dataset.get_window(int(j), rng) for j in idx[i : i + B]]
+        windows = []
+        for k, j in enumerate(idx[i : i + B]):
+            if k % H == h:
+                windows.append(dataset.get_window(int(j), rng))
+            else:
+                dataset.select_window(int(j), rng)
         if drop_names:
             for w in windows:
                 w.pop("name", None)

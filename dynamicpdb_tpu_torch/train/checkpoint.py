@@ -1,9 +1,11 @@
 """Checkpoint save and restore.
 
-Port of ``dynamicpdb_tpu/train/checkpoint.py`` for one process: one
-``torch.save`` file holding the model state dict, the optimizer state, the
-step, the epoch, the config as a dict and the noise generator's state, all
-restored on resume. The write is atomic (a temporary file, then a rename),
+Port of ``dynamicpdb_tpu/train/checkpoint.py``: one ``torch.save`` file
+holding the model state dict, the optimizer state, the step, the epoch,
+the config as a dict and the noise generator's state, all restored on
+resume. A data-parallel run gathers the whole parameters and moments on
+every rank and rank 0 writes them, so the file is the same whatever the
+mesh, and any mesh restores it. The write is atomic (a temporary file, then a rename),
 so a preempted job never leaves a truncated checkpoint. ``serve_cli
 --ckpt`` reads the model from such a file as well as from a bare state
 dict (``model_state_dict``).
@@ -15,11 +17,16 @@ import os
 import torch
 
 
-def save(path: str, model: torch.nn.Module, optimizer, step: int, epoch: int,
+def save(path: str, model, optimizer, step: int, epoch: int,
          config: dict | None = None, rng: torch.Tensor | None = None):
+    """``model`` and ``optimizer``: the objects or their state dicts (a
+    data-parallel run gathers them on every rank, and rank 0 writes)."""
+    if isinstance(optimizer, torch.optim.Optimizer):
+        optimizer = optimizer.state_dict()
     payload = {
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict() if optimizer is not None else None,
+        "model": (model.state_dict() if isinstance(model, torch.nn.Module)
+                  else model),
+        "optimizer": optimizer,
         "step": int(step),
         "epoch": int(epoch),
         "config": config,

@@ -17,7 +17,12 @@ runs the same sequence in the same order:
   * with ``ema_decay`` the state also holds an EMA of the parameters,
     ``ema = decay * ema + (1 - decay) * new_params``, starting at the
     initial parameters; ``ema_state_dict`` gives the model's state dict
-    with those EMA weights.
+    with those EMA weights;
+  * with a ``layout`` (``parallel/sharding.ParamLayout``) each rank updates
+    only its region of each parameter and keeps the state of that region
+    (ZeRO-1, 'model'); ``state_dict`` gathers the moments to the whole
+    parameters' shapes (a collective) and ``load_state_dict`` takes this
+    rank's regions of whole moments, so a checkpoint moves between meshes.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ class AMSGrad(torch.optim.Optimizer):
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  state_dtype: torch.dtype | None = None,
                  formulation: str = "optax", clip_norm: float | None = None,
-                 ema_decay: float | None = None):
+                 ema_decay: float | None = None, layout=None):
         if formulation not in ("optax", "torch"):
             raise ValueError(f"unknown amsgrad formulation: {formulation}")
         if ema_decay is not None and not 0.0 <= ema_decay < 1.0:
@@ -44,21 +49,34 @@ class AMSGrad(torch.optim.Optimizer):
         self.formulation = formulation
         self.clip_norm = clip_norm
         self.ema_decay = ema_decay
+        self.layout = layout
         if ema_decay is not None:
             for p in self._params():
-                self.state[p]["ema"] = p.detach().float().clone()
+                self.state[p]["ema"] = self._region(p, p.detach()).float(
+                ).clone()
 
     def _params(self):
         return [p for g in self.param_groups for p in g["params"]]
 
+    def _region(self, p, t):
+        """The part of ``t`` (shaped like ``p``) this rank updates."""
+        return t if self.layout is None else self.layout.region(p, t)
+
+    def state_dict(self):
+        sd = super().state_dict()
+        return sd if self.layout is None else self.layout.full_state(sd)
+
     def load_state_dict(self, state_dict):
+        if self.layout is not None:
+            state_dict = self.layout.local_state(state_dict)
         # torch casts loaded state to each parameter's dtype; put the
         # moments back in the state dtype (bf16 -> f32 -> bf16 is exact)
         super().load_state_dict(state_dict)
         for p in self._params():
+            st = self.state.get(p, {})  # no empty entry for a stateless p
             for k in ("mu", "nu", "nu_max"):
-                if k in self.state[p] and self.state_dtype is not None:
-                    self.state[p][k] = self.state[p][k].to(self.state_dtype)
+                if k in st and self.state_dtype is not None:
+                    st[k] = st[k].to(self.state_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -89,9 +107,10 @@ class AMSGrad(torch.optim.Optimizer):
         dt = self.state_dtype
         for p, g in zip(params, grads):
             st = self.state[p]
+            g, target = self._region(p, g), self._region(p, p)
             if "mu" not in st:
                 for k in ("mu", "nu", "nu_max"):
-                    st[k] = torch.zeros_like(p, dtype=dt or p.dtype)
+                    st[k] = torch.zeros_like(target, dtype=dt or p.dtype)
             mu = b1 * st["mu"].float() + (1.0 - b1) * g
             nu = b2 * st["nu"].float() + (1.0 - b2) * (g * g)
             if self.formulation == "optax":
@@ -104,11 +123,11 @@ class AMSGrad(torch.optim.Optimizer):
             st["mu"] = mu.to(st["mu"].dtype)
             st["nu"] = nu.to(st["nu"].dtype)
             st["nu_max"] = nu_max.to(st["nu_max"].dtype)
-            new = p.float() + update
+            new = target.float() + update
             if self.ema_decay is not None:
                 d = self.ema_decay
                 st["ema"] = d * st["ema"] + (1.0 - d) * new
-            p.copy_(new)
+            target.copy_(new)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -154,10 +173,10 @@ def make_lr_schedule(experiment_cfg):
     return lambda count: linear(count, 0.0, lr, warmup)
 
 
-def make_optimizer(params, experiment_cfg) -> AMSGrad:
+def make_optimizer(params, experiment_cfg, layout=None) -> AMSGrad:
     """The training optimizer from ExperimentConfig: AMSGrad as in the
     reference, optional global-norm clipping, low-precision state and
-    parameter EMA."""
+    parameter EMA; ``layout``: the regions each rank updates."""
     state_dtype = None
     name = getattr(experiment_cfg, "opt_state_dtype", None)
     if name:
@@ -169,6 +188,7 @@ def make_optimizer(params, experiment_cfg) -> AMSGrad:
         formulation=getattr(experiment_cfg, "amsgrad_formulation", "optax"),
         clip_norm=experiment_cfg.grad_clip_norm or None,
         ema_decay=getattr(experiment_cfg, "ema_decay", None),
+        layout=layout,
     )
 
 

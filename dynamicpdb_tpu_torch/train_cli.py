@@ -1,17 +1,32 @@
 """Training CLI.
 
-Port of ``dynamicpdb_tpu/train_cli.py`` for one device:
+Port of ``dynamicpdb_tpu/train_cli.py``, on one device or data-parallel
+under a launcher, one process a device:
 
     python -m dynamicpdb_tpu_torch.train_cli [--config cfg.yaml] \\
         [--pad-to 256] [--max-steps N] [--resume] [--device cuda] \\
-        data.csv_path=train.csv experiment.ckpt_dir=ckpt ...
+        [--backend nccl|gloo] data.csv_path=train.csv \\
+        experiment.ckpt_dir=ckpt ...
+    torchrun --nproc_per_node 8 -m dynamicpdb_tpu_torch.train_cli ...
 
 Reads the manifest (``data/dataset.py``), trains with ``Experiment`` and
 writes ``<experiment.ckpt_dir>/step_<n>.ckpt`` at the end; metrics go to
 ``<experiment.eval_dir>/logs/metrics.jsonl``. ``--resume`` continues from
 the newest ``step_*.ckpt`` in ``experiment.ckpt_dir`` (model, optimizer,
 step, epoch and noise generator); ``experiment.warm_start`` loads a given
-checkpoint. ``experiment.batch_size`` is the batch of the one device.
+checkpoint. Under a launcher (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
+set) it joins ``torch.distributed`` (NCCL on cards, one rank a card; gloo
+on the CPU or with ``--backend gloo``), ``--device cuda`` means
+``cuda:{LOCAL_RANK}``, and the mesh is ``experiment.mesh_shape`` over
+``experiment.mesh_axes`` ('slice', 'data', 'model'), else ('slice',
+'data') across several nodes, else 'data' over every rank.
+``experiment.batch_size`` is the batch of one rank: the global batch is
+that times the product of the data-like axes, and each rank trains on its
+rows of it; ``experiment.zero_opt_state`` shards the AMSGrad moments over
+'data' (ZeRO-1). A 'seq' axis (sequence parallelism) is not ported and
+raises, as does a mesh that does not cover the world. Rank 0 writes the
+metrics and checkpoints (any mesh's checkpoint resumes on any other) and
+runs ``--eval-every``; the other ranks wait for it.
 ``--eval-every N`` evaluates the model on the ``val`` split
 (``sampling/evaluate.py``) after every N-th completed epoch, logs
 ``eval/ave_rot``, ``eval/ave_trans``, ``eval/all_atom_mae`` and
@@ -41,6 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="resume from the newest checkpoint in "
                              "experiment.ckpt_dir")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="torch.distributed backend under a launcher "
+                             "(default: nccl on cuda, gloo on the cpu)")
     parser.add_argument("overrides", nargs="*", help="a.b=c config overrides")
     return parser.parse_args(argv)
 
@@ -84,14 +102,10 @@ def main(argv=None):
     )
     log = logging.getLogger("train")
 
+    import torch.distributed as dist
+
     from dynamicpdb_tpu_torch.config import Config, apply_overrides, load_yaml
-    from dynamicpdb_tpu_torch.data.dataset import (
-        TrajectoryDataset,
-        batch_iterator,
-        make_sampler,
-    )
-    from dynamicpdb_tpu_torch.train.experiment import Experiment
-    from dynamicpdb_tpu_torch.utils.logging import MetricsWriter
+    from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
     from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
     cfg = (
@@ -99,25 +113,66 @@ def main(argv=None):
         if args.config
         else apply_overrides(Config(), args.overrides)
     )
-    device = resolve_device(args.device)
+    backend = args.backend or mesh_lib.default_backend(args.device)
+    device = resolve_device(args.device, backend=backend)
+    owns_group = not dist.is_initialized()
+    mesh_lib.maybe_initialize_distributed(backend, device)
+    try:
+        exp = _train(args, cfg, device, log)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+    return exp
+
+
+def make_run_mesh(cfg):
+    """The mesh of this run (None for one process without one):
+    ``experiment.mesh_shape`` over ``mesh_axes`` when given, else across a
+    launcher's ranks ('slice', 'data') over several nodes or 'data'."""
+    from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
+
+    ec = cfg.experiment
+    if ec.mesh_shape:
+        return mesh_lib.make_mesh(tuple(ec.mesh_shape), tuple(ec.mesh_axes))
+    if mesh_lib.world()[1] > 1:
+        return (mesh_lib.make_hybrid_mesh()
+                if mesh_lib.detect_num_slices() > 1 else mesh_lib.make_mesh())
+    return None
+
+
+def _train(args, cfg, device, log):
+    from dynamicpdb_tpu_torch.data.dataset import (
+        TrajectoryDataset,
+        batch_iterator,
+        make_sampler,
+    )
+    from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
+    from dynamicpdb_tpu_torch.train.experiment import Experiment
+    from dynamicpdb_tpu_torch.utils.logging import MetricsWriter
+
+    mesh = make_run_mesh(cfg)
+    n_data, data_index = mesh_lib.data_size(mesh), mesh_lib.data_index(mesh)
+    main_rank = mesh_lib.is_main_process()
     pad_to = args.pad_to or cfg.data.filtering.max_len
     dataset = TrajectoryDataset(cfg.data, split="train", pad_to=pad_to)
-    sampler = make_sampler(dataset, cfg.data,
-                           batch_size=cfg.experiment.batch_size,
-                           seed=cfg.experiment.seed)
-    log.info("device=%s batch=%d pad_to=%d", device,
-             cfg.experiment.batch_size, pad_to)
+    global_batch = cfg.experiment.batch_size * n_data
+    sampler = make_sampler(dataset, cfg.data, batch_size=global_batch,
+                           seed=cfg.experiment.seed, num_hosts=n_data,
+                           host_index=data_index)
+    log.info("device=%s mesh=%s global_batch=%d (%d a rank) pad_to=%d",
+             device, mesh, global_batch, cfg.experiment.batch_size, pad_to)
 
-    eval_fn = None
+    eval_fn = None  # called on rank 0; every rank takes part in run_eval
     if args.eval_every:
         eval_fn = make_eval_fn(
             cfg, TrajectoryDataset(cfg.data, split="val", pad_to=pad_to),
             device)
 
-    writer = MetricsWriter(os.path.join(cfg.experiment.eval_dir, "logs"))
+    writer = (MetricsWriter(os.path.join(cfg.experiment.eval_dir, "logs"))
+              if main_rank else None)
     exp = Experiment(cfg, lambda epoch: batch_iterator(dataset, sampler, epoch),
-                     device=device, metrics_writer=writer, eval_fn=eval_fn,
-                     eval_every=args.eval_every)
+                     device=device, mesh=mesh, metrics_writer=writer,
+                     eval_fn=eval_fn, eval_every=args.eval_every)
     if cfg.experiment.warm_start:
         exp.load_checkpoint(cfg.experiment.warm_start)
         log.info("warm start from %s at step %d", cfg.experiment.warm_start,
@@ -132,7 +187,8 @@ def main(argv=None):
         exp.train(max_steps=args.max_steps)
         exp.save_checkpoint()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return exp
 
 

@@ -131,6 +131,23 @@ def test_fold_sampling_and_data_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+def test_parallel_modules_load_without_jax():
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.parallel.mesh\n"
+        "import dynamicpdb_tpu_torch.parallel.sharding\n"
+        "import dynamicpdb_tpu_torch.train_cli\n"
+        "import dynamicpdb_tpu_torch.train.experiment\n"
+        "import dynamicpdb_tpu_torch.tools.dp_step\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib',)!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 @pytest.mark.parametrize("name", ["tables.npz", "omegafold_tables.npz"])
 def test_chem_tables_copy_is_byte_identical(name):
     a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", name), "rb")
