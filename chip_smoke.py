@@ -21,7 +21,10 @@ Phases, each printing its own lines:
      4 heads; "wide-dz": Dz 64; "wide-model": phase 4b's widths and
      window, C 384, Pq 12, Dz 64, N 256), which must run the wide route's
      CUDA-core kernels (their launch counters move, the tensor-core ones do
-     not);
+     not); then the rectangular calls of sequence parallelism on each
+     route: rows 128-255 (the 56 pad rows among them) of the release and
+     wide-model windows against all 256 keys, every kernel against its
+     plain version, timed;
   3. serve: the release-width model with seeded random weights is saved,
      loaded by serve_cli and driven over HTTP (healthz + 4 rollouts), with
      the kernel launch counts of that run checked against the model's
@@ -90,6 +93,21 @@ Phases, each printing its own lines:
      4 and within the bounds of 8a; each rank's step and all-reduce
      seconds, peak memory and the memory its parameters and optimizer
      state hold between steps printed.
+  9. sequence parallelism (two gloo ranks sharing cuda:0 on a ('data',
+     'seq') = (1, 2) mesh: each window's residues split over them): 9a,
+     train_cli at phase 4's config, batch, manifest and steps in float32
+     compute and moments, against one process's float32 steps: losses,
+     moments and the update over the elements whose gradient one process
+     resolves within phase 8's bounds, and a planted fault that must read
+     past the update's bound; 9b, tools/sp_run.py's rollout of phase 3c's
+     first window (256 residues, 2 frames, full sampler and fast_x0, the
+     same weights and generator seed) against one process's, in float32
+     and in bfloat16, each rank's IPA launches; 9c, one train step of a
+     1024-residue window at release widths (B 1, remat, bfloat16) through
+     tools/dp_step.py, one process and then two 'seq' ranks with their
+     collectives timed: the loss within bfloat16's precision of one
+     process's, each rank's peak memory printed beside (and below) the
+     one process's, each rank's IPA launches.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
@@ -100,8 +118,10 @@ The line before the last is the kernel report (launches: the tensor-core
 IPA kernels' from the release training run, the wide ones' from the wide
 training run, the GeoFormer kernels' from the extraction run; the IPA
 forward's report adds those of serving, batched rollout, Picard and eval,
-the GeoFormer kernels' those of fold_cli; errors and times at the same
-shapes),
+the GeoFormer kernels' those of fold_cli, the tensor-core IPA kernels'
+a 'seq' rank's in 9c's step and the forward's in 9b's rollout; errors
+and times at the same shapes; each IPA kernel's "rectangular" entry its
+rectangular call's errors, times and bounds),
 the last line {"ok": true, "device": {...}}. Any failed check exits
 nonzero; with no CUDA device, or without the package beside it, the script
 exits 1 and prints no result.
@@ -224,25 +244,30 @@ def ipa_inputs(torch, device, *, F=2, N=256, H=8, C=256, Pq=8, Pv=12, Dz=32,
     return args, math.sqrt(1.0 / (3 * C))
 
 
-def ipa_cost(F, N, H, C, Pq, Pv, Dz):
+def ipa_cost(F, N, H, C, Pq, Pv, Dz, Nk=None):
     """(operations, bytes, elementwise operations) the forward must do and
-    move: the five contractions (2 per multiply-add) plus ~12 elementwise
-    operations per logit; each input read once, each output written once,
-    float32."""
-    ops = F * H * N * N * (2 * C + 2 * 3 * Pq + 2 * C + 2 * 3 * Pv + 2 * Dz + 12)
-    n_in = 3 * F * N * H * C + 2 * F * N * H * Pq * 3 + F * N * H * Pv * 3 \
-        + N * N * H + N * N * Dz + F * N + H
+    move at N query rows against Nk keys (Nk = N: the square call): the
+    five contractions (2 per multiply-add) plus ~12 elementwise operations
+    per logit; each input read once, each output written once, float32."""
+    Nk = N if Nk is None else Nk
+    ops = F * H * N * Nk * (2 * C + 2 * 3 * Pq + 2 * C + 2 * 3 * Pv + 2 * Dz
+                            + 12)
+    n_in = F * N * H * C + 2 * F * Nk * H * C + F * N * H * Pq * 3 \
+        + F * Nk * H * Pq * 3 + F * Nk * H * Pv * 3 + N * Nk * H \
+        + N * Nk * Dz + F * N + (F * Nk if Nk != N else 0) + H
     n_out = F * N * H * C + F * N * H * Pv * 3 + F * N * H * Dz + F * H * N
-    return ops, 4 * (n_in + n_out), F * H * N * N * 12
+    return ops, 4 * (n_in + n_out), F * H * N * Nk * 12
 
 
-def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz):
+def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz, Nk=None):
     """{kernel: (operations, bytes, elementwise operations)} of the three
-    backward kernels: each recomputes the tile (the forward's logit terms,
-    ~12 elementwise operations, then ds = g_o.v + g_opt.vp + g_pair.pz and
-    dl, 2 per multiply-add, and 2 elementwise) and adds its own sums and
-    elementwise steps; each reads the 15 backward inputs once and writes its
-    outputs once, float32."""
+    backward kernels at N query rows against Nk keys (Nk = N: the square
+    call): each recomputes the tile (the forward's logit terms, ~12
+    elementwise operations, then ds = g_o.v + g_opt.vp + g_pair.pz and dl,
+    2 per multiply-add, and 2 elementwise) and adds its own sums and
+    elementwise steps; each reads the 15 backward inputs (and a key mask)
+    once and writes its outputs once, float32."""
+    Nk = N if Nk is None else Nk
     P3q, P3v = 3 * Pq, 3 * Pv
     recompute = (2 * C + 2 * P3q + 12) + (2 * C + 2 * P3v + 2 * Dz) + 2
     per_elem = {
@@ -251,18 +276,20 @@ def ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz):
         + 2 * P3v,
         "ipa_attention_bwd_pair": recompute + 2 * Dz + 1,
     }
-    n_in = 4 * F * N * H * C + 2 * F * N * H * P3q + 2 * F * N * H * P3v \
-        + N * N * H + N * N * Dz + F * N + H + 2 * F * H * N + F * N * H * Dz
+    n_in = 2 * F * N * H * C + 2 * F * Nk * H * C + F * N * H * P3q \
+        + F * Nk * H * P3q + F * Nk * H * P3v + F * N * H * P3v \
+        + N * Nk * H + N * Nk * Dz + F * N + (F * Nk if Nk != N else 0) + H \
+        + 2 * F * H * N + F * N * H * Dz
     n_out = {
         "ipa_attention_bwd_dq": F * N * H * C + F * N * H * P3q + F * H * N,
-        "ipa_attention_bwd_dkv": 2 * F * N * H * C + F * N * H * P3q
-        + F * N * H * P3v,
-        "ipa_attention_bwd_pair": N * N * H + N * N * Dz,
+        "ipa_attention_bwd_dkv": 2 * F * Nk * H * C + F * Nk * H * P3q
+        + F * Nk * H * P3v,
+        "ipa_attention_bwd_pair": N * Nk * H + N * Nk * Dz,
     }
     ew = {"ipa_attention_bwd_dq": 14 + 4, "ipa_attention_bwd_dkv": 14 + 1,
           "ipa_attention_bwd_pair": 14 + 1}
-    return {k: (F * H * N * N * per_elem[k], 4 * (n_in + n_out[k]),
-                F * H * N * N * ew[k]) for k in per_elem}
+    return {k: (F * H * N * Nk * per_elem[k], 4 * (n_in + n_out[k]),
+                F * H * N * Nk * ew[k]) for k in per_elem}
 
 
 BWD_GRADS = ("dq", "dk", "dv", "dqp", "dkp", "dvp", "dbias", "dpz", "dhw")
@@ -280,13 +307,16 @@ BWD_RTOL = 2e-4
 BWD_PAD_RTOL = 2 * 2.0 ** -7
 
 
-def ipa_bwd_inputs(torch, args, c_qk, *, zero_pad: bool, seed: int):
+def ipa_bwd_inputs(torch, args, c_qk, *, zero_pad: bool, seed: int,
+                   key_mask=None):
     """Forward (the kernel on the card), seeded random cotangents for o,
     o_pt and o_pair (zeroed on pad query rows when ``zero_pad``), and the
-    15 inputs of the backward kernels."""
+    15 inputs of the backward kernels. ``key_mask``: a rectangular call's
+    (None: square)."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
-    out = ipa_mod.ipa_attention_fwd(*args, c_qk)
+    kw = {} if key_mask is None else dict(key_mask=key_mask)
+    out = ipa_mod.ipa_attention_fwd(*args, c_qk, **kw)
     g = torch.Generator(device=args[0].device).manual_seed(seed)
     mask = args[8]
     cots = []
@@ -298,12 +328,14 @@ def ipa_bwd_inputs(torch, args, c_qk, *, zero_pad: bool, seed: int):
     return ipa_mod.backward_inputs(tuple(args) + tuple(out), *cots), cots
 
 
-def ipa_bwd_grads(torch, inputs, c_qk, plain: bool) -> dict:
+def ipa_bwd_grads(torch, inputs, c_qk, plain: bool, key_mask=None) -> dict:
     """The nine gradients from the three backward kernels (or their plain
     versions), dhw reduced over frames and rows as the Function does."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    if key_mask is not None:
+        kw["key_mask"] = key_mask
     if plain:
         fns = (ipa_mod.ipa_bwd_dq_plain, ipa_mod.ipa_bwd_dkv_plain,
                ipa_mod.ipa_bwd_pair_plain)
@@ -317,13 +349,15 @@ def ipa_bwd_grads(torch, inputs, c_qk, plain: bool) -> dict:
                 dpz=dpz, dhw=torch.sum(dhw_rows, dim=(0, 2)))
 
 
-def ipa_bwd_pad_scale(torch, inputs, c_qk) -> dict:
+def ipa_bwd_pad_scale(torch, inputs, c_qk, key_mask=None) -> dict:
     """Per gradient, the largest sum of the absolute values of its pad-row
     terms: the plain backward's sums with every operand taken absolute and
     a, dl restricted to pad query rows."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    if key_mask is not None:
+        kw["key_mask"] = key_mask
     a, dl, dist = ipa_mod._recompute(*inputs, **kw)
     q, k, _, qp, kp, _, _, _, mask, hw, _, _, g_o, g_opt, g_pair = \
         [t.abs() for t in inputs]
@@ -360,29 +394,36 @@ def ipa_bwd_errors(got: dict, want: dict, pad_scale: dict | None) -> dict:
     return out
 
 
-# launcher -> its output shapes from (F, N, H, C, P3q, P3v, Dz), as the
-# wrappers allocate them; kept here so that ipa_kernel_ms also times
+# launcher -> its output shapes from (F, Nq, Nk, H, C, P3q, P3v, Dz), as
+# the wrappers allocate them; kept here so that ipa_kernel_ms also times
 # another checkout's package (tools/bench_ipa.py --package)
 IPA_BWD_OUT_SHAPES = {
-    "ipa_attention_bwd_dq": lambda F, N, H, C, P3q, P3v, Dz: (
-        (F, N, H, C), (F, N, H, P3q), (F, H, N)),
-    "ipa_attention_bwd_dkv": lambda F, N, H, C, P3q, P3v, Dz: (
-        (F, N, H, C), (F, N, H, P3q), (F, N, H, C), (F, N, H, P3v)),
-    "ipa_attention_bwd_pair": lambda F, N, H, C, P3q, P3v, Dz: (
-        (N, N, H), (N, N, Dz)),
+    "ipa_attention_bwd_dq": lambda F, Nq, Nk, H, C, P3q, P3v, Dz: (
+        (F, Nq, H, C), (F, Nq, H, P3q), (F, H, Nq)),
+    "ipa_attention_bwd_dkv": lambda F, Nq, Nk, H, C, P3q, P3v, Dz: (
+        (F, Nk, H, C), (F, Nk, H, P3q), (F, Nk, H, C), (F, Nk, H, P3v)),
+    "ipa_attention_bwd_pair": lambda F, Nq, Nk, H, C, P3q, P3v, Dz: (
+        (Nq, Nk, H), (Nq, Nk, Dz)),
 }
 
 
 def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
-                  reps: int) -> float:
+                  reps: int, key_mask=None) -> float:
     """The time of IPA kernel ``kind`` (``ipa_attention_fwd`` or
     ``ipa_attention_wide_fwd`` on the forward's 10 inputs, or a backward
     launcher of either library on the 15 backward inputs) alone: outputs
     allocated once, then ``reps`` launches straight through the library of
-    ``mod`` (no checks, no counter moves)."""
+    ``mod`` (no checks, no counter moves). A package whose launchers take
+    a key mask and Nk (``input_shapes`` marks it) gets the query mask twice
+    in the square call; ``key_mask`` makes the call rectangular (keys
+    ``operands[1].shape[1]``), which an older package cannot take."""
     q = operands[0]
     F, N, H, C = q.shape
+    Nk = operands[1].shape[1]
     Dz = operands[7].shape[-1]
+    rect = hasattr(mod, "input_shapes")
+    check(rect or (key_mask is None and Nk == N), f"{kind}: this package's "
+          "launchers take square calls only")
     base = kind.replace("_wide", "")
     if base == "ipa_attention_fwd":
         Pq, Pv = operands[3].shape[-2], operands[5].shape[-2]
@@ -390,14 +431,19 @@ def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
         lib = mod._lib(kind)
     else:
         Pq, Pv = operands[3].shape[-1] // 3, operands[5].shape[-1] // 3
-        shapes = IPA_BWD_OUT_SHAPES[base](F, N, H, C, 3 * Pq, 3 * Pv, Dz)
+        shapes = IPA_BWD_OUT_SHAPES[base](F, N, Nk, H, C, 3 * Pq, 3 * Pv, Dz)
         lib = mod._lib(kind[:kind.rindex("_")])
     outs = [torch.empty(s, dtype=torch.float32, device=q.device)
             for s in shapes]
-    ptrs = [t.data_ptr() for t in tuple(operands) + tuple(outs)]
+    operands = tuple(operands)
+    if rect:  # the key mask after the query mask
+        km = operands[8] if key_mask is None else key_mask
+        operands = operands[:9] + (km,) + operands[9:]
+    ptrs = [t.data_ptr() for t in operands + tuple(outs)]
     fn = getattr(lib, kind)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (*ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, math.sqrt(1.0 / 3), 1e5,
+    sizes = (F, N, Nk) if rect else (F, N)
+    args = (*ptrs, *sizes, H, C, Pq, Pv, Dz, c_qk, math.sqrt(1.0 / 3), 1e5,
             q.device.index or 0, stream)
     check(fn(*args) == 0, f"{kind}: launch refused")
     return time_ms(torch, lambda: fn(*args), reps)
@@ -709,6 +755,134 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
             if label in REPORTED_CASES:
                 out.append(rep)
     return out
+
+
+# The rectangular calls of sequence parallelism (phase 9): one rank's block
+# of query rows against every key. At the release window (N = 256, 56 pad
+# rows) two 'seq' ranks give rows 128-255, whose block holds the 56 pad
+# rows, against all 256 keys; at the release widths (tensor-core route) and
+# at "wide-model" (the wide route). Every kernel against its plain version
+# at the square calls' tolerances, then timed.
+RECT_ROWS = (128, 256)
+RECT_CASES = (("release", dict(N=256, masked=56)),
+              ("wide-model", WIDE_MODEL_CASE))
+
+
+def rect_block(args, rows):
+    """The query side of the forward's inputs cut to ``rows`` (q, q_pts,
+    bias and pair_z rows, the query mask), the keys whole; and the key
+    mask."""
+    q0, q1 = rows
+    q, k, v, qp, kp, vp, bias, pz, mask, hw = args
+    block = (q[:, q0:q1].contiguous(), k, v, qp[:, q0:q1].contiguous(), kp,
+             vp, bias[q0:q1].contiguous(), pz[q0:q1].contiguous(),
+             mask[:, q0:q1].contiguous(), hw)
+    return block, mask
+
+
+def rect_kernel_phase(torch, device, card: str, reports: dict):
+    """The four IPA kernels on rows ``RECT_ROWS`` of each ``RECT_CASES``
+    window against their plain versions (the backward with cotangents zero
+    on pad rows and everywhere), each timed through its wrapper, alone and
+    plain; each result goes into ``reports[kernel name]["rectangular"]``
+    (the tensor-core kernels' reports at "release", the wide ones' at
+    "wide-model")."""
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    kw = dict(c_b=math.sqrt(1.0 / 3), inf=1e5)
+    for label, shape in RECT_CASES:
+        full, c_qk = ipa_inputs(torch, device, seed=30 + len(label), **shape)
+        args, key_mask = rect_block(full, RECT_ROWS)
+        route = ipa_route(ipa_mod, shape)
+        prefix = "ipa_attention_" if route == "tc" else "ipa_attention_wide_"
+        F, Nq, H, C = args[0].shape
+        Nk = args[1].shape[1]
+        Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
+        case = (f"{label} rows {RECT_ROWS[0]}-{RECT_ROWS[1] - 1}: F={F} "
+                f"Nq={Nq} Nk={Nk} H={H} C={C} Pq={Pq} Pv={Pv} Dz={Dz}")
+        # the forward
+        before = ipa_counts(ipa_mod)
+        got = ipa_mod.ipa_attention_fwd(*args, c_qk, key_mask=key_mask)
+        torch.cuda.synchronize()
+        check_launched(ipa_mod, before, ("ipa_attention_fwd",), route,
+                       f"rectangular {label}")
+        want = ipa_mod.ipa_attention_plain(*args, c_qk, key_mask=key_mask)
+        errs = ipa_errors(got, want, args)
+        for name in ("o", "o_pt", "o_pair"):
+            e = errs[name]
+            print(f"kernel {prefix}fwd rectangular {case}: {name} max_abs_err "
+                  f"real rows {e['real']:.3e} (tol {e['tol_real']:.0e}), pad "
+                  f"rows {e['pad']:.3e} (tol {e['tol_pad']:.3e})")
+            check(e["real"] <= e["tol_real"] and e["pad"] <= e["tol_pad"],
+                  f"{prefix}fwd rectangular {label} {name}: {e}")
+        check(errs["lse"]["ok"], f"{prefix}fwd rectangular {label}: lse "
+              f"{errs['lse']['max']}")
+        streams = [errs[n] for n in ("o", "o_pt", "o_pair")]
+        ops, nbytes, ew_ops = ipa_cost(F, Nq, H, C, Pq, Pv, Dz, Nk=Nk)
+        rect = {
+            "case": case,
+            "max_abs_err": max(max(e["real"], e["pad"]) for e in streams),
+            "ms": time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(
+                *args, c_qk, key_mask=key_mask), 50),
+            "ms_kernel": ipa_kernel_ms(torch, ipa_mod, f"{prefix}fwd", args,
+                                       c_qk, 50, key_mask=key_mask),
+            "plain_ms": time_ms(torch, lambda: ipa_mod.ipa_attention_plain(
+                *args, c_qk, key_mask=key_mask), 20),
+            **bounds(ops, ew_ops, nbytes),
+        }
+        reports[f"{prefix}fwd"]["rectangular"] = rect
+        print(f"kernel {prefix}fwd rectangular {case}: {rect['ms']:.4f} ms "
+              f"through the wrapper, {rect['ms_kernel']:.4f} ms alone, plain "
+              f"{rect['plain_ms']:.4f} ms, bound {rect['bound_ms']:.4f} ms, "
+              f"tensor-core bound {rect['tc_bound_ms']:.4f} ms [{card}]")
+        # the three backward kernels
+        errs_by = {}
+        for zero_pad in (True, False):
+            inputs, _ = ipa_bwd_inputs(torch, args, c_qk, zero_pad=zero_pad,
+                                       seed=5, key_mask=key_mask)
+            before = ipa_counts(ipa_mod)
+            got = ipa_bwd_grads(torch, inputs, c_qk, plain=False,
+                                key_mask=key_mask)
+            torch.cuda.synchronize()
+            check_launched(ipa_mod, before, BWD_KERNELS, route,
+                           f"rectangular {label}")
+            want = ipa_bwd_grads(torch, inputs, c_qk, plain=True,
+                                 key_mask=key_mask)
+            pad_scale = (None if zero_pad else ipa_bwd_pad_scale(
+                torch, inputs, c_qk, key_mask=key_mask))
+            cots = "pad cotangents 0" if zero_pad else "pad cotangents random"
+            for name, (err, tol) in ipa_bwd_errors(got, want,
+                                                   pad_scale).items():
+                print(f"kernel backward rectangular {case}, {cots}: {name} "
+                      f"max_abs_err {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"backward rectangular {label} {cots}: "
+                      f"{name} {err} > {tol}")
+                errs_by[(zero_pad, name)] = err
+        costs = ipa_bwd_cost(F, Nq, H, C, Pq, Pv, Dz, Nk=Nk)
+        for kname, (_, grads) in BWD_KERNELS.items():
+            name = kname.replace("ipa_attention_", prefix)
+            kernel = getattr(ipa_mod, kname)
+            plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
+                                                   "ipa_bwd") + "_plain")
+            kwk = dict(kw, c_qk=c_qk, key_mask=key_mask)
+            ops, nbytes, ew_ops = costs[kname]
+            rect = {
+                "case": case,
+                "max_abs_err": max(errs_by[(True, g)] for g in grads),
+                "max_abs_err_pad_cotangents": max(errs_by[(False, g)]
+                                                  for g in grads),
+                "ms": time_ms(torch, lambda: kernel(*inputs, **kwk), 50),
+                "ms_kernel": ipa_kernel_ms(torch, ipa_mod, name, inputs,
+                                           c_qk, 50, key_mask=key_mask),
+                "plain_ms": time_ms(torch, lambda: plain(*inputs, **kwk), 20),
+                **bounds(ops, ew_ops, nbytes),
+            }
+            reports[name]["rectangular"] = rect
+            print(f"kernel {name} rectangular {case}: {rect['ms']:.4f} ms "
+                  f"through the wrapper, {rect['ms_kernel']:.4f} ms alone, "
+                  f"plain {rect['plain_ms']:.4f} ms, bound "
+                  f"{rect['bound_ms']:.4f} ms, tensor-core bound "
+                  f"{rect['tc_bound_ms']:.4f} ms [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1347,12 @@ def batched_rollout_phase(device: str, overrides: list[str], *, lengths,
                        generator=gens[b])
         _sync(torch, device)
         looped += time.perf_counter() - t0
+        if b == 0:  # phase 9b's one-process frames
+            first = dict(atoms=a, rigids=r, rollout=dict(
+                init_feats={k: v[0].cpu() for k, v in batch.items()},
+                n_steps=n_steps, num_t=num_t, noise_scale=noise_scale,
+                seed=int(np.random.SeedSequence([seed, 0]).generate_state(
+                    1, np.uint64)[0])))
         for name, got, want in (("atom37", out[False]["atoms"][b], a),
                                 ("rigids", out[False]["rigids"][b], r),
                                 ("atom37 fast_x0", out[True]["atoms"][b], a)):
@@ -1188,7 +1368,10 @@ def batched_rollout_phase(device: str, overrides: list[str], *, lengths,
                 seconds=out[False]["seconds"],
                 seconds_fast_x0=out[True]["seconds"],
                 frames_per_s=B * n_steps / out[False]["seconds"],
-                frames_per_s_fast_x0=B * n_steps / out[True]["seconds"])
+                frames_per_s_fast_x0=B * n_steps / out[True]["seconds"],
+                first=first, state_dict={k: v.cpu() for k, v in
+                                         model.state_dict().items()},
+                blocks=cfg.model.ipa.num_blocks)
 
 
 def recording(fn, outputs: list):
@@ -1637,38 +1820,62 @@ DP_LOSS_RTOL = 1e-3
 DP_GAP_BOUNDS = {"update": 2e-2, "mu": 5e-3, "nu": 1e-3, "nu_max": 1e-3}
 
 
-def run_command(cmd: list[str], label: str, timeout: float = 900) -> str:
-    """``cmd`` from the repo root without any launcher variables of this
-    process, in a session of its own that is killed whole on a timeout;
-    fails unless it exits 0. Returns its output."""
+def run_commands(cmds: list[tuple[list[str], str]],
+                 timeout: float = 900) -> list[str]:
+    """Each (cmd, label) of ``cmds`` started at once from the repo root,
+    without any launcher variables of this process, each in a session of
+    its own; every one must exit 0 within ``timeout`` s. On a failure or a
+    timeout every one still running is killed whole. Returns their
+    outputs, in order."""
     env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
     env["PYTHONPATH"] = ROOT
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    deadline = time.monotonic() + timeout
+    procs = []
     try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, 9)
-        proc.communicate()
-        raise CheckFailed(f"{label}: no end within {timeout} s")
-    check(proc.returncode == 0, f"{label}: exit {proc.returncode}\n"
-          f"{out[-6000:]}")
-    return out
+        for cmd, label in cmds:
+            log = tempfile.TemporaryFile(mode="w+")
+            procs.append((subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True), label, log))
+        outs = []
+        for proc, label, log in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise CheckFailed(f"{label}: no end within {timeout} s")
+            log.seek(0)
+            out = log.read()
+            check(proc.returncode == 0, f"{label}: exit {proc.returncode}\n"
+                  f"{out[-6000:]}")
+            outs.append(out)
+        return outs
+    finally:
+        for proc, _, log in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            log.close()
+
+
+def run_command(cmd: list[str], label: str, timeout: float = 900) -> str:
+    """``run_commands`` of one command; returns its output."""
+    return run_commands([(cmd, label)], timeout)[0]
 
 
 def dp_run(torch, label: str, nproc: int, tmp: str, csv: str, config: str,
            overrides: list[str], steps: int, card: str, device: str,
            backend: str = "gloo") -> list[dict]:
     """tools/dp_step.py on ``nproc`` ranks (gloo ranks sharing cuda:0 on
-    one card), over the manifest's batches; prints each rank's step and all-reduce seconds, its
-    peak memory and the memory its parameters and optimizer state hold
-    between steps; returns every rank's result."""
+    one card), over the manifest's batches; prints each rank's step and
+    all-reduce seconds, its peak memory and the memory its parameters and
+    optimizer state hold between steps; returns every rank's result (the
+    whole state rank 0's alone, every rank's digest of it)."""
     out = os.path.join(tmp, label)
     cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "-m",
                       "dynamicpdb_tpu_torch.tools.dp_step", "--config", config,
                       "--device", device, "--backend", backend, "--steps",
-                      str(steps), "--csv", csv, "--out", out, *overrides]
+                      str(steps), "--csv", csv, "--out", out, "--rank0-state",
+                      *overrides]
     t0 = time.perf_counter()
     run_command(cmd, f"dp {label}")
     wall = time.perf_counter() - t0
@@ -1688,11 +1895,15 @@ def dp_run(torch, label: str, nproc: int, tmp: str, csv: str, config: str,
 
 def dp_train_cli(torch, label: str, nproc: int, tmp: str, csv: str,
                  config: str, overrides: list[str], steps: int, card: str,
-                 device: str, backend: str) -> dict:
+                 device: str, backend: str, data_ranks: int | None = None
+                 ) -> dict:
     """train_cli on ``nproc`` ranks under the launcher, with ``--backend``
     and ``--device`` given (gloo ranks sharing cuda:0 on one card), a
     metrics line a step; returns rank 0's checkpoint (params, optimizer
-    with the moments gathered whole, rng) and its metrics lines (aux)."""
+    with the moments gathered whole, rng) and its metrics lines (aux).
+    ``data_ranks``: how many ways the global batch splits (default every
+    rank; 1 for a ('data', 'seq') = (1, n) mesh)."""
+    data_ranks = nproc if data_ranks is None else data_ranks
     from dynamicpdb_tpu_torch.config import load_yaml
     from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
 
@@ -1707,8 +1918,8 @@ def dp_train_cli(torch, label: str, nproc: int, tmp: str, csv: str,
         f"experiment.eval_dir={run_dir}/eval", "experiment.log_freq=1"],
         f"dp {label} train_cli")
     wall = time.perf_counter() - t0
-    check(f"global_batch={local * nproc} ({local} a rank)" in out,
-          f"dp {label}: train_cli did not train on {nproc} data ranks")
+    check(f"global_batch={local * data_ranks} ({local} a rank)" in out,
+          f"dp {label}: train_cli did not train on {data_ranks} data ranks")
     saved = ckpt_lib.load(os.path.join(run_dir, "ckpt", f"step_{steps}.ckpt"))
     with open(os.path.join(run_dir, "eval", "logs", "metrics.jsonl")) as f:
         aux = [json.loads(line) for line in f]
@@ -1863,8 +2074,8 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
     a = dp_run(torch, "8a", 2, tmp, train["csv"], config, half, steps, card,
                rank_device)
     dp_launches_ok(a, load_yaml(config, half), steps, "8a", on_card)
-    check(max_param_diff(a[0]["params"], a[1]["params"]) == 0.0,
-          "dp 8a: the two ranks' parameters differ")
+    check(a[0]["digest"] == a[1]["digest"], "dp 8a: the two ranks' "
+          "parameters or moments differ")
     check(torch.equal(a[0]["rng"], a[1]["rng"]), "dp 8a: the ranks' noise "
           "generators left lock step")
     equal_to(torch, "8a dp_step against train_cli", a[0],
@@ -1887,24 +2098,23 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
     # 8c
     base = ["--config", config, "--max-steps", "2", "--device", device,
             *extra, f"data.csv_path={train['csv']}"]
-    ckpts = {}
-    for name, cmd, mesh_args in (
-            ("launcher", LAUNCHER + ["--nproc_per_node=1", "-m"],
-             ["experiment.mesh_shape=(1,)"]),
-            ("plain", [sys.executable, "-m"], [])):
-        run_dir = os.path.join(tmp, f"8c-{name}")
-        t0 = time.perf_counter()
-        out = run_command(cmd + ["dynamicpdb_tpu_torch.train_cli", *base,
-                                 f"experiment.ckpt_dir={run_dir}/ckpt",
-                                 f"experiment.eval_dir={run_dir}/eval",
-                                 *mesh_args], f"dp 8c {name}")
-        print(f"dp 8c: train_cli {name}, 2 steps, in "
-              f"{time.perf_counter() - t0:.2f} s [{card}]")
-        if name == "launcher":
-            check("mesh=Mesh({'data': 1}" in out, "dp 8c: train_cli under "
-                  "the launcher did not build the (1,) mesh")
-        ckpts[name] = ckpt_lib.load(os.path.join(run_dir, "ckpt",
-                                                 "step_2.ckpt"))
+    # the two runs side by side: only their checkpoints are compared
+    runs = {"launcher": (LAUNCHER + ["--nproc_per_node=1", "-m"],
+                         ["experiment.mesh_shape=(1,)"]),
+            "plain": ([sys.executable, "-m"], [])}
+    t0 = time.perf_counter()
+    outs = run_commands([(cmd + [
+        "dynamicpdb_tpu_torch.train_cli", *base,
+        f"experiment.ckpt_dir={tmp}/8c-{name}/ckpt",
+        f"experiment.eval_dir={tmp}/8c-{name}/eval", *mesh_args],
+        f"dp 8c {name}") for name, (cmd, mesh_args) in runs.items()])
+    print(f"dp 8c: train_cli under the launcher and without, 2 steps each, "
+          f"side by side in {time.perf_counter() - t0:.2f} s [{card}]")
+    check("mesh=Mesh({'data': 1}" in outs[0], "dp 8c: train_cli under the "
+          "launcher did not build the (1,) mesh")
+    ckpts = {name: ckpt_lib.load(os.path.join(tmp, f"8c-{name}", "ckpt",
+                                              "step_2.ckpt"))
+             for name in runs}
     got, ref = ckpts["launcher"], ckpts["plain"]
     for k, v in ref["model"].items():
         check(torch.equal(got["model"][k], v), f"dp 8c: {k} differs between "
@@ -1923,8 +2133,8 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
                         "experiment.mesh_axes=(data,model)"], steps, card,
                rank_device)
     dp_launches_ok(d, cfg, steps, "8d", on_card)
-    diff = max_param_diff(d[0]["params"], d[1]["params"])
-    check(diff == 0.0, f"dp 8d: the 'model' ranks' parameters differ by {diff}")
+    check(d[0]["digest"] == d[1]["digest"], "dp 8d: the 'model' ranks' "
+          "parameters or moments differ")
     # the 'model' ranks run one process's rows and sums: bit-equal to it
     equal_to(torch, "8d", d[0], want)
     check([x["total_loss"] for x in d[0]["aux"]]
@@ -2000,14 +2210,36 @@ def dp_cards_phase(torch, card: str, device: str = "cuda",
             dp_launches_ok(r, load_yaml(config, extra + ov), steps, label,
                            on_card)
             for other in r[1:]:
-                equal_to(torch, f"x{n} {label} rank {other['rank']}", other,
-                         dict(model=r[0]["params"],
-                              optimizer=r[0]["optimizer"]))
+                check(other["digest"] == r[0]["digest"], f"dp x{n} {label}:"
+                      f" rank {other['rank']}'s state differs from rank 0's")
             dp_against_one_process(torch, f"x{n} {label}", r[0], want, start)
         equal_to(torch, f"x{n} ZeRO off against on", res["no-zero"][0],
                  dict(model=res["zero"][0]["params"],
                       optimizer=res["zero"][0]["optimizer"]))
         print(f"dp x{n}: ZeRO off equals ZeRO on, bit for bit")
+        # sequence parallelism across cards (NCCL's all-gathers), in
+        # float32 against one process, at 9a's bounds
+        f32 = extra + F32_TRAIN
+        args = ["--config", config, "--device", device, "--steps",
+                str(steps), "--csv", csv, *f32]
+        one32 = sp_dp_step(torch, f"x{n} one process float32", 1, tmp,
+                           args + [f"experiment.batch_size={B}"])[0]
+        label = "data-seq"
+        res[label] = r = dp_run(
+            torch, f"x{n} {label}", n, tmp, csv, config, f32 + [
+                f"experiment.batch_size={2 * B // n}",
+                f"experiment.mesh_shape=({n // 2},2)",
+                "experiment.mesh_axes=(data,seq)"], steps, card, device,
+            backend)
+        dp_launches_ok(r, load_yaml(config, extra + [
+            f"experiment.batch_size={2 * B // n}"]), steps, label, on_card)
+        for other in r[1:]:
+            check(other["digest"] == r[0]["digest"], f"dp x{n} {label}: rank "
+                  f"{other['rank']}'s state differs from rank 0's")
+        names = [k for k, _ in DFoldScoreNetwork(
+            cfg.model, device="cpu").named_parameters()]
+        sp_against_one_process(torch, f"x{n} {label}", r[0], one32, start,
+                               names)
         # the real entry point on every card, ZeRO on: dp_step's twin
         cli = dp_train_cli(torch, f"x{n}", n, tmp, csv, config,
                            extra + runs["zero"], steps, card, device, backend)
@@ -2017,6 +2249,447 @@ def dp_cards_phase(torch, card: str, device: str = "cuda",
         check(torch.equal(cli["rng"], one["rng"]), f"dp x{n} train_cli: the "
               "noise generator left one process's")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: sequence parallelism
+# ---------------------------------------------------------------------------
+# Two gloo ranks share cuda:0 on a ('data', 'seq') = (1, 2) mesh: each
+# window's residues split over them (rows 0-127 and 128-255 of a 256-residue
+# window), the IPA kernels take each rank's rows against every key. The
+# ranks share the card's compute, and gloo stages their collectives through
+# host memory: this measures correctness, memory a rank and the collectives'
+# cost, not speed-up.
+SP_MESH = ["experiment.mesh_shape=(1,2)", "experiment.mesh_axes=(data,seq)"]
+# 9b: the split rollout against one process on the same card. In float32
+# the same kernels on each query row, the statistics and the matmuls of
+# fewer rows summed in another order: 1e-4 of the coordinates' scale,
+# JAX's own bar for its split rollout (tests/test_sampler.py:224, atol 1e-4
+# on coordinates of scale ~1). In bfloat16 (the release compute) a matmul
+# or convolution of half the rows rounds some outputs the other way: in
+# the first forward each module's output lies as far from float32 as one
+# process's does (PERF.md §6), and 4 blocks of random weights over 2
+# frames then carry that rounding far, a different distance for each
+# window. So the split's frames are held to one process's bfloat16
+# frames' distance from float32 averaged over SP_BF16_WINDOWS windows:
+# within SP_BF16_FACTOR of it.
+SP_RTOL_F32 = 1e-4
+SP_BF16_WINDOWS = 3
+SP_BF16_WINDOW_SEED = 10
+SP_BF16_FACTOR = 2.0
+# 9a holds the split step against one process in float32 compute and
+# moments: the same windows, noise and steps, the sums in another order.
+F32_TRAIN = ["model.compute_dtype=float32",
+             "experiment.opt_state_dtype=float32"]
+# AMSGrad's first steps move every element by about +-lr whatever its
+# gradient's size, so an element whose gradient is zero up to rounding
+# moves by a coin's throw, and the split's sums, taken in another order,
+# throw it anew. On the card such elements are many in the second
+# convolution of each ConvNet pair (score_model.trunk.conv_0.conv{1-4}.2
+# .weight, 20.5M elements each): a fifth or more of them change sign while
+# each tensor's gradient agrees with one process's to ~1e-4 of its norm,
+# and they carry nearly all of the whole update's distance (9a prints the
+# tensors that carry it; PERF.md §6). The update is therefore held over the
+# elements one process's gradient resolves: those whose gradient RMS over
+# the steps (the square root of AMSGrad's nu) exceeds SP_RESOLVED times its
+# tensor's RMS (about half of the elements).
+SP_RESOLVED = 1e-2
+# The resolved update's distance from one process's, over its norm, is held
+# to phase 8's bound for the update, which lies between the split's reading
+# and that of the planted fault of SP_FAULTS, which must read past it.
+SP_UPDATE_BOUND = DP_GAP_BOUNDS["update"]
+# A fault planted in a split run of tools/dp_step.py (the launcher runs
+# PLANTED_FAULT, which patches the package and then runs the module named
+# after the fault): 'halo', ConvNet's halo rows hand their gradient back to
+# no one (the backward of sp.halo_exchange keeps its own rows only);
+# 'keys', each rank keeps only its own queries' part of its keys' gradient
+# (the reduce-scatter of sp.gather_rows's backward sums nothing). 'keys'
+# is not run: at the release init IPA's projections take gradients at the
+# rounding level (a zero-initialised output projection), which two honest
+# runs already differ on, so its reading stays with the split's (PERF.md
+# §6); phase 2's rectangular dk/dv and the CPU tests hold that path.
+SP_FAULTS = ("halo",)
+PLANTED_FAULT = r'''
+import runpy, sys
+import torch.distributed as dist
+from dynamicpdb_tpu_torch.parallel import mesh, sp
+fault = sys.argv.pop(1)
+if fault == "halo":
+    def backward(ctx, g):
+        w, d = ctx.width, ctx.dim
+        return g.narrow(d, w, g.shape[d] - 2 * w).contiguous(), None, None
+    sp._HaloExchange.backward = staticmethod(backward)
+elif fault == "keys":
+    def reduce_scatter(t, group, dim):
+        rows = t.shape[dim] // dist.get_world_size(group)
+        return t.narrow(dim, dist.get_rank(group) * rows, rows).contiguous()
+    mesh.reduce_scatter = reduce_scatter
+else:
+    raise SystemExit("no planted fault " + fault)
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+'''
+# 9c runs the release compute (bfloat16) for its memory and time; its loss
+# is held to bfloat16's precision (2^-8 relative) against one process's.
+SP_BF16_LOSS_RTOL = 2.0 ** -8
+SP_LONG_N = 1024  # 9c's window
+
+
+def resolved_update_gap(torch, got: dict, want: dict, start: dict,
+                        names: list[str]) -> tuple[float, float, list]:
+    """The distance of ``got``'s update from ``want``'s over the elements
+    ``want``'s gradient resolves (sqrt(nu) > SP_RESOLVED x its tensor's
+    RMS), over the norm of ``want``'s there; the share of the elements
+    kept; and the 4 tensors that carry most of the whole update's distance,
+    each (name, its share of the distance squared, the share of its
+    elements whose update changed sign). ``names``: the parameters in the
+    optimizer's order."""
+    diff2 = norm2 = whole2 = 0.0
+    kept = total = 0
+    leaves = []
+    state = want["optimizer"]["state"]
+    for i, name in enumerate(names):
+        if i not in state:  # never a gradient
+            continue
+        g = state[i]["nu"].double().sqrt()
+        keep = g > SP_RESOLVED * g.pow(2).mean().sqrt()
+        w = want["params"][name].double() - start[name].double()
+        u = got["params"][name].double() - start[name].double()
+        d2 = (u - w).pow(2)
+        diff2 += float(d2[keep].sum())
+        norm2 += float(w[keep].pow(2).sum())
+        kept += int(keep.sum())
+        total += keep.numel()
+        leaves.append((name, float(d2.sum()),
+                       float((u.sign() * w.sign() < 0).double().mean())))
+        whole2 += leaves[-1][1]
+    top = [(n, round(d / max(whole2, 1e-300), 4), round(f, 4)) for n, d, f
+           in sorted(leaves, key=lambda x: -x[1])[:4]]
+    return math.sqrt(diff2) / max(math.sqrt(norm2), 1e-30), kept / total, top
+
+
+def sp_gaps(torch, label: str, got: dict, want: dict, start: dict,
+            names: list[str]) -> dict:
+    """``got`` against ``want`` (each params, optimizer with whole moments,
+    per-step aux): each step's loss and grad norm (relative), the moments
+    and the whole update (``state_gaps``), and the resolved update."""
+    out = {f"{k} {i + 1}": abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+           for k in ("total_loss", "grad_norm")
+           for i, (g, w) in enumerate(zip(got["aux"], want["aux"]))}
+    out.update(state_gaps(torch, label, got, dict(
+        model=want["params"], optimizer=want["optimizer"]), start))
+    out["resolved"], out["kept"], out["leaves"] = resolved_update_gap(
+        torch, got, want, start, names)
+    return out
+
+
+def sp_against_one_process(torch, label: str, split: dict, one: dict,
+                           start: dict, names: list[str],
+                           controls: dict | None = None):
+    """A float32 split run against one process's: every step's loss and
+    the first step's grad norm within DP_LOSS_RTOL (later grad norms follow
+    parameters the unresolved elements moved apart, and are printed), each
+    moment within phase 8's bounds, the resolved update within
+    SP_UPDATE_BOUND; each planted fault in ``controls`` must read past
+    that bound."""
+    got = sp_gaps(torch, label, split, one, start, names)
+    held = [k for k in got if k.startswith("total_loss")] + ["grad_norm 1"]
+    for k in held:
+        check(got[k] <= DP_LOSS_RTOL, f"sp {label}: {k} {got[k]:.3e} from "
+              f"one process's (relative; bound {DP_LOSS_RTOL})")
+    for k in ("mu", "nu", "nu_max"):
+        check(got[k] <= DP_GAP_BOUNDS[k], f"sp {label}: {k} is {got[k]:.3e} "
+              f"of its norm from one process's (bound {DP_GAP_BOUNDS[k]})")
+    check(got["resolved"] <= SP_UPDATE_BOUND, f"sp {label}: the resolved "
+          f"update is {got['resolved']:.3e} of its norm from one process's "
+          f"(bound {SP_UPDATE_BOUND})")
+    leaves = got.pop("leaves")
+    print(f"sp {label}: against one process, float32: "
+          f"{ {k: float(f'{v:.4g}') for k, v in got.items()} } (bounds: "
+          f"losses and the first grad norm {DP_LOSS_RTOL}, moments "
+          f"{ {k: DP_GAP_BOUNDS[k] for k in ('mu', 'nu', 'nu_max')} }, "
+          f"resolved update {SP_UPDATE_BOUND}; 'kept': the share of elements "
+          f"whose gradient one process resolves); losses "
+          f"{[a['total_loss'] for a in split['aux']]} against "
+          f"{[a['total_loss'] for a in one['aux']]}; the whole update's "
+          f"distance by tensor (share of its square, share of the tensor's "
+          f"elements that changed sign): {leaves}")
+    for fault, run in (controls or {}).items():
+        far = sp_gaps(torch, f"{label} {fault}", run, one, start, names)
+        check(far["resolved"] > SP_UPDATE_BOUND, f"sp {label}: with the "
+              f"planted fault '{fault}' the resolved update reads "
+              f"{far['resolved']:.3e}, within the bound {SP_UPDATE_BOUND}: "
+              "the bound would not catch it")
+        print(f"sp {label}: planted fault '{fault}': resolved update "
+              f"{far['resolved']:.4g}, whole update {far['update']:.4g}, mu "
+              f"{far['mu']:.4g} of their norms from one process's (must "
+              f"exceed {SP_UPDATE_BOUND})")
+
+
+def dp_step_command(tmp: str, label: str, nproc: int, args: list[str],
+                    fault: str | None = None) -> tuple[list[str], str]:
+    """The command of tools/dp_step.py on ``nproc`` ranks (1: without a
+    launcher; more: gloo ranks, rank 0 alone writing the whole state), with
+    ``fault`` planted (PLANTED_FAULT), and its output directory."""
+    out = os.path.join(tmp, label.replace(" ", "_"))
+    module = "dynamicpdb_tpu_torch.tools.dp_step"
+    if nproc == 1:
+        cmd = [sys.executable, "-m", module]
+    elif fault is None:
+        cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "-m", module]
+    else:
+        cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "--no-python",
+                          sys.executable, "-c", PLANTED_FAULT, fault, module]
+    more = [] if nproc == 1 else ["--backend", "gloo", "--rank0-state"]
+    return cmd + args + ["--out", out] + more, out
+
+
+def load_ranks(torch, out: str, nproc: int) -> list[dict]:
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+            for r in range(nproc)]
+
+
+def sp_dp_step(torch, label: str, nproc: int, tmp: str, args: list[str]
+               ) -> list[dict]:
+    """``dp_step_command``'s run; every rank's result."""
+    cmd, out = dp_step_command(tmp, label, nproc, args)
+    t0 = time.perf_counter()
+    run_command(cmd, f"sp {label}")
+    print(f"sp {label}: {nproc} rank(s) in {time.perf_counter() - t0:.2f} s "
+          "of wall")
+    return load_ranks(torch, out, nproc)
+
+
+def sp_train_phase(torch, config: str, train: dict, tmp: str, card: str,
+                   device: str = "cuda", extra: tuple = ()) -> dict:
+    """9a, in float32 compute and moments: train_cli on two gloo ranks
+    sharing cuda:0 on a ('data', 'seq') = (1, 2) mesh, on phase 4's
+    manifest, batch (each rank its rows of every window), seed and steps,
+    against one process through tools/dp_step.py (whose steps equal
+    train_cli's bit for bit, phase 8a); then the same split steps through
+    dp_step with each planted fault of SP_FAULTS. The ranks' generator
+    must be phase 4's."""
+    from dynamicpdb_tpu_torch.config import load_yaml
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
+    from dynamicpdb_tpu_torch.weights import init_like_jax_
+
+    extra = list(extra) + F32_TRAIN
+    cfg = load_yaml(config, extra)
+    rank_device = "cuda:0" if device == "cuda" else device
+    steps = len(train["steps"])
+    model = DFoldScoreNetwork(cfg.model, device="cpu")
+    names = [n for n, _ in model.named_parameters()]
+    start = init_like_jax_(model, cfg.experiment.seed).state_dict()
+    del model
+    cli = dp_train_cli(torch, "9a", 2, tmp, train["csv"], config,
+                       extra + SP_MESH, steps, card, rank_device, "gloo",
+                       data_ranks=1)
+    check(torch.equal(cli["rng"], ckpt_lib.load(train["ckpt"])["rng"]),
+          "sp 9a: the ranks' noise generator left one process's")
+    rates = [round(a["steps_per_sec"], 4) for a in cli["aux"]]
+    print(f"sp 9a: rank 0's steps at {rates} steps/s (train_cli's log; "
+          f"phase 4: {[round(a['seconds'], 4) for a in train['steps']]} s a "
+          f"step) [float32, {card}]")
+    args = ["--config", config, "--device", rank_device, "--steps",
+            str(steps), "--csv", train["csv"], *extra]
+    # the reference and the planted faults side by side: only their states
+    # are read
+    jobs = {None: dp_step_command(tmp, "9a one process", 1, args)}
+    jobs.update({f: dp_step_command(tmp, f"9a fault {f}", 2, args + SP_MESH,
+                                    fault=f) for f in SP_FAULTS})
+    t0 = time.perf_counter()
+    run_commands([(cmd, f"sp 9a {'one process' if f is None else f}")
+                  for f, (cmd, _) in jobs.items()])
+    print(f"sp 9a: one process and the planted fault runs side by side in "
+          f"{time.perf_counter() - t0:.2f} s of wall")
+    one = load_ranks(torch, jobs[None][1], 1)[0]
+    controls = {f: load_ranks(torch, jobs[f][1], 1)[0] for f in SP_FAULTS}
+    sp_against_one_process(torch, "9a (1, 2) data x seq", cli, one, start,
+                           names, controls)
+    return cli
+
+
+def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
+                     overrides: list[str], device: str = "cuda") -> dict:
+    """9b: tools/sp_run.py's rollout on two gloo ranks sharing cuda:0,
+    ('seq',) = 2, of phase 3c's first window (256 residues) with its
+    weights, full sampler and fast_x0. In float32, from phase 3c's
+    generator seed, against one process's float32 rollout (SP_RTOL_F32).
+    At ``overrides`` (the release compute, bfloat16), on SP_BF16_WINDOWS
+    windows (phase 3c's first, then synthetic windows of its length from
+    SP_BF16_WINDOW_SEED on): the split's distance from one process's
+    float32 frames, averaged over the windows, within SP_BF16_FACTOR times
+    that of one process's bfloat16 frames (phase 3c's for the first).
+    Each rank's IPA launches (blocks x forwards a frame x frames, at Nq =
+    128 of Nk = 256)."""
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.sampling.reverse import rollout
+
+    first, spec = batched["first"], batched["first"]["rollout"]
+    bf16 = "model.compute_dtype=bfloat16" in overrides
+    n_res = spec["init_feats"]["res_mask"].shape[-1]
+    # the rollout's frames do not depend on the sampler's noise (they are
+    # the x0 predictions), so each further draw is a window of its own
+    more = (sampling_setup(device, overrides, (n_res,) * (SP_BF16_WINDOWS - 1),
+                           n_res, seed=SP_BF16_WINDOW_SEED)[3] if bf16 else [])
+    specs = [spec] + [dict(spec, init_feats={k: v.cpu() for k, v in f.items()})
+                      for f in more]
+
+    def one_process(dtype: str, spec_i: dict):
+        cfg = config_lib.apply_overrides(config_lib.Config(), [
+            o for o in overrides if not o.startswith("model.compute_dtype")]
+            + [f"model.compute_dtype={dtype}"])
+        model = DFoldScoreNetwork(cfg.model, device=device).eval()
+        model.load_state_dict(batched["state_dict"])
+        with torch.no_grad():
+            return rollout(model, SE3Diffuser(cfg.diffuser, device=device),
+                           {k: v.to(device) for k, v in
+                            spec_i["init_feats"].items()},
+                           n_steps=spec_i["n_steps"],
+                           num_t=spec_i["num_t"],
+                           noise_scale=spec_i["noise_scale"],
+                           generator=torch.Generator(device=device)
+                           .manual_seed(spec_i["seed"]))
+
+    names = ("atom37", "rigids")
+    one32 = [one_process("float32", x) for x in specs]
+    one16 = [(first["atoms"], first["rigids"])] + [
+        one_process("bfloat16", x) for x in specs[1:]]
+
+    def dist_(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+    floor = [{n: dist_(a, b) for n, a, b in zip(names, o16, o32)}
+             for o16, o32 in zip(one16, one32)]
+    per_rank = (spec["n_steps"] * (spec["num_t"] + 1) * batched["blocks"]
+                if device == "cuda" else 0)
+    rank_device = "cuda:0" if device == "cuda" else device
+    payload = os.path.join(tmp, "sp_rollout.pt")
+    # one launch: the float32 rollout, and the release compute's beside it
+    parts = {"rollout_float32": "float32"}
+    if bf16:
+        parts["rollout"] = "bfloat16"
+    torch.save(dict(state_dict=batched["state_dict"], rollout_float32=spec,
+                    rollout=specs), payload)
+    out = os.path.join(tmp, "sp_rollout")
+    t0 = time.perf_counter()
+    run_command(LAUNCHER + [
+        "--nproc_per_node=2", "-m", "dynamicpdb_tpu_torch.tools.sp_run",
+        "--device", rank_device, "--backend", "gloo", "--payload", payload,
+        "--out", out, *overrides], "sp 9b rollout")
+    wall = time.perf_counter() - t0
+    for r in range(2):
+        res = torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+        check(res["mesh"] == {"seq": 2}, f"sp 9b: mesh {res['mesh']}")
+        for mode in ("full", "fast_x0"):
+            for name, got, want in zip(names, res["rollout_float32"][mode],
+                                       one32[0]):
+                err = dist_(got, want)
+                tol = SP_RTOL_F32 * max(1.0, float(want.abs().max()))
+                print(f"sp 9b float32: rank {r} {mode} {name} against one "
+                      f"process's float32 frames: max_abs_err {err:.3e} tol "
+                      f"{tol:.3e}")
+                check(err <= tol, f"sp 9b float32 rank {r} {mode} {name}: "
+                      f"{err} > {tol}")
+            if not bf16:
+                continue
+            for k, name in enumerate(names):
+                errs = [dist_(res["rollout"][i][mode][k], one32[i][k])
+                        for i in range(len(specs))]
+                floors = [f[name] for f in floor]
+                pairs = [(round(e, 4), round(f, 4))
+                         for e, f in zip(errs, floors)]
+                mean_err, mean_floor = np.mean(errs), np.mean(floors)
+                print(f"sp 9b bfloat16: rank {r} {mode} {name}, window by "
+                      f"window, the split's / one process's max_abs_diff from "
+                      f"one process's float32 frames: "
+                      f"{pairs}; means {mean_err:.4f} / {mean_floor:.4f}, ratio "
+                      f"{mean_err / mean_floor:.3f} (bound {SP_BF16_FACTOR})")
+                check(mean_err <= SP_BF16_FACTOR * mean_floor, f"sp 9b "
+                      f"bfloat16 rank {r} {mode} {name}: mean {mean_err} > "
+                      f"{SP_BF16_FACTOR} x {mean_floor}")
+        for part, dtype in parts.items():
+            got = res["launches"][part]
+            n = len(specs) if part == "rollout" else 1
+            check(got["launches"] == n * per_rank
+                  and got["wide_launches"] == 0, f"sp 9b: rank {r} IPA "
+                  f"forward launches {got}, expected {n * per_rank} on the "
+                  "tensor-core route")
+            print(f"sp 9b {dtype}: rank {r}: {n} x ({spec['n_steps']} frames "
+                  f"full and {spec['n_steps']} fast_x0) in "
+                  f"{res['seconds'][part]:.3f} s, {got['launches']} IPA "
+                  f"forward launches, {res['sp_calls'][part]} SP "
+                  f"collectives [{card}]")
+        print(f"sp 9b: rank {r} peak {res['peak_bytes'] / 2**30:.3f} GiB "
+              f"[{card}]")
+    print(f"sp 9b: 2 ranks in {wall:.2f} s of launcher wall [{card}]")
+    return dict(launches=per_rank)
+
+
+def sp_long_phase(torch, config: str, tmp: str, card: str,
+                  device: str = "cuda", extra: tuple = (),
+                  n_res: int = SP_LONG_N) -> dict:
+    """9c: one train step of an ``n_res``-residue window at release widths
+    (B = 1, remat, bfloat16) through tools/dp_step.py: one process, then two
+    'seq' ranks sharing cuda:0 with the collectives timed; each rank's
+    peak memory beside the one process's, the ranks' states equal, the
+    step's loss against one process's within bfloat16's precision
+    (SP_BF16_LOSS_RTOL), each rank's IPA launches."""
+    from dynamicpdb_tpu_torch.config import load_yaml
+    from dynamicpdb_tpu_torch.data.dataset import pad_window
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.serve_cli import RAW_KEYS
+
+    extra = list(extra) + ["experiment.batch_size=1",
+                           f"data.filtering.max_len={n_res}"]
+    cfg = load_yaml(config, extra)
+    w = make_window(n_res=n_res, frame_time=cfg.data.frame_time,
+                    node_dim=cfg.model.node_repr_dim,
+                    edge_dim=cfg.model.edge_repr_dim, seed=7, rot_wiggle=0.1)
+    raw = pad_window({k: w[k] for k in RAW_KEYS}, n_res)
+    payload = os.path.join(tmp, "sp_long.pt")
+    torch.save(dict(batches={k: torch.as_tensor(np.asarray(v))[None, None]
+                             for k, v in raw.items()}), payload)
+    rank_device = "cuda:0" if device == "cuda" else device
+    args = ["--config", config, "--device", rank_device, "--steps", "1",
+            "--payload", payload, *extra]
+    runs = {"one": sp_dp_step(torch, "9c one", 1, tmp, args),
+            "seq": sp_dp_step(torch, "9c seq", 2, tmp,
+                              args + ["--time-sp"] + SP_MESH)}
+    for label, results in runs.items():
+        for res in results:
+            sp_s = res["sp_seconds"][0]
+            print(f"sp 9c: {label} rank {res['rank']} ({res['mesh']}), "
+                  f"N={n_res}, B=1: step {res['seconds'][0]:.4f} s, "
+                  f"all-reduce {res['comm_seconds'][0]:.4f} s, SP "
+                  f"collectives {res['sp_calls'][0]} taking "
+                  f"{'not timed' if sp_s is None else f'{sp_s:.4f} s'}, "
+                  f"peak {res['peak_bytes'] / 2**30:.3f} GiB, IPA launches "
+                  f"{res['launches']} [{card}]")
+    one, seq = runs["one"][0], runs["seq"]
+    blocks = cfg.model.ipa.num_blocks if device == "cuda" else 0
+    for res in runs["one"] + seq:
+        check(res["launches"]["launches"] == 2 * blocks
+              and res["launches"]["bwd_dkv_launches"] == blocks,
+              f"sp 9c: rank {res['rank']} launches {res['launches']}")
+    check(seq[0]["digest"] == seq[1]["digest"], "sp 9c: the two 'seq' "
+          "ranks' parameters or moments differ")
+    got, want = seq[0]["aux"][0]["total_loss"], one["aux"][0]["total_loss"]
+    err = abs(got - want) / abs(want)
+    check(math.isfinite(got) and err <= SP_BF16_LOSS_RTOL, f"sp 9c: loss "
+          f"{got} against one process's {want} (relative {err:.3e}, bound "
+          f"{SP_BF16_LOSS_RTOL})")
+    peaks = [r["peak_bytes"] / 2**30 for r in seq]
+    print(f"sp 9c: loss {got} against one process's {want} (relative "
+          f"{err:.3e}, bound {SP_BF16_LOSS_RTOL:.3e}); N={n_res} peak "
+          f"torch.cuda.max_memory_allocated per rank "
+          f"{[round(p, 3) for p in peaks]} GiB against one process's "
+          f"{one['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+    check(device != "cuda" or max(peaks) < one["peak_bytes"] / 2**30,
+          "sp 9c: a 'seq' rank's peak memory is not below one process's")
+    return dict(one=one, seq=seq)
 
 
 # ---------------------------------------------------------------------------
@@ -2621,7 +3294,7 @@ def dp_cards_main() -> int:
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(1100, exit=True)
+    faulthandler.dump_traceback_later(1150, exit=True)
     t_start = time.perf_counter()
     import torch
 
@@ -2699,6 +3372,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fwd_report, wide_fwd_report = kernel_phase(torch, device, card)
     bwd_reports = bwd_kernel_phase(torch, device, card)
+    rect_kernel_phase(torch, device, card, {
+        r["name"]: r for r in [fwd_report, wide_fwd_report] + bwd_reports})
     geom_reports = geom_kernel_phase(torch, device, card)
     print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
 
@@ -2777,6 +3452,21 @@ def main() -> int:
         dp_phase(torch, release, train, tmp, card)
         print(f"dp: phase in {time.perf_counter() - t0:.2f} s [{card}]")
 
+        # phase 9: sequence parallelism, against phase 4's one process, phase
+        # 3c's rollout and one process at N = 1024
+        t0 = time.perf_counter()
+        sp_train_phase(torch, release, train, tmp, card)
+        sp_roll = sp_rollout_phase(torch, batched, tmp, card,
+                                   RELEASE_OVERRIDES)
+        sp_long = sp_long_phase(torch, release, tmp, card)
+        fwd_report["launches_sp_rollout_per_rank"] = sp_roll["launches"]
+        for rep, key in zip([fwd_report] + bwd_reports[:3],
+                            ("launches", "bwd_dq_launches",
+                             "bwd_dkv_launches", "bwd_pair_launches")):
+            rep["launches_sp_step_per_rank"] = sp_long["seq"][0][
+                "launches"][key]
+        print(f"sp: phase in {time.perf_counter() - t0:.2f} s [{card}]")
+
     # phase 4b: the wide route in a model: one block's gradients on the card
     # against the CPU, then train_cli and serve_cli at release depth
     t0 = time.perf_counter()
@@ -2850,4 +3540,6 @@ if __name__ == "__main__":
         print("chip_smoke: dynamicpdb_tpu_torch is not beside this script",
               file=sys.stderr)
         sys.exit(1)
-    sys.exit(dp_cards_main() if sys.argv[1:] == ["--dp-cards"] else main())
+    modes = {"--dp-cards": dp_cards_main}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes
+             else main())

@@ -69,8 +69,13 @@
 //
 // Limits: C % 4 == 0 up to 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32, every N
 // (rows and keys past N are zero-filled and their elements get a = dl = 0;
-// pad rows, mask 0, are computed exactly as the reference does). Every loop
-// of the tile code runs to a compile-time bound (ipa_tile.cuh Layout).
+// pad rows, mask 0, are computed exactly as the reference does).
+// Rectangular calls (ipa_tile.cuh): Nq query rows against Nk keys, a query
+// mask and a key mask; B's dk/dv are then the sums over this call's rows
+// only (sequence parallelism adds the ranks' sums), C's dbias and dpz are
+// [Nq, Nk, .], and the grids run over Nq rows (A, C) and Nk keys (B, C).
+// Every loop of the tile code runs to a compile-time bound (ipa_tile.cuh
+// Layout).
 //
 // Kernel A (dq): the forward's row-stationary layout (ipa_tile.cuh), 32
 // query rows of one (f, h) a block, grid (H, F, ceil(N/32)); per 16-key step
@@ -157,8 +162,8 @@ namespace {
 using namespace ipa_tc;
 
 struct Inputs {
-  const float *q, *k, *v, *qp, *kp, *vp, *bias, *pz, *mask, *hw, *lse, *dvec,
-      *go, *gopt, *gpair;
+  const float *q, *k, *v, *qp, *kp, *vp, *bias, *pz, *mask, *kmask, *hw,
+      *lse, *dvec, *go, *gopt, *gpair;
 };
 
 // ---------------------------------------------------------------------------
@@ -200,7 +205,7 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
   const int rr = qt & 1;  // quarters 2, 3: pair rows g + 8 rr
   const bool pair_warp = qt >= 2;
   const float w = in.hw[h];
-  const int n_steps = (L.N + kKeys - 1) / kKeys;
+  const int n_steps = (L.Nk + kKeys - 1) / kKeys;
   float* xch = s.c.xch + tile * kXchFloats;
   float* sksq = s.c.ksq + tile * kKeys;
   float* spz = s.c.pz + (16 * tile + 8 * rr) * kPZs;
@@ -212,7 +217,7 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
   // the block's query points and their cotangents join the first group
   fetch_rows(s.qp, kP3qs, kMaxP3q, in.qp, f, h, i0, L.P3q, L);
   fetch_rows(s.gopt, kP3vs, kMaxP3v, in.gopt, f, h, i0, L.P3v, L);
-  fetch_keys(s.c.tile(0, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias, f,
+  fetch_keys(s.c.tile(0, L), in.k, in.v, in.kp, in.vp, in.kmask, in.bias, f,
              h, i0, 0, true, L);
   if (pair_warp) fetch_pz(spz, in.pz, r0 + 8 * rr, 0, L);
 
@@ -220,8 +225,8 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
   float qa[NT][4], goa[NT][4];
 #pragma unroll
   for (int ks = 0; ks < NT; ++ks) {
-    load_afrag(qa[ks], in.q, L, f, h, r0, L.C, col + 8 * ks, L.C);
-    load_afrag(goa[ks], in.go, L, f, h, r0, L.C, col + 8 * ks, L.C);
+    load_afrag(qa[ks], in.q, L, L.Nq, f, h, r0, L.C, col + 8 * ks, L.C);
+    load_afrag(goa[ks], in.go, L, L.Nq, f, h, r0, L.C, col + 8 * ks, L.C);
   }
   float gp[kMaxDz / 4];  // zeros past Dz
   if (pair_warp) {
@@ -229,17 +234,18 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
 #pragma unroll
     for (int m = 0; m < kMaxDz / 4; ++m) {
       const int d = t + 4 * m;
-      gp[m] = (i < L.N && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)] : 0.f;
+      gp[m] = (i < L.Nq && d < L.Dz) ? in.gpair[atq(L, f, i, h, L.Dz, d)]
+                                     : 0.f;
     }
   }
   float qm[2], lse[2], dvec[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + g + 8 * r;
-    const bool ok = i < L.N;
-    qm[r] = ok ? in.mask[(size_t)f * L.N + i] : 0.f;
-    lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.N + i] : 0.f;
-    dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.N + i] : 0.f;
+    const bool ok = i < L.Nq;
+    qm[r] = ok ? in.mask[(size_t)f * L.Nq + i] : 0.f;
+    lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.Nq + i] : 0.f;
+    dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.Nq + i] : 0.f;
   }
 
   float acc[NT][4], dlkp[kKQ][4];
@@ -262,7 +268,8 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
       cp_async_wait<0>();
     __syncthreads();
     fetch_keys(s.c.tile((step + 1) & 1, L), in.k, in.v, in.kp, in.vp,
-               in.mask, in.bias, f, h, i0, j0 + kKeys, step + 1 < n_steps, L);
+               in.kmask, in.bias, f, h, i0, j0 + kKeys, step + 1 < n_steps,
+               L);
 
     tile_products<NT>(xch, sksq, qa, goa, sqp, sgopt, spz, gp, kt, col, qt,
                       [&] {
@@ -319,15 +326,15 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
       const float rs = quad_sum(rowsum[r]), hw = quad_sum(dhw[r]);
       if (t == 0) {
         s.rowsum[16 * tile + g + 8 * r] = rs;
-        if (i < L.N) dhw_rows[((size_t)f * L.H + h) * L.N + i] = hw;
+        if (i < L.Nq) dhw_rows[((size_t)f * L.H + h) * L.Nq + i] = hw;
       }
     }
-    if (i >= L.N) continue;
+    if (i >= L.Nq) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int c = col + 8 * n + 2 * t;
       if (c < L.C)
-        *reinterpret_cast<float2*>(dq + at(L, f, i, h, L.C, c)) =
+        *reinterpret_cast<float2*>(dq + atq(L, f, i, h, L.C, c)) =
             make_float2(L.c_qk * acc[n][2 * r], L.c_qk * acc[n][2 * r + 1]);
     }
   }
@@ -336,7 +343,7 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + g + 8 * r;
-      if (i >= L.N) continue;
+      if (i >= L.Nq) continue;
       const float rs = s.rowsum[16 * tile + g + 8 * r];
 #pragma unroll
       for (int n = 0; n < kKQ; ++n)
@@ -344,7 +351,7 @@ ipa_bwd_dq_kernel(Inputs in, Layout L, float* __restrict__ dq,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * n + 2 * t + e;
           if (c < L.P3q) {
-            const size_t x = at(L, f, i, h, L.P3q, c);
+            const size_t x = atq(L, f, i, h, L.P3q, c);
             dqp[x] = -w * (rs * in.qp[x] - dlkp[n][2 * r + e]);
           }
         }
@@ -470,30 +477,30 @@ __device__ void zero_padding_b(const SmemB& s, const Layout& L) {
 }
 
 // The block's keys j0.. j0 + 31 of (f, h): v rows, key points, value points
-// and key mask, zero past N; not committed (the first row step's commit
+// and key mask, zero past Nk; not committed (the first row step's commit
 // takes them).
 __device__ void fetch_block_keys(const SmemB& s, const Inputs& in, int f,
                                  int h, int j0, const Layout& L) {
   const int tid = threadIdx.x;
-  const int nk = min(kBKeys, L.N - j0);
+  const int nk = min(kBKeys, L.Nk - j0);
   deal(kBKeys, L.C / 4, tid, kThreads, [&](int r, int c4) {
     const bool ok = r < nk;
     cp_async16(s.v + r * L.Cs + 4 * c4,
-               in.v + (ok ? at(L, f, j0 + r, h, L.C, 4 * c4) : 0), ok);
+               in.v + (ok ? atk(L, f, j0 + r, h, L.C, 4 * c4) : 0), ok);
   });
   deal(kBKeys, L.P3q, tid, kThreads, [&](int r, int x) {
     const bool ok = r < nk;
     cp_async4(s.kp + r * kP3qs + x,
-              in.kp + (ok ? at(L, f, j0 + r, h, L.P3q, x) : 0), ok);
+              in.kp + (ok ? atk(L, f, j0 + r, h, L.P3q, x) : 0), ok);
   });
   deal(kBKeys, L.P3v, tid, kThreads, [&](int r, int x) {
     const bool ok = r < nk;
     cp_async4(s.vp + r * kP3vs + x,
-              in.vp + (ok ? at(L, f, j0 + r, h, L.P3v, x) : 0), ok);
+              in.vp + (ok ? atk(L, f, j0 + r, h, L.P3v, x) : 0), ok);
   });
   if (tid < kBKeys) {
     const bool ok = tid < nk;
-    cp_async4(s.km + tid, in.mask + (ok ? (size_t)f * L.N + j0 + tid : 0),
+    cp_async4(s.km + tid, in.kmask + (ok ? (size_t)f * L.Nk + j0 + tid : 0),
               ok);
   }
 }
@@ -501,48 +508,48 @@ __device__ void fetch_block_keys(const SmemB& s, const Inputs& in, int f,
 // The query rows i0.. i0 + 15 of (f, h) into rs, by the whole block, as one
 // cp.async group (committed even when empty): q and g_o (16-byte copies),
 // their points, g_pair, lse, D, the row mask and the bias tile [rows][the
-// block's keys]; zeros past N.
+// block's keys]; zeros past Nq and Nk.
 __device__ void fetch_row_step(const RowStep& rs, const Inputs& in, int f,
                                int h, int i0, int j0, bool any,
                                const Layout& L) {
   const int tid = threadIdx.x;
   if (any) {
-    const int nr = min(kStep, L.N - i0);  // real rows of the step
+    const int nr = min(kStep, L.Nq - i0);  // real rows of the step
     deal(kStep, L.C / 4, tid, kThreads, [&](int r, int c4) {
       const bool ok = r < nr;
-      const size_t src = ok ? at(L, f, i0 + r, h, L.C, 4 * c4) : 0;
+      const size_t src = ok ? atq(L, f, i0 + r, h, L.C, 4 * c4) : 0;
       cp_async16(rs.q + r * L.Cs + 4 * c4, in.q + src, ok);
       cp_async16(rs.go + r * L.Cs + 4 * c4, in.go + src, ok);
     });
     deal(kStep, L.P3q, tid, kThreads, [&](int r, int x) {
       const bool ok = r < nr;
       cp_async4(rs.qp + r * kP3qs + x,
-                in.qp + (ok ? at(L, f, i0 + r, h, L.P3q, x) : 0), ok);
+                in.qp + (ok ? atq(L, f, i0 + r, h, L.P3q, x) : 0), ok);
     });
     deal(kStep, L.P3v, tid, kThreads, [&](int r, int x) {
       const bool ok = r < nr;
       cp_async4(rs.gopt + r * kP3vs + x,
-                in.gopt + (ok ? at(L, f, i0 + r, h, L.P3v, x) : 0), ok);
+                in.gopt + (ok ? atq(L, f, i0 + r, h, L.P3v, x) : 0), ok);
     });
     deal(kStep, L.Dz, tid, kThreads, [&](int r, int x) {
       const bool ok = r < nr;
       cp_async4(rs.gpair + r * kGPs + x,
-                in.gpair + (ok ? at(L, f, i0 + r, h, L.Dz, x) : 0), ok);
+                in.gpair + (ok ? atq(L, f, i0 + r, h, L.Dz, x) : 0), ok);
     });
     if (tid < kStep) {
       const bool ok = tid < nr;
-      const size_t row = ok ? ((size_t)f * L.H + h) * L.N + i0 + tid : 0;
+      const size_t row = ok ? ((size_t)f * L.H + h) * L.Nq + i0 + tid : 0;
       cp_async4(rs.lse + tid, in.lse + row, ok);
       cp_async4(rs.dvec + tid, in.dvec + row, ok);
-      cp_async4(rs.qm + tid, in.mask + (ok ? (size_t)f * L.N + i0 + tid : 0),
-                ok);
+      cp_async4(rs.qm + tid,
+                in.mask + (ok ? (size_t)f * L.Nq + i0 + tid : 0), ok);
     }
-    const int nk = min(kBKeys, L.N - j0);
+    const int nk = min(kBKeys, L.Nk - j0);
     for (int e = tid; e < kStep * kBKeys; e += kThreads) {
       const int r = e / kBKeys, c = e % kBKeys;
       const bool ok = r < nr && c < nk;
       cp_async4(rs.bias + r * kRB + c,
-                in.bias + (ok ? ((size_t)(i0 + r) * L.N + j0 + c) * L.H + h
+                in.bias + (ok ? ((size_t)(i0 + r) * L.Nk + j0 + c) * L.H + h
                               : 0),
                 ok);
     }
@@ -552,7 +559,7 @@ __device__ void fetch_row_step(const RowStep& rs, const Inputs& in, int f,
 
 // pair_z rows i0.. i0 + 15 and keys jb.. jb + 7 into dst (pz_index), by
 // one warp, as one cp.async group: at Dz = 32 each row's 8 keys are one
-// contiguous run of [N, N, Dz], copied 16 bytes at a time.
+// contiguous run of [Nq, Nk, Dz], copied 16 bytes at a time.
 __device__ void fetch_pz_keys(float* dst, const float* __restrict__ pz,
                               int i0, int jb, const Layout& L) {
   const int lane = threadIdx.x & 31;
@@ -560,9 +567,9 @@ __device__ void fetch_pz_keys(float* dst, const float* __restrict__ pz,
     for (int e = lane; e < kStep * 8 * 8; e += 32) {
       const int r = e >> 6, kk = (e >> 3) & 7, x = e & 7;
       const int i = i0 + r, j = jb + kk;
-      const bool ok = i < L.N && j < L.N;
+      const bool ok = i < L.Nq && j < L.Nk;
       cp_async16(dst + pz_index(r, kk, 4 * x),
-                 ok ? pz + ((size_t)i * L.N + j) * kMaxDz + 4 * x : pz, ok);
+                 ok ? pz + ((size_t)i * L.Nk + j) * kMaxDz + 4 * x : pz, ok);
     }
   } else {
     const int per_row = 8 * L.Dz;
@@ -570,9 +577,9 @@ __device__ void fetch_pz_keys(float* dst, const float* __restrict__ pz,
       const int r = e / per_row, rem = e - r * per_row;
       const int kk = rem / L.Dz, d = rem - kk * L.Dz;
       const int i = i0 + r, j = jb + kk;
-      const bool ok = i < L.N && j < L.N;
+      const bool ok = i < L.Nq && j < L.Nk;
       cp_async4(dst + pz_index(r, kk, d),
-                ok ? pz + ((size_t)i * L.N + j) * L.Dz + d : pz, ok);
+                ok ? pz + ((size_t)i * L.Nk + j) * L.Dz + d : pz, ok);
     }
   }
   cp_async_commit();
@@ -595,7 +602,7 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
   const int rr = qt & 1;  // quarters 2, 3: pair keys g + 8 rr
   const bool pair_warp = qt >= 2;
   const float w = in.hw[h];
-  const int n_steps = (L.N + kStep - 1) / kStep;
+  const int n_steps = (L.Nq + kStep - 1) / kStep;
   float* xch = s.xch + kt * kXchFloats;
   float* sqsq = s.qsq + kt * kStep;
   float* spz = s.pz + (2 * kt + rr) * kPZB;
@@ -610,7 +617,8 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
   float ka[NT][4];
 #pragma unroll
   for (int ks = 0; ks < NT; ++ks)
-    load_afrag(ka[ks], in.k, L, f, h, j0 + k0, L.C, col + 8 * ks, L.C);
+    load_afrag(ka[ks], in.k, L, L.Nk, f, h, j0 + k0, L.C, col + 8 * ks,
+               L.C);
 
   // dk and dv of keys g, g + 8 over this warp's channels; pacc: dl^T.qp in
   // quarter 0, a^T.g_opt in quarter 1
@@ -756,7 +764,7 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kr = k0 + g + 8 * (e >> 1), r = 8 * n + 2 * t + (e & 1);
-        const bool valid = i0 + r < L.N && j0 + kr < L.N;
+        const bool valid = i0 + r < L.Nq && j0 + kr < L.Nk;
         const float l =
             ipa_logit(xsum4(xch, kQK, n, e), rs.bias[r * kRB + kr],
                       xval(xch, kDist, n, e), rs.qm[r], s.km[kr], w, L);
@@ -817,12 +825,12 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
   for (int r = 0; r < 2; ++r) {
     const int kr = k0 + g + 8 * r, j = j0 + kr;
     const float cs = quad_sum(colsum[r]);
-    if (j >= L.N) continue;
+    if (j >= L.Nk) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int c = col + 8 * n + 2 * t;
       if (c < L.C) {
-        const size_t x = at(L, f, j, h, L.C, c);
+        const size_t x = atk(L, f, j, h, L.C, c);
         *reinterpret_cast<float2*>(dk + x) =
             make_float2(L.c_qk * dka[n][2 * r], L.c_qk * dka[n][2 * r + 1]);
         *reinterpret_cast<float2*>(dv + x) =
@@ -836,7 +844,7 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * n + 2 * t + e;
           if (c < L.P3q)
-            dkp[at(L, f, j, h, L.P3q, c)] =
+            dkp[atk(L, f, j, h, L.P3q, c)] =
                 -w * (cs * s.kp[kr * kP3qs + c] - pacc[n][2 * r + e]);
         }
     } else if (qt == 1) {
@@ -845,14 +853,15 @@ ipa_bwd_dkv_kernel(Inputs in, Layout L, float* __restrict__ dk,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * n + 2 * t + e;
-          if (c < L.P3v) dvp[at(L, f, j, h, L.P3v, c)] = pacc[n][2 * r + e];
+          if (c < L.P3v) dvp[atk(L, f, j, h, L.P3v, c)] = pacc[n][2 * r + e];
         }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernel C: dbias [N, N, H], dpz [N, N, Dz]. grid (ceil(N/16), ceil(N/32))
+// kernel C: dbias [Nq, Nk, H], dpz [Nq, Nk, Dz]. grid (ceil(Nk/16),
+// ceil(Nq/32))
 // ---------------------------------------------------------------------------
 struct SmemC {
   Common c;
@@ -897,7 +906,7 @@ ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
       fetch_rows(s.gopt + b * kRows * kP3vs, kP3vs, kMaxP3v, in.gopt, ff, hh,
                  i0, L.P3v, L);
     }
-    fetch_keys(s.c.tile(b, L), in.k, in.v, in.kp, in.vp, in.mask, in.bias,
+    fetch_keys(s.c.tile(b, L), in.k, in.v, in.kp, in.vp, in.kmask, in.bias,
                ff, hh, i0, j0, any, L);
   };
   float qa[NT][4], goa[NT][4];  // this warp's quarter of q and g_o
@@ -905,7 +914,7 @@ ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
     const int hh = it / F, ff = it - hh * F;
 #pragma unroll
     for (int ks = 0; ks < NT; ++ks)
-      load_afrag(x[ks], src, L, ff, hh, r0, L.C, col + 8 * ks, L.C);
+      load_afrag(x[ks], src, L, L.Nq, ff, hh, r0, L.C, col + 8 * ks, L.C);
   };
   // the (f, h) of iteration it's row operands: g_pair of the pair rows
   // (channels t + 4 m) and of rows g, g + 8 (channels 8 qt + m), mask, lse, D
@@ -917,21 +926,22 @@ ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
 #pragma unroll
       for (int m = 0; m < kMaxDz / 4; ++m) {
         const int d = t + 4 * m;
-        gp[m] = (i < L.N && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)]
-                                      : 0.f;
+        gp[m] = (i < L.Nq && d < L.Dz) ? in.gpair[atq(L, f, i, h, L.Dz, d)]
+                                       : 0.f;
       }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + g + 8 * r;
-      const bool ok = i < L.N;
-      qm[r] = ok ? in.mask[(size_t)f * L.N + i] : 0.f;
-      lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.N + i] : 0.f;
-      dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.N + i] : 0.f;
+      const bool ok = i < L.Nq;
+      qm[r] = ok ? in.mask[(size_t)f * L.Nq + i] : 0.f;
+      lse[r] = ok ? in.lse[((size_t)f * L.H + h) * L.Nq + i] : 0.f;
+      dvec[r] = ok ? in.dvec[((size_t)f * L.H + h) * L.Nq + i] : 0.f;
 #pragma unroll
       for (int m = 0; m < 8; ++m) {
         const int d = 8 * qt + m;
-        gq[r][m] = (ok && d < L.Dz) ? in.gpair[at(L, f, i, h, L.Dz, d)] : 0.f;
+        gq[r][m] =
+            (ok && d < L.Dz) ? in.gpair[atq(L, f, i, h, L.Dz, d)] : 0.f;
       }
     }
   };
@@ -991,8 +1001,8 @@ ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
           for (int e = 0; e < 4; ++e) {
             const int i = r0 + g + 8 * (e >> 1), j = j0 + 8 * n + 2 * t +
                                                      (e & 1);
-            if (i < L.N && j < L.N)
-              dbias[((size_t)i * L.N + j) * L.H + h] = L.c_b * dba[n][e];
+            if (i < L.Nq && j < L.Nk)
+              dbias[((size_t)i * L.Nk + j) * L.H + h] = L.c_b * dba[n][e];
             dba[n][e] = 0.f;
           }
       }
@@ -1013,8 +1023,8 @@ ipa_bwd_pair_kernel(Inputs in, Layout L, int F, float* __restrict__ dbias,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = r0 + g + 8 * (e >> 1), j = j0 + 8 * n + 2 * t + (e & 1);
-      if (i >= L.N || j >= L.N) continue;
-      float* out = dpz + ((size_t)i * L.N + j) * L.Dz;
+      if (i >= L.Nq || j >= L.Nk) continue;
+      float* out = dpz + ((size_t)i * L.Nk + j) * L.Dz;
 #pragma unroll
       for (int m = 0; m < 8; ++m)
         if (8 * qt + m < L.Dz) out[8 * qt + m] = dpa[n][e][m];
@@ -1036,34 +1046,39 @@ int set_smem(Kernel kernel, size_t bytes) {
 }  // namespace
 
 // Each launcher runs its kernel on `stream` and returns cudaGetLastError()
-// (0 = the launch was accepted). Layouts are the JAX package's: q, k, v and
-// g_o [F, N, H, C]; q_pts, k_pts [F, N, H, Pq*3]; v_pts, g_opt
-// [F, N, H, Pv*3]; bias [N, N, H]; pair_z [N, N, Dz]; mask [F, N];
-// head_weights [H]; lse and D [F, H, N]; g_pair [F, N, H, Dz]. Outputs:
-// A dq like q, dqp like q_pts, dhw_rows [F, H, N]; B dk, dv like k, dkp
-// like k_pts, dvp like v_pts; C dbias [N, N, H], dpz [N, N, Dz]. All
+// (0 = the launch was accepted). Layouts are the JAX package's, with Nq
+// query rows against Nk keys (Nq = Nk = N in the square call): q and g_o
+// [F, Nq, H, C], k and v [F, Nk, H, C]; q_pts [F, Nq, H, Pq*3], k_pts
+// [F, Nk, H, Pq*3]; v_pts [F, Nk, H, Pv*3], g_opt [F, Nq, H, Pv*3]; bias
+// [Nq, Nk, H]; pair_z [Nq, Nk, Dz]; mask [F, Nq] (the query rows'),
+// key_mask [F, Nk]; head_weights [H]; lse and D [F, H, Nq]; g_pair
+// [F, Nq, H, Dz]. Outputs: A dq like q, dqp like q_pts, dhw_rows
+// [F, H, Nq]; B dk, dv like k, dkp like k_pts, dvp like v_pts (sums over
+// the Nq rows); C dbias [Nq, Nk, H], dpz [Nq, Nk, Dz]. All
 // float32 and contiguous; the C-wide tensors 16-byte aligned; C divisible
 // by 4 and at most 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32.
 #define IPA_BWD_INPUTS                                                       \
   const float *q, const float *k, const float *v, const float *q_pts,        \
       const float *k_pts, const float *v_pts, const float *bias,             \
-      const float *pair_z, const float *mask, const float *head_weights,     \
-      const float *lse, const float *dvec, const float *g_o,                 \
-      const float *g_opt, const float *g_pair
+      const float *pair_z, const float *mask, const float *key_mask,         \
+      const float *head_weights, const float *lse, const float *dvec,        \
+      const float *g_o, const float *g_opt, const float *g_pair
 #define IPA_BWD_SHAPES                                                       \
-  int F, int N, int H, int C, int Pq, int Pv, int Dz, float c_qk, float c_b, \
-      float inf, int device, cudaStream_t stream
+  int F, int Nq, int Nk, int H, int C, int Pq, int Pv, int Dz, float c_qk,  \
+      float c_b, float inf, int device, cudaStream_t stream
 // Packs the inputs, checks the widths, makes the layout L and the kernel
 // instance for C (NT 8 or 1) of `kern`, sets its shared memory (smem bytes
 // of `Smem`) and selects the device.
 #define IPA_BWD_PREPARE(kern, Smem)                                          \
-  Inputs in{q,   k,   v,          q_pts, k_pts, v_pts, bias,  pair_z,        \
-            mask, head_weights, lse,   dvec,  g_o,   g_opt, g_pair};         \
-  if (F < 1 || F > 65535 || !layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz) ||       \
-      (N + kRows - 1) / kRows > 65535)                                       \
+  Inputs in{q,        k,            v,   q_pts, k_pts, v_pts, bias, pair_z, \
+            mask,     key_mask,     head_weights,  lse,  dvec,  g_o,         \
+            g_opt,    g_pair};                                               \
+  if (F < 1 || F > 65535 ||                                                  \
+      !layout_ok(Nq, Nk, H, C, 3 * Pq, 3 * Pv, Dz) ||                        \
+      (Nq + kRows - 1) / kRows > 65535 || (Nk + kBKeys - 1) / kBKeys > 65535)\
     return (int)cudaErrorInvalidValue;                                       \
   const Layout L =                                                           \
-      make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,               \
+      make_layout(Nq, Nk, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,          \
                   (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);          \
   const size_t smem = smem_bytes<Smem>(L);                                   \
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;            \
@@ -1075,7 +1090,7 @@ int set_smem(Kernel kernel, size_t bytes) {
 extern "C" int ipa_attention_bwd_dq(IPA_BWD_INPUTS, float* dq, float* dqp,
                                     float* dhw_rows, IPA_BWD_SHAPES) {
   IPA_BWD_PREPARE(ipa_bwd_dq_kernel, SmemA)
-  const dim3 grid(H, F, (N + kRows - 1) / kRows);
+  const dim3 grid(H, F, (Nq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(in, L, dq, dqp, dhw_rows);
   return (int)cudaGetLastError();
 }
@@ -1083,7 +1098,7 @@ extern "C" int ipa_attention_bwd_dq(IPA_BWD_INPUTS, float* dq, float* dqp,
 extern "C" int ipa_attention_bwd_dkv(IPA_BWD_INPUTS, float* dk, float* dkp,
                                      float* dv, float* dvp, IPA_BWD_SHAPES) {
   IPA_BWD_PREPARE(ipa_bwd_dkv_kernel, SmemB)
-  const dim3 grid(H, F, (N + kBKeys - 1) / kBKeys);
+  const dim3 grid(H, F, (Nk + kBKeys - 1) / kBKeys);
   kernel<<<grid, kThreads, smem, stream>>>(in, L, dk, dkp, dv, dvp);
   return (int)cudaGetLastError();
 }
@@ -1091,7 +1106,7 @@ extern "C" int ipa_attention_bwd_dkv(IPA_BWD_INPUTS, float* dk, float* dkp,
 extern "C" int ipa_attention_bwd_pair(IPA_BWD_INPUTS, float* dbias, float* dpz,
                                       IPA_BWD_SHAPES) {
   IPA_BWD_PREPARE(ipa_bwd_pair_kernel, SmemC)
-  const dim3 grid((N + kKeys - 1) / kKeys, (N + kRows - 1) / kRows);
+  const dim3 grid((Nk + kKeys - 1) / kKeys, (Nq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(in, L, F, dbias, dpz);
   return (int)cudaGetLastError();
 }
@@ -1100,7 +1115,7 @@ extern "C" int ipa_attention_bwd_pair(IPA_BWD_INPUTS, float* dbias, float* dpz,
 extern "C" long long ipa_attention_bwd_smem(int which, int C, int Pq, int Pv,
                                             int Dz) {
   const Layout L =
-      make_layout(1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f, true);
+      make_layout(1, 1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f, true);
   switch (which) {
     case 0: return (long long)smem_bytes<SmemA>(L);
     case 1: return (long long)smem_bytes<SmemB>(L);

@@ -15,8 +15,11 @@
 //
 // Masking copies the reference exactly: a pad row (m_i = 0) still takes a
 // softmax over all keys, with the additive term inf = 1e5 rather than -inf,
-// and no key is skipped. Only keys past the end of the array (j >= N, the
-// ragged last tile) are excluded.
+// and no key is skipped. Only keys past the end of the array (j >= Nk, the
+// ragged last tile) are excluded. m_i is the query mask of row i, m_j the
+// key mask of key j: a call of Nq query rows against Nk keys (sequence
+// parallelism: one rank's rows against every key, ipa_tile.cuh) takes the
+// two masks apart; the square call passes one mask twice.
 //
 // Bound on an H100 at the release shapes (F=2, N=256, H=8, C=256, Pq=8,
 // Pv=12, Dz=32): 1.28 GFLOP, 84% of it in q.k^T and p.v, against ~30 MB of
@@ -95,7 +98,8 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ vp,
                          const float* __restrict__ bias,
                          const float* __restrict__ pz,
-                         const float* __restrict__ mask,
+                         const float* __restrict__ qmask,
+                         const float* __restrict__ kmask,
                          const float* __restrict__ head_w,
                          float* __restrict__ o, float* __restrict__ o_pt,
                          float* __restrict__ o_pair, float* __restrict__ lse,
@@ -112,32 +116,32 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
   const int rr = qt & 1;          // quarters 2, 3: pair rows g + 8 rr
   const bool pair_warp = qt >= 2;
   const float w = head_w[h];
-  const int n_steps = (L.N + kKeys - 1) / kKeys;
+  const int n_steps = (L.Nk + kKeys - 1) / kKeys;
   float* xch = s.xch + tile * kXchFloats;
   float* sksq = s.ksq + tile * kKeys;
   float* spz = s.pz + (16 * tile + 8 * rr) * kPZs;  // quarters 2, 3
 
   zero_padding(s, L);
-  fetch_keys(s.tile(0, L), k, v, kp, vp, mask, bias, f, h, i0, 0, true, L);
+  fetch_keys(s.tile(0, L), k, v, kp, vp, kmask, bias, f, h, i0, 0, true, L);
   if (pair_warp) fetch_pz(spz, pz, r0 + 8 * rr, 0, L);
 
   // this warp's q channels as A fragments, the query points, the masks
   float qa[NT][4];
 #pragma unroll
   for (int ks = 0; ks < NT; ++ks)
-    load_afrag(qa[ks], q, L, f, h, r0, L.C, col + 8 * ks, L.C);
+    load_afrag(qa[ks], q, L, L.Nq, f, h, r0, L.C, col + 8 * ks, L.C);
   float qpa[kKQ][4], qsq[2];
   if (qt == 0) {
 #pragma unroll
     for (int ks = 0; ks < kKQ; ++ks)
-      load_afrag(qpa[ks], qp, L, f, h, r0, L.P3q, 8 * ks, L.P3q);
+      load_afrag(qpa[ks], qp, L, L.Nq, f, h, r0, L.P3q, 8 * ks, L.P3q);
     row_norms(qsq, qpa);
   }
   float qm[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + g + 8 * r;
-    qm[r] = i < L.N ? mask[(size_t)f * L.N + i] : 0.f;
+    qm[r] = i < L.Nq ? qmask[(size_t)f * L.Nq + i] : 0.f;
   }
 
   float o_acc[NT][4], opt[kNV][4], opair[kMaxDz / 4];
@@ -164,7 +168,7 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
     else
       cp_async_wait<0>();
     __syncthreads();
-    fetch_keys(s.tile((step + 1) & 1, L), k, v, kp, vp, mask, bias, f, h, i0,
+    fetch_keys(s.tile((step + 1) & 1, L), k, v, kp, vp, kmask, bias, f, h, i0,
                j0 + kKeys, step + 1 < n_steps, L);
 
     // each warp's share of the logits' products into the exchange
@@ -197,7 +201,7 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
         const float l = ipa_logit(
             xsum4(xch, kQK, n, e), kt.bias[(16 * tile + g + 8 * r) * kBS + c],
             xval(xch, kDist, n, e), qm[r], kt.km[c], w, L);
-        sc[n][e] = j0 + c < L.N ? l : -INFINITY;
+        sc[n][e] = j0 + c < L.Nk ? l : -INFINITY;
       }
     float alpha[2];
 #pragma unroll
@@ -213,7 +217,7 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = expf(sc[n][e] - m_new);  // 0 past N
+          const float p = expf(sc[n][e] - m_new);  // 0 past Nk
           sc[n][e] = p;
           l_run[r] += p;
         }
@@ -280,16 +284,16 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
     const float l = quad_sum(l_run[r]);
     const float inv = 1.f / l;
     const int i = r0 + g + 8 * r;
-    if (i >= L.N) continue;
+    if (i >= L.Nq) continue;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int c = col + 8 * n + 2 * t;
       if (c < L.C)
-        *reinterpret_cast<float2*>(o + at(L, f, i, h, L.C, c)) =
+        *reinterpret_cast<float2*>(o + atq(L, f, i, h, L.C, c)) =
             make_float2(o_acc[n][2 * r] * inv, o_acc[n][2 * r + 1] * inv);
     }
     if (qt == 0 && t == 0)
-      lse[((size_t)f * L.H + h) * L.N + i] = m_run[r] + logf(l);
+      lse[((size_t)f * L.H + h) * L.Nq + i] = m_run[r] + logf(l);
     if (qt == 1) {
 #pragma unroll
       for (int n = 0; n < kNV; ++n)
@@ -297,14 +301,14 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * n + 2 * t + e;
           if (c < L.P3v)
-            o_pt[at(L, f, i, h, L.P3v, c)] = opt[n][2 * r + e] * inv;
+            o_pt[atq(L, f, i, h, L.P3v, c)] = opt[n][2 * r + e] * inv;
         }
     }
     if (pair_warp && r == rr) {
 #pragma unroll
       for (int m = 0; m < kMaxDz / 4; ++m) {
         const int d = t + 4 * m;
-        if (d < L.Dz) o_pair[at(L, f, i, h, L.Dz, d)] = opair[m] * inv;
+        if (d < L.Dz) o_pair[atq(L, f, i, h, L.Dz, d)] = opair[m] * inv;
       }
     }
   }
@@ -313,24 +317,27 @@ ipa_attn_fwd_kernel(const float* __restrict__ q,
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = the
-// launch was accepted). Layouts are the JAX package's: q, k, v [F, N, H, C];
-// q_pts, k_pts [F, N, H, Pq, 3]; v_pts [F, N, H, Pv, 3]; bias [N, N, H];
-// pair_z [N, N, Dz]; mask [F, N]; head_weights [H]; outputs o [F, N, H, C],
-// o_pt [F, N, H, Pv, 3], o_pair [F, N, H, Dz], lse [F, H, N]. All float32,
+// launch was accepted). Layouts are the JAX package's, with Nq query rows
+// against Nk keys (Nq = Nk = N in the square call): q [F, Nq, H, C], k, v
+// [F, Nk, H, C]; q_pts [F, Nq, H, Pq, 3], k_pts [F, Nk, H, Pq, 3]; v_pts
+// [F, Nk, H, Pv, 3]; bias [Nq, Nk, H]; pair_z [Nq, Nk, Dz]; mask [F, Nq]
+// (the query rows'), key_mask [F, Nk]; head_weights [H]; outputs o
+// [F, Nq, H, C], o_pt [F, Nq, H, Pv, 3], o_pair [F, Nq, H, Dz], lse
+// [F, H, Nq]. All float32,
 // contiguous; q, k, v and o 16-byte aligned; C divisible by 4 and at most
 // 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32.
 extern "C" int ipa_attention_fwd(
     const float* q, const float* k, const float* v, const float* q_pts,
     const float* k_pts, const float* v_pts, const float* bias,
-    const float* pair_z, const float* mask, const float* head_weights,
-    float* o, float* o_pt, float* o_pair, float* lse, int F, int N, int H,
-    int C, int Pq, int Pv, int Dz, float c_qk, float c_b, float inf,
-    int device, cudaStream_t stream) {
-  if (F < 1 || F > 65535 || !layout_ok(N, H, C, 3 * Pq, 3 * Pv, Dz) ||
-      (N + kRows - 1) / kRows > 65535)
+    const float* pair_z, const float* mask, const float* key_mask,
+    const float* head_weights, float* o, float* o_pt, float* o_pair,
+    float* lse, int F, int Nq, int Nk, int H, int C, int Pq, int Pv, int Dz,
+    float c_qk, float c_b, float inf, int device, cudaStream_t stream) {
+  if (F < 1 || F > 65535 || !layout_ok(Nq, Nk, H, C, 3 * Pq, 3 * Pv, Dz) ||
+      (Nq + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
   const Layout L =
-      make_layout(N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,
+      make_layout(Nq, Nk, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf,
                   (reinterpret_cast<uintptr_t>(pair_z) & 15) == 0);
   Common none;
   const size_t smem = carve_fwd(none, nullptr, L) * sizeof(float);
@@ -343,16 +350,16 @@ extern "C" int ipa_attention_fwd(
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, F, (N + kRows - 1) / kRows);
+  const dim3 grid(H, F, (Nq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights, o, o_pt,
-      o_pair, lse, L);
+      q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, key_mask,
+      head_weights, o, o_pt, o_pair, lse, L);
   return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory per block (bytes) at these widths.
 extern "C" long long ipa_attention_fwd_smem(int C, int Pq, int Pv, int Dz) {
-  const Layout L = make_layout(1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f,
+  const Layout L = make_layout(1, 1, 1, C, 3 * Pq, 3 * Pv, Dz, 0.f, 0.f, 0.f,
                                true);
   Common none;
   return (long long)(carve_fwd(none, nullptr, L) * sizeof(float));

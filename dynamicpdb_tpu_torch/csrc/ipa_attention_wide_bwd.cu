@@ -69,6 +69,11 @@
 //   * Rows and keys past N (the ragged last tile) are loaded as zeros and
 //     their elements forced to a = dl = 0, so N need not divide the tile.
 //     Pad rows (mask 0) are computed exactly as the reference does.
+//   * A call may take Nq query rows against Nk keys, with a query mask and
+//     a key mask (sequence parallelism: one rank's rows against every key):
+//     the query side has Nq rows, the key side Nk, bias and pair_z
+//     [Nq, Nk, .]; B's dk/dv are the sums over the call's rows. The square
+//     call passes Nq = Nk = N and one mask twice.
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -88,7 +93,7 @@ __host__ __device__ inline int padded_c(int C) { return C + 4; }
 __host__ __device__ inline int padded_odd(int p) { return p | 1; }
 
 struct Dims {
-  int F, N, H, C, Cs, P3q, P3qs, P3v, P3vs, Dz, Dzs;
+  int F, Nq, Nk, H, C, Cs, P3q, P3qs, P3v, P3vs, Dz, Dzs;
   float c_qk, c_b, inf;
 };
 
@@ -144,34 +149,37 @@ struct KeyTile {
 };
 
 struct Inputs {
-  const float *q, *k, *v, *qp, *kp, *vp, *bias, *pz, *mask, *hw, *lse, *dvec,
-      *go, *gopt, *gpair;
+  const float *q, *k, *v, *qp, *kp, *vp, *bias, *pz, *mask, *kmask, *hw,
+      *lse, *dvec, *go, *gopt, *gpair;
 };
 
-// element (f, n, h, x) of a [F, N, H, D] tensor
-__device__ inline size_t at(const Dims& d, int f, int n, int h, int D, int x) {
-  return (((size_t)f * d.N + n) * d.H + h) * D + x;
+// element (f, n, h, x) of a [F, rows, H, D] tensor: rows = Nq on the query
+// side (q, g_o, their points, g_pair, the outputs), Nk on the key side
+__device__ inline size_t at(int rows, const Dims& d, int f, int n, int h,
+                            int D, int x) {
+  return (((size_t)f * rows + n) * d.H + h) * D + x;
 }
 
-// rows n0..n0+15 of a [F, N, H, D] tensor at (f, h) into dst[r * ds + x],
-// zeros past N; float4 copies (D divisible by 4, 16-byte aligned rows)
-__device__ void load_rows4(float* dst, int ds, const float* src, const Dims& d,
-                           int f, int h, int n0, int D) {
+// rows n0..n0+15 of a [F, rows, H, D] tensor at (f, h) into dst[r * ds + x],
+// zeros past `rows`; float4 copies (D divisible by 4, 16-byte aligned rows)
+__device__ void load_rows4(float* dst, int ds, const float* src, int rows,
+                           const Dims& d, int f, int h, int n0, int D) {
   const int D4 = D / 4;
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int e = threadIdx.x; e < kTile * D4; e += kThreads) {
     const int r = e / D4, x4 = e % D4, n = n0 + r;
     reinterpret_cast<float4*>(dst + r * ds)[x4] =
-        n < d.N ? reinterpret_cast<const float4*>(src + at(d, f, n, h, D, 0))[x4]
-                : zero4;
+        n < rows ? reinterpret_cast<const float4*>(
+                       src + at(rows, d, f, n, h, D, 0))[x4]
+                 : zero4;
   }
 }
 
-__device__ void load_rows(float* dst, int ds, const float* src, const Dims& d,
-                          int f, int h, int n0, int D) {
+__device__ void load_rows(float* dst, int ds, const float* src, int rows,
+                          const Dims& d, int f, int h, int n0, int D) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, x = e % D, n = n0 + r;
-    dst[r * ds + x] = n < d.N ? src[at(d, f, n, h, D, x)] : 0.f;
+    dst[r * ds + x] = n < rows ? src[at(rows, d, f, n, h, D, x)] : 0.f;
   }
 }
 
@@ -184,29 +192,29 @@ __device__ float sum_sq(const float* p, int n) {
 // Stage the query rows i0.. of (f, h). The caller synchronises.
 __device__ void load_row_tile(RowTile& t, const Inputs& in, const Dims& d,
                               int f, int h, int i0) {
-  load_rows4(t.q, d.Cs, in.q, d, f, h, i0, d.C);
-  load_rows4(t.go, d.Cs, in.go, d, f, h, i0, d.C);
-  load_rows(t.qp, d.P3qs, in.qp, d, f, h, i0, d.P3q);
-  load_rows(t.gopt, d.P3vs, in.gopt, d, f, h, i0, d.P3v);
-  load_rows(t.gpair, d.Dzs, in.gpair, d, f, h, i0, d.Dz);
+  load_rows4(t.q, d.Cs, in.q, d.Nq, d, f, h, i0, d.C);
+  load_rows4(t.go, d.Cs, in.go, d.Nq, d, f, h, i0, d.C);
+  load_rows(t.qp, d.P3qs, in.qp, d.Nq, d, f, h, i0, d.P3q);
+  load_rows(t.gopt, d.P3vs, in.gopt, d.Nq, d, f, h, i0, d.P3v);
+  load_rows(t.gpair, d.Dzs, in.gpair, d.Nq, d, f, h, i0, d.Dz);
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x, i = i0 + r;
-    const bool ok = i < d.N;
-    t.qm[r] = ok ? in.mask[(size_t)f * d.N + i] : 0.f;
-    t.lse[r] = ok ? in.lse[((size_t)f * d.H + h) * d.N + i] : 0.f;
-    t.dvec[r] = ok ? in.dvec[((size_t)f * d.H + h) * d.N + i] : 0.f;
+    const bool ok = i < d.Nq;
+    t.qm[r] = ok ? in.mask[(size_t)f * d.Nq + i] : 0.f;
+    t.lse[r] = ok ? in.lse[((size_t)f * d.H + h) * d.Nq + i] : 0.f;
+    t.dvec[r] = ok ? in.dvec[((size_t)f * d.H + h) * d.Nq + i] : 0.f;
   }
 }
 
 __device__ void load_key_tile(KeyTile& t, const Inputs& in, const Dims& d,
                               int f, int h, int j0) {
-  load_rows4(t.k, d.Cs, in.k, d, f, h, j0, d.C);
-  load_rows4(t.v, d.Cs, in.v, d, f, h, j0, d.C);
-  load_rows(t.kp, d.P3qs, in.kp, d, f, h, j0, d.P3q);
-  load_rows(t.vp, d.P3vs, in.vp, d, f, h, j0, d.P3v);
+  load_rows4(t.k, d.Cs, in.k, d.Nk, d, f, h, j0, d.C);
+  load_rows4(t.v, d.Cs, in.v, d.Nk, d, f, h, j0, d.C);
+  load_rows(t.kp, d.P3qs, in.kp, d.Nk, d, f, h, j0, d.P3q);
+  load_rows(t.vp, d.P3vs, in.vp, d.Nk, d, f, h, j0, d.P3v);
   if (threadIdx.x < kTile) {
     const int j = j0 + threadIdx.x;
-    t.km[threadIdx.x] = j < d.N ? in.mask[(size_t)f * d.N + j] : 0.f;
+    t.km[threadIdx.x] = j < d.Nk ? in.kmask[(size_t)f * d.Nk + j] : 0.f;
   }
 }
 
@@ -273,7 +281,7 @@ __device__ inline float sum16(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// kernel A: dq, dqp, dhw rows. grid (ceil(N/16), H, F)
+// kernel A: dq, dqp, dhw rows. grid (ceil(Nq/16), H, F)
 // ---------------------------------------------------------------------------
 struct SmemA {
   RowTile rt;
@@ -313,14 +321,14 @@ ipa_wide_bwd_dq_kernel(Inputs in, Dims d, float* __restrict__ dq,
 
   const int r = tid / kTile, jr = tid % kTile, i = i0 + r;
   float rowsum = 0.f, dhw = 0.f;
-  for (int j0 = 0; j0 < d.N; j0 += kTile) {
+  for (int j0 = 0; j0 < d.Nk; j0 += kTile) {
     load_key_tile(s.kt, in, d, f, h, j0);
     __syncthreads();
     tile_norms(nullptr, &s.kt, d);
     __syncthreads();
     const int j = j0 + jr;
-    const bool valid = i < d.N && j < d.N;
-    const size_t ij = valid ? (size_t)i * d.N + j : 0;
+    const bool valid = i < d.Nq && j < d.Nk;
+    const size_t ij = valid ? (size_t)i * d.Nk + j : 0;
     const Elem e = element(s.rt, s.kt, r, jr, valid,
                            valid ? in.bias[ij * d.H + h] : 0.f,
                            in.pz + ij * d.Dz, w, d);
@@ -363,27 +371,27 @@ ipa_wide_bwd_dq_kernel(Inputs in, Dims d, float* __restrict__ dq,
   dhw = sum16(dhw);
   if (jr == 0) {
     s.rowsum[r] = rowsum;
-    if (i < d.N) dhw_rows[((size_t)f * d.H + h) * d.N + i] = dhw;
+    if (i < d.Nq) dhw_rows[((size_t)f * d.H + h) * d.Nq + i] = dhw;
   }
   __syncthreads();
   for (int e = tid; e < kTile * C4; e += kThreads) {
     const int rr = e / C4, c4 = e % C4, ii = i0 + rr;
-    if (ii < d.N) {
+    if (ii < d.Nq) {
       const float4 a = reinterpret_cast<const float4*>(s.dq + rr * d.C)[c4];
-      reinterpret_cast<float4*>(dq + at(d, f, ii, h, d.C, 0))[c4] =
+      reinterpret_cast<float4*>(dq + at(d.Nq, d, f, ii, h, d.C, 0))[c4] =
           make_float4(d.c_qk * a.x, d.c_qk * a.y, d.c_qk * a.z, d.c_qk * a.w);
     }
   }
   for (int e = tid; e < kTile * d.P3q; e += kThreads) {
     const int rr = e / d.P3q, x = e % d.P3q, ii = i0 + rr;
-    if (ii < d.N)
-      dqp[at(d, f, ii, h, d.P3q, x)] =
+    if (ii < d.Nq)
+      dqp[at(d.Nq, d, f, ii, h, d.P3q, x)] =
           -w * (s.rowsum[rr] * s.rt.qp[rr * d.P3qs + x] - s.dlkp[e]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernel B: dk, dkp, dv, dvp. grid (ceil(N/16), H, F)
+// kernel B: dk, dkp, dv, dvp. grid (ceil(Nk/16), H, F)
 // ---------------------------------------------------------------------------
 struct SmemB {
   RowTile rt;
@@ -433,14 +441,14 @@ ipa_wide_bwd_dkv_kernel(Inputs in, Dims d, float* __restrict__ dk,
   // keys on the slow index: the 16 lanes that share a key reduce by shuffle
   const int jr = tid / kTile, r = tid % kTile, j = j0 + jr;
   float colsum = 0.f;
-  for (int i0 = 0; i0 < d.N; i0 += kTile) {
+  for (int i0 = 0; i0 < d.Nq; i0 += kTile) {
     load_row_tile(s.rt, in, d, f, h, i0);
     __syncthreads();
     tile_norms(&s.rt, nullptr, d);
     __syncthreads();
     const int i = i0 + r;
-    const bool valid = i < d.N && j < d.N;
-    const size_t ij = valid ? (size_t)i * d.N + j : 0;
+    const bool valid = i < d.Nq && j < d.Nk;
+    const size_t ij = valid ? (size_t)i * d.Nk + j : 0;
     const Elem e = element(s.rt, s.kt, r, jr, valid,
                            valid ? in.bias[ij * d.H + h] : 0.f,
                            in.pz + ij * d.Dz, w, d);
@@ -501,28 +509,29 @@ ipa_wide_bwd_dkv_kernel(Inputs in, Dims d, float* __restrict__ dk,
   __syncthreads();
   for (int e = tid; e < kTile * C4; e += kThreads) {
     const int kk = e / C4, c4 = e % C4, jj = j0 + kk;
-    if (jj < d.N) {
+    if (jj < d.Nk) {
       const float4 a = reinterpret_cast<const float4*>(s.dk + kk * d.C)[c4];
-      reinterpret_cast<float4*>(dk + at(d, f, jj, h, d.C, 0))[c4] =
+      reinterpret_cast<float4*>(dk + at(d.Nk, d, f, jj, h, d.C, 0))[c4] =
           make_float4(d.c_qk * a.x, d.c_qk * a.y, d.c_qk * a.z, d.c_qk * a.w);
-      reinterpret_cast<float4*>(dv + at(d, f, jj, h, d.C, 0))[c4] =
+      reinterpret_cast<float4*>(dv + at(d.Nk, d, f, jj, h, d.C, 0))[c4] =
           reinterpret_cast<const float4*>(s.dv + kk * d.C)[c4];
     }
   }
   for (int e = tid; e < kTile * d.P3q; e += kThreads) {
     const int kk = e / d.P3q, x = e % d.P3q, jj = j0 + kk;
-    if (jj < d.N)
-      dkp[at(d, f, jj, h, d.P3q, x)] =
+    if (jj < d.Nk)
+      dkp[at(d.Nk, d, f, jj, h, d.P3q, x)] =
           -w * (s.colsum[kk] * s.kt.kp[kk * d.P3qs + x] - s.dlqp[e]);
   }
   for (int e = tid; e < kTile * d.P3v; e += kThreads) {
     const int kk = e / d.P3v, x = e % d.P3v, jj = j0 + kk;
-    if (jj < d.N) dvp[at(d, f, jj, h, d.P3v, x)] = s.dvp[e];
+    if (jj < d.Nk) dvp[at(d.Nk, d, f, jj, h, d.P3v, x)] = s.dvp[e];
   }
 }
 
 // ---------------------------------------------------------------------------
-// kernel C: dbias [N, N, H], dpz [N, N, Dz]. grid (ceil(N/16), ceil(N/16))
+// kernel C: dbias [Nq, Nk, H], dpz [Nq, Nk, Dz]. grid (ceil(Nk/16),
+// ceil(Nq/16))
 // ---------------------------------------------------------------------------
 struct SmemC {
   RowTile rt;
@@ -546,8 +555,8 @@ ipa_wide_bwd_pair_kernel(Inputs in, Dims d, float* __restrict__ dbias,
   const int j0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
   const int tid = threadIdx.x;
   const int r = tid / kTile, jr = tid % kTile, i = i0 + r, j = j0 + jr;
-  const bool valid = i < d.N && j < d.N;
-  const size_t ij = valid ? (size_t)i * d.N + j : 0;
+  const bool valid = i < d.Nq && j < d.Nk;
+  const size_t ij = valid ? (size_t)i * d.Nk + j : 0;
 
   // each element reads its own pair_z row from global memory (L2 after the
   // first (h, f)): staging the tile's 256 rows too would leave no room for
@@ -578,8 +587,9 @@ ipa_wide_bwd_pair_kernel(Inputs in, Dims d, float* __restrict__ dbias,
     const int rr = e / (kTile * d.Dz), rem = e % (kTile * d.Dz);
     const int kk = rem / d.Dz, x = rem % d.Dz;
     const int ii = i0 + rr, jj = j0 + kk;
-    if (ii < d.N && jj < d.N)
-      dpz[((size_t)ii * d.N + jj) * d.Dz + x] = s.dpz[(rr * kTile + kk) * d.Dzs + x];
+    if (ii < d.Nq && jj < d.Nk)
+      dpz[((size_t)ii * d.Nk + jj) * d.Dz + x] =
+          s.dpz[(rr * kTile + kk) * d.Dzs + x];
   }
 }
 
@@ -590,17 +600,18 @@ size_t smem_bytes(const Dims& d) {
 }
 
 int prepare(const Dims& d, int device) {
-  if (d.F < 1 || d.N < 1 || d.H < 1 || d.C < 4 || d.C % 4 != 0 || d.P3q < 3 ||
+  if (d.F < 1 || d.Nq < 1 || d.Nk < 1 || d.H < 1 || d.C < 4 || d.C % 4 != 0 || d.P3q < 3 ||
       d.P3v < 3 || d.Dz < 1 || d.H > 65535 || d.F > 65535 ||
-      (d.N + kTile - 1) / kTile > 65535)
+      (d.Nq + kTile - 1) / kTile > 65535 ||
+      (d.Nk + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   return (int)cudaSetDevice(device);
 }
 
-Dims make_dims(int F, int N, int H, int C, int Pq, int Pv, int Dz, float c_qk,
-               float c_b, float inf) {
+Dims make_dims(int F, int Nq, int Nk, int H, int C, int Pq, int Pv, int Dz,
+               float c_qk, float c_b, float inf) {
   Dims d;
-  d.F = F, d.N = N, d.H = H, d.C = C, d.Cs = padded_c(C);
+  d.F = F, d.Nq = Nq, d.Nk = Nk, d.H = H, d.C = C, d.Cs = padded_c(C);
   d.P3q = 3 * Pq, d.P3qs = padded_odd(3 * Pq);
   d.P3v = 3 * Pv, d.P3vs = padded_odd(3 * Pv);
   d.Dz = Dz, d.Dzs = padded_odd(Dz);
@@ -617,28 +628,32 @@ int set_smem(Kernel kernel, size_t bytes) {
 }  // namespace
 
 // Each launcher runs its kernel on `stream` and returns cudaGetLastError()
-// (0 = the launch was accepted). Layouts are the JAX package's: q, k, v and
-// g_o [F, N, H, C]; q_pts, k_pts [F, N, H, Pq*3]; v_pts, g_opt
-// [F, N, H, Pv*3]; bias [N, N, H]; pair_z [N, N, Dz]; mask [F, N];
-// head_weights [H]; lse and D [F, H, N]; g_pair [F, N, H, Dz]. Outputs:
-// A dq like q, dqp like q_pts, dhw_rows [F, H, N]; B dk, dv like k, dkp
-// like k_pts, dvp like v_pts; C dbias [N, N, H], dpz [N, N, Dz]. All
+// (0 = the launch was accepted). Layouts are the JAX package's, with Nq
+// query rows against Nk keys (Nq = Nk = N in the square call): q and g_o
+// [F, Nq, H, C], k and v [F, Nk, H, C]; q_pts [F, Nq, H, Pq*3], k_pts
+// [F, Nk, H, Pq*3]; v_pts [F, Nk, H, Pv*3], g_opt [F, Nq, H, Pv*3]; bias
+// [Nq, Nk, H]; pair_z [Nq, Nk, Dz]; mask [F, Nq] (the query rows'),
+// key_mask [F, Nk]; head_weights [H]; lse and D [F, H, Nq]; g_pair
+// [F, Nq, H, Dz]. Outputs: A dq like q, dqp like q_pts, dhw_rows
+// [F, H, Nq]; B dk, dv like k, dkp like k_pts, dvp like v_pts (sums over
+// the Nq rows); C dbias [Nq, Nk, H], dpz [Nq, Nk, Dz]. All
 // float32 and contiguous; the C-wide tensors 16-byte aligned, C divisible
 // by 4, and the widths within one block's shared memory
 // (ipa_attention_wide_bwd_smem).
 #define IPA_BWD_INPUTS                                                       \
   const float *q, const float *k, const float *v, const float *q_pts,        \
       const float *k_pts, const float *v_pts, const float *bias,             \
-      const float *pair_z, const float *mask, const float *head_weights,     \
-      const float *lse, const float *dvec, const float *g_o,                 \
-      const float *g_opt, const float *g_pair
+      const float *pair_z, const float *mask, const float *key_mask,         \
+      const float *head_weights, const float *lse, const float *dvec,        \
+      const float *g_o, const float *g_opt, const float *g_pair
 #define IPA_BWD_SHAPES                                                       \
-  int F, int N, int H, int C, int Pq, int Pv, int Dz, float c_qk, float c_b, \
-      float inf, int device, cudaStream_t stream
+  int F, int Nq, int Nk, int H, int C, int Pq, int Pv, int Dz, float c_qk,  \
+      float c_b, float inf, int device, cudaStream_t stream
 #define IPA_BWD_PACK                                                         \
-  Inputs in{q,   k,   v,          q_pts, k_pts, v_pts, bias,  pair_z,        \
-            mask, head_weights, lse,   dvec,  g_o,   g_opt, g_pair};         \
-  const Dims d = make_dims(F, N, H, C, Pq, Pv, Dz, c_qk, c_b, inf);          \
+  Inputs in{q,        k,            v,   q_pts, k_pts, v_pts, bias, pair_z, \
+            mask,     key_mask,     head_weights,  lse,  dvec,  g_o,         \
+            g_opt,    g_pair};                                               \
+  const Dims d = make_dims(F, Nq, Nk, H, C, Pq, Pv, Dz, c_qk, c_b, inf);     \
   int err = prepare(d, device);                                              \
   if (err) return err;
 
@@ -649,7 +664,7 @@ extern "C" int ipa_attention_wide_bwd_dq(IPA_BWD_INPUTS, float* dq,
   const size_t smem = smem_bytes<SmemA>(d);
   if (smem > ipa_wide::kMaxSmem) return (int)cudaErrorInvalidValue;
   if ((err = set_smem(ipa_wide_bwd_dq_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, H, F);
+  const dim3 grid((Nq + kTile - 1) / kTile, H, F);
   ipa_wide_bwd_dq_kernel<<<grid, kThreads, smem, stream>>>(in, d, dq, dqp, dhw_rows);
   return (int)cudaGetLastError();
 }
@@ -661,7 +676,7 @@ extern "C" int ipa_attention_wide_bwd_dkv(IPA_BWD_INPUTS, float* dk,
   const size_t smem = smem_bytes<SmemB>(d);
   if (smem > ipa_wide::kMaxSmem) return (int)cudaErrorInvalidValue;
   if ((err = set_smem(ipa_wide_bwd_dkv_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, H, F);
+  const dim3 grid((Nk + kTile - 1) / kTile, H, F);
   ipa_wide_bwd_dkv_kernel<<<grid, kThreads, smem, stream>>>(in, d, dk, dkp, dv, dvp);
   return (int)cudaGetLastError();
 }
@@ -672,7 +687,7 @@ extern "C" int ipa_attention_wide_bwd_pair(IPA_BWD_INPUTS, float* dbias,
   const size_t smem = smem_bytes<SmemC>(d);
   if (smem > ipa_wide::kMaxSmem) return (int)cudaErrorInvalidValue;
   if ((err = set_smem(ipa_wide_bwd_pair_kernel, smem))) return err;
-  const dim3 grid((N + kTile - 1) / kTile, (N + kTile - 1) / kTile);
+  const dim3 grid((Nk + kTile - 1) / kTile, (Nq + kTile - 1) / kTile);
   ipa_wide_bwd_pair_kernel<<<grid, kThreads, smem, stream>>>(in, d, dbias, dpz);
   return (int)cudaGetLastError();
 }
@@ -680,7 +695,7 @@ extern "C" int ipa_attention_wide_bwd_pair(IPA_BWD_INPUTS, float* dbias,
 // dynamic shared-memory bytes per block of kernel 0 (A), 1 (B) or 2 (C)
 extern "C" long long ipa_attention_wide_bwd_smem(int which, int C, int Pq,
                                                  int Pv, int Dz) {
-  const Dims d = make_dims(1, 1, 1, C, Pq, Pv, Dz, 0.f, 0.f, 0.f);
+  const Dims d = make_dims(1, 1, 1, 1, C, Pq, Pv, Dz, 0.f, 0.f, 0.f);
   switch (which) {
     case 0: return (long long)smem_bytes<SmemA>(d);
     case 1: return (long long)smem_bytes<SmemB>(d);

@@ -19,8 +19,11 @@
 //
 // Masking copies the reference exactly: a pad row (m_i = 0) still takes a
 // softmax over all keys, with the additive term inf = 1e5 rather than -inf,
-// and no key is skipped. Only keys past the end of the array (j >= N, the
-// ragged last tile) are excluded.
+// and no key is skipped. Only keys past the end of the array (j >= Nk, the
+// ragged last tile) are excluded. A call may take Nq query rows against Nk
+// keys with a query mask and a key mask (sequence parallelism: one rank's
+// rows against every key); the square call passes Nq = Nk = N and one mask
+// twice.
 //
 // Bound on an H100: about (4 C + 2 Pq*3 + 2 Pv*3 + 2 Dz + 12) FLOP per
 // (f, h, i, j), against the compulsory bytes of the inputs and outputs
@@ -75,10 +78,12 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ kp, const float* __restrict__ vp,
                     const float* __restrict__ bias,
                     const float* __restrict__ pz,
-                    const float* __restrict__ mask,
+                    const float* __restrict__ qmask,
+                    const float* __restrict__ kmask,
                     const float* __restrict__ head_w, float* __restrict__ o,
                     float* __restrict__ o_pt, float* __restrict__ o_pair,
-                    float* __restrict__ lse, int N, int H, int C, int P3q,
+                    float* __restrict__ lse, int Nq, int Nk, int H, int C,
+                    int P3q,
                     int P3v, int Dz, float c_qk, float c_b, float inf) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -106,25 +111,28 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y;
   const int f = blockIdx.z;
   const float w = head_w[h];
-  // element (f, n, h, d) of a [F, N, H, D] tensor: ((f*N + n)*H + h)*D + d
-  auto row = [&](int n) { return ((size_t)f * N + n) * H + h; };
+  // element (f, n, h, d) of a query-side [F, Nq, H, D] tensor:
+  // rowq(n) * D + d; of a key-side [F, Nk, H, D] one: rowk(n) * D + d
+  auto rowq = [&](int n) { return ((size_t)f * Nq + n) * H + h; };
+  auto rowk = [&](int n) { return ((size_t)f * Nk + n) * H + h; };
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int e = tid; e < kRows * C4; e += kThreads) {
     const int r = e / C4, c4 = e % C4, i = i0 + r;
     reinterpret_cast<float4*>(sQ + r * Cs)[c4] =
-        i < N ? reinterpret_cast<const float4*>(q + row(i) * C)[c4] : zero4;
+        i < Nq ? reinterpret_cast<const float4*>(q + rowq(i) * C)[c4]
+               : zero4;
     reinterpret_cast<float4*>(sO + r * C)[c4] = zero4;
   }
   for (int e = tid; e < kRows * P3q; e += kThreads) {
     const int r = e / P3q, x = e % P3q, i = i0 + r;
-    sQP[r * P3qs + x] = i < N ? qp[row(i) * P3q + x] : 0.f;
+    sQP[r * P3qs + x] = i < Nq ? qp[rowq(i) * P3q + x] : 0.f;
   }
   for (int e = tid; e < kRows * P3v; e += kThreads) sOpt[e] = 0.f;
   for (int e = tid; e < kRows * Dz; e += kThreads) sOpair[e] = 0.f;
   if (tid < kRows) {
     const int i = i0 + tid;
-    sQm[tid] = i < N ? mask[(size_t)f * N + i] : 0.f;
+    sQm[tid] = i < Nq ? qmask[(size_t)f * Nq + i] : 0.f;
     sM[tid] = kNegInit;
     sL[tid] = 0.f;
   }
@@ -140,23 +148,25 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int cg = tid % kRowThreads;
   const int i = i0 + r;
 
-  for (int j0 = 0; j0 < N; j0 += kKeys) {
-    const int nk = min(kKeys, N - j0);  // valid keys in this tile
+  for (int j0 = 0; j0 < Nk; j0 += kKeys) {
+    const int nk = min(kKeys, Nk - j0);  // valid keys in this tile
     for (int e = tid; e < kKeys * C4; e += kThreads) {
       const int jr = e / C4, c4 = e % C4;
       reinterpret_cast<float4*>(sKV + jr * Cs)[c4] =
-          jr < nk ? reinterpret_cast<const float4*>(k + row(j0 + jr) * C)[c4]
+          jr < nk
+              ? reinterpret_cast<const float4*>(k + rowk(j0 + jr) * C)[c4]
                   : zero4;
     }
     for (int e = tid; e < kKeys * P3q; e += kThreads) {
       const int jr = e / P3q, x = e % P3q;
-      sKP[jr * P3qs + x] = jr < nk ? kp[row(j0 + jr) * P3q + x] : 0.f;
+      sKP[jr * P3qs + x] = jr < nk ? kp[rowk(j0 + jr) * P3q + x] : 0.f;
     }
     for (int e = tid; e < kKeys * P3v; e += kThreads) {
       const int jr = e / P3v, x = e % P3v;
-      sVP[jr * P3v + x] = jr < nk ? vp[row(j0 + jr) * P3v + x] : 0.f;
+      sVP[jr * P3v + x] = jr < nk ? vp[rowk(j0 + jr) * P3v + x] : 0.f;
     }
-    if (tid < kKeys) sKm[tid] = tid < nk ? mask[(size_t)f * N + j0 + tid] : 0.f;
+    if (tid < kKeys)
+      sKm[tid] = tid < nk ? kmask[(size_t)f * Nk + j0 + tid] : 0.f;
     __syncthreads();
     if (tid < kKeys) {
       float s = 0.f;
@@ -189,7 +199,8 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int x = 0; x < P3q; ++x)
         cross = fmaf(sQP[r * P3qs + x], sKP[jr * P3qs + x], cross);
       float l = c_qk * logit[m];
-      l += c_b * ((i < N && jr < nk) ? bias[((size_t)i * N + j) * H + h] : 0.f);
+      l += c_b *
+           ((i < Nq && jr < nk) ? bias[((size_t)i * Nk + j) * H + h] : 0.f);
       l += -0.5f * w * (sQsq[r] + sKsq[jr] - 2.f * cross);
       l += inf * (sQm[r] * sKm[jr] - 1.f);
       logit[m] = jr < nk ? l : -INFINITY;
@@ -218,7 +229,8 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < kKeys * C4; e += kThreads) {
       const int jr = e / C4, c4 = e % C4;
       reinterpret_cast<float4*>(sKV + jr * Cs)[c4] =
-          jr < nk ? reinterpret_cast<const float4*>(v + row(j0 + jr) * C)[c4]
+          jr < nk
+              ? reinterpret_cast<const float4*>(v + rowk(j0 + jr) * C)[c4]
                   : zero4;
     }
     __syncthreads();
@@ -259,8 +271,8 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < kRows * Dz; e += kThreads) {
       const int rw = e / Dz, d = e % Dz, ii = i0 + rw;
       float acc = sOpair[e] * sA[rw];
-      if (ii < N) {
-        const float* pzr = pz + ((size_t)ii * N + j0) * Dz + d;
+      if (ii < Nq) {
+        const float* pzr = pz + ((size_t)ii * Nk + j0) * Dz + d;
         for (int jr = 0; jr < nk; ++jr)
           acc = fmaf(sP[rw * (kKeys + 1) + jr], pzr[(size_t)jr * Dz], acc);
       }
@@ -271,42 +283,45 @@ ipa_wide_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int e = tid; e < kRows * C4; e += kThreads) {
     const int rw = e / C4, c4 = e % C4, ii = i0 + rw;
-    if (ii < N) {
+    if (ii < Nq) {
       const float inv = 1.f / sL[rw];
       const float4 a = reinterpret_cast<const float4*>(sO + rw * C)[c4];
-      reinterpret_cast<float4*>(o + row(ii) * C)[c4] =
+      reinterpret_cast<float4*>(o + rowq(ii) * C)[c4] =
           make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
     }
   }
   for (int e = tid; e < kRows * P3v; e += kThreads) {
     const int rw = e / P3v, x = e % P3v, ii = i0 + rw;
-    if (ii < N) o_pt[row(ii) * P3v + x] = sOpt[e] * (1.f / sL[rw]);
+    if (ii < Nq) o_pt[rowq(ii) * P3v + x] = sOpt[e] * (1.f / sL[rw]);
   }
   for (int e = tid; e < kRows * Dz; e += kThreads) {
     const int rw = e / Dz, d = e % Dz, ii = i0 + rw;
-    if (ii < N) o_pair[row(ii) * Dz + d] = sOpair[e] * (1.f / sL[rw]);
+    if (ii < Nq) o_pair[rowq(ii) * Dz + d] = sOpair[e] * (1.f / sL[rw]);
   }
-  if (tid < kRows && i0 + tid < N)
-    lse[((size_t)f * H + h) * N + i0 + tid] = sM[tid] + logf(sL[tid]);
+  if (tid < kRows && i0 + tid < Nq)
+    lse[((size_t)f * H + h) * Nq + i0 + tid] = sM[tid] + logf(sL[tid]);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = the
-// launch was accepted). Layouts are the JAX package's: q, k, v [F, N, H, C];
-// q_pts, k_pts [F, N, H, Pq, 3]; v_pts [F, N, H, Pv, 3]; bias [N, N, H];
-// pair_z [N, N, Dz]; mask [F, N]; head_weights [H]; outputs o [F, N, H, C],
-// o_pt [F, N, H, Pv, 3], o_pair [F, N, H, Dz], lse [F, H, N]. All float32,
+// launch was accepted). Layouts are the JAX package's, with Nq query rows
+// against Nk keys (Nq = Nk = N in the square call): q [F, Nq, H, C], k, v
+// [F, Nk, H, C]; q_pts [F, Nq, H, Pq, 3], k_pts [F, Nk, H, Pq, 3]; v_pts
+// [F, Nk, H, Pv, 3]; bias [Nq, Nk, H]; pair_z [Nq, Nk, Dz]; mask [F, Nq]
+// (the query rows'), key_mask [F, Nk]; head_weights [H]; outputs o
+// [F, Nq, H, C], o_pt [F, Nq, H, Pv, 3], o_pair [F, Nq, H, Dz], lse
+// [F, H, Nq]. All float32,
 // contiguous; q, k, v and o 16-byte aligned, C divisible by 4, and the
 // widths within one block's shared memory (ipa_attention_wide_fwd_smem).
 extern "C" int ipa_attention_wide_fwd(
     const float* q, const float* k, const float* v, const float* q_pts,
     const float* k_pts, const float* v_pts, const float* bias,
-    const float* pair_z, const float* mask, const float* head_weights,
-    float* o, float* o_pt, float* o_pair, float* lse, int F, int N, int H,
-    int C, int Pq, int Pv, int Dz, float c_qk, float c_b, float inf,
-    int device, cudaStream_t stream) {
-  if (F < 1 || N < 1 || H < 1 || C < 4 || C % 4 != 0 || Pq < 1 || Pv < 1 ||
+    const float* pair_z, const float* mask, const float* key_mask,
+    const float* head_weights, float* o, float* o_pt, float* o_pair,
+    float* lse, int F, int Nq, int Nk, int H, int C, int Pq, int Pv, int Dz,
+    float c_qk, float c_b, float inf, int device, cudaStream_t stream) {
+  if (F < 1 || Nq < 1 || Nk < 1 || H < 1 || C < 4 || C % 4 != 0 || Pq < 1 || Pv < 1 ||
       Dz < 1 || H > 65535 || F > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(C, 3 * Pq, 3 * Pv, Dz) * sizeof(float);
@@ -317,10 +332,11 @@ extern "C" int ipa_attention_wide_fwd(
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kRows - 1) / kRows, H, F);
+  const dim3 grid((Nq + kRows - 1) / kRows, H, F);
   ipa_wide_fwd_kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights, o, o_pt,
-      o_pair, lse, N, H, C, 3 * Pq, 3 * Pv, Dz, c_qk, c_b, inf);
+      q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, key_mask,
+      head_weights, o, o_pt, o_pair, lse, Nq, Nk, H, C, 3 * Pq, 3 * Pv, Dz,
+      c_qk, c_b, inf);
   return (int)cudaGetLastError();
 }
 

@@ -2,6 +2,15 @@
 // the forward (ipa_attention_fwd.cu) and the three kernels of the backward
 // (ipa_attention_bwd.cu: dq, dk/dv, pair).
 //
+// Rectangular calls. A block of Nq query rows meets Nk keys: the query
+// side (q, q_pts, g_o, g_opt, g_pair, lse, D, the query mask and every
+// output but dk/dv) has Nq rows, the key side (k, v, their points and the
+// key mask) Nk, and bias [Nq, Nk, H] and pair_z [Nq, Nk, Dz] have rows of
+// Nk keys. Sequence parallelism gives each rank Nq = N / seq rows against
+// all N keys; the square call passes Nq = Nk = N and one mask twice, and
+// computes what it computed before the split. Indexing alone tells the two
+// sides apart (atq, atk); no arithmetic depends on it.
+//
 // Row-stationary layout (the forward, dq and pair kernels): a block owns 32
 // query rows of one (frame, head) and meets the keys 16 at a time: the
 // forward and dq walk every key of the (frame, head), the pair kernel one
@@ -40,7 +49,7 @@
 //
 // Key tiles. Each step's k and v rows (C floats), key points, key mask and
 // bias tile [32 rows][16 keys] arrive by cp.async, double-buffered across
-// the block, one block barrier per step. The bias is [N, N, H]: one float
+// the block, one block barrier per step. The bias is [Nq, Nk, H]: one float
 // of each 32-byte sector belongs to this head. The head is the fastest grid
 // axis of the forward and dq, so the H blocks of one (query tile, frame)
 // run together and the other seven floats of each sector are read from L2
@@ -84,7 +93,8 @@ constexpr int kPZs = kKeys * kMaxDz + 4;  // a pair_z tile row: [key][32]
 // loads is 4 mod 8 floats, so the 32 lanes' loads A[g][t] (rows g, columns
 // t) and B[2t][g] fall on 32 distinct banks.
 struct Layout {
-  int N, H, C, P3q, P3v, Dz;
+  int Nq, Nk;  // query rows and keys (equal in the square call)
+  int H, C, P3q, P3v, Dz;
   int CQ;      // channels per warp quarter: 8 NT
   int Cs;      // row stride of the k and v tiles: 32 NT + 4
   int pz_vec;  // Dz == 32 and pair_z 16-byte aligned: 16-byte copies
@@ -94,10 +104,11 @@ struct Layout {
 // NT (8-channel tiles per warp) of the kernel instance that takes C
 inline int tiles_for(int C) { return C <= 32 ? 1 : kMaxNT; }
 
-inline Layout make_layout(int N, int H, int C, int P3q, int P3v, int Dz,
-                          float c_qk, float c_b, float inf, bool pz_aligned) {
+inline Layout make_layout(int Nq, int Nk, int H, int C, int P3q, int P3v,
+                          int Dz, float c_qk, float c_b, float inf,
+                          bool pz_aligned) {
   Layout L;
-  L.N = N, L.H = H, L.C = C, L.P3q = P3q, L.P3v = P3v, L.Dz = Dz;
+  L.Nq = Nq, L.Nk = Nk, L.H = H, L.C = C, L.P3q = P3q, L.P3v = P3v, L.Dz = Dz;
   L.CQ = 8 * tiles_for(C);
   L.Cs = 4 * L.CQ + 4;
   L.pz_vec = Dz == kMaxDz && pz_aligned;
@@ -105,8 +116,9 @@ inline Layout make_layout(int N, int H, int C, int P3q, int P3v, int Dz,
   return L;
 }
 
-inline bool layout_ok(int N, int H, int C, int P3q, int P3v, int Dz) {
-  return N >= 1 && H >= 1 && C >= 4 && C % 4 == 0 && C <= kMaxC &&
+inline bool layout_ok(int Nq, int Nk, int H, int C, int P3q, int P3v,
+                      int Dz) {
+  return Nq >= 1 && Nk >= 1 && H >= 1 && C >= 4 && C % 4 == 0 && C <= kMaxC &&
          P3q >= 1 && P3q <= kMaxP3q && P3v >= 1 && P3v <= kMaxP3v &&
          Dz >= 1 && Dz <= kMaxDz && H <= 65535;
 }
@@ -191,10 +203,20 @@ __device__ __forceinline__ void deal(int R, int W, int first, int count,
   }
 }
 
-// element (f, n, h, x) of a [F, N, H, D] tensor
-__device__ __forceinline__ size_t at(const Layout& L, int f, int n, int h,
-                                     int D, int x) {
-  return (((size_t)f * L.N + n) * L.H + h) * D + x;
+// element (f, n, h, x) of a [F, rows, H, D] tensor: a query-side tensor
+// (q, its points, g_o, g_opt, g_pair, the outputs; rows = Nq) with atq, a
+// key-side one (k, v, their points; rows = Nk) with atk
+__device__ __forceinline__ size_t at_rows(int rows, int H, int f, int n,
+                                          int h, int D, int x) {
+  return (((size_t)f * rows + n) * H + h) * D + x;
+}
+__device__ __forceinline__ size_t atq(const Layout& L, int f, int n, int h,
+                                      int D, int x) {
+  return at_rows(L.Nq, L.H, f, n, h, D, x);
+}
+__device__ __forceinline__ size_t atk(const Layout& L, int f, int n, int h,
+                                      int D, int x) {
+  return at_rows(L.Nk, L.H, f, n, h, D, x);
 }
 
 // Zero the padding of both key tiles and of the pair_z tiles once: the
@@ -226,81 +248,84 @@ __device__ void zero_padding(const Common& s, const Layout& L) {
 
 // The key step at j0 into tile t, by the whole block, as one cp.async group
 // (committed even when empty, so every thread counts the same groups).
-// Keys past N and rows past N are zero-filled.
+// Keys past Nk and rows past Nq are zero-filled; kmask is the key mask
+// [F, Nk].
 __device__ void fetch_keys(const KeyTile& t, const float* __restrict__ k,
                            const float* __restrict__ v,
                            const float* __restrict__ kp,
                            const float* __restrict__ vp,
-                           const float* __restrict__ mask,
+                           const float* __restrict__ kmask,
                            const float* __restrict__ bias, int f, int h,
                            int i0, int j0, bool any, const Layout& L) {
   const int tid = threadIdx.x;
   if (any) {
-    const int nk = min(kKeys, L.N - j0);  // real keys of the step
+    const int nk = min(kKeys, L.Nk - j0);  // real keys of the step
     deal(kKeys, L.C / 4, tid, kThreads, [&](int r, int c4) {
       const bool ok = r < nk;
-      const size_t src = ok ? at(L, f, j0 + r, h, L.C, 4 * c4) : 0;
+      const size_t src = ok ? atk(L, f, j0 + r, h, L.C, 4 * c4) : 0;
       cp_async16(t.k + r * L.Cs + 4 * c4, k + src, ok);
       cp_async16(t.v + r * L.Cs + 4 * c4, v + src, ok);
     });
     deal(kKeys, L.P3q, tid, kThreads, [&](int r, int x) {
       const bool ok = r < nk;
       cp_async4(t.kp + r * kP3qs + x,
-                kp + (ok ? at(L, f, j0 + r, h, L.P3q, x) : 0), ok);
+                kp + (ok ? atk(L, f, j0 + r, h, L.P3q, x) : 0), ok);
     });
     deal(kKeys, L.P3v, tid, kThreads, [&](int r, int x) {
       const bool ok = r < nk;
       cp_async4(t.vp + r * kP3vs + x,
-                vp + (ok ? at(L, f, j0 + r, h, L.P3v, x) : 0), ok);
+                vp + (ok ? atk(L, f, j0 + r, h, L.P3v, x) : 0), ok);
     });
     if (tid < kKeys) {
       const bool ok = tid < nk;
-      cp_async4(t.km + tid, mask + (ok ? (size_t)f * L.N + j0 + tid : 0), ok);
+      cp_async4(t.km + tid, kmask + (ok ? (size_t)f * L.Nk + j0 + tid : 0),
+                ok);
     }
     for (int e = tid; e < kRows * kKeys; e += kThreads) {
       const int r = e / kKeys, c = e % kKeys, i = i0 + r;
-      const bool ok = i < L.N && c < nk;
+      const bool ok = i < L.Nq && c < nk;
       cp_async4(t.bias + r * kBS + c,
-                bias + (ok ? ((size_t)i * L.N + j0 + c) * L.H + h : 0), ok);
+                bias + (ok ? ((size_t)i * L.Nk + j0 + c) * L.H + h : 0), ok);
     }
   }
   cp_async_commit();
 }
 
-// The block's rows i0.. i0 + 31 of the (f, h) rows of a [F, N, H, D]
-// tensor into dst [kRows][stride], columns [0, width) with zeros past D
-// and past N, by the whole block; 4-byte cp.async, not committed (the
-// caller's next commit takes them).
+// The block's rows i0.. i0 + 31 of the (f, h) rows of a query-side
+// [F, Nq, H, D] tensor into dst [kRows][stride], columns [0, width) with
+// zeros past D and past Nq, by the whole block; 4-byte cp.async, not
+// committed (the caller's next commit takes them).
 __device__ void fetch_rows(float* dst, int stride, int width,
                            const float* __restrict__ x, int f, int h, int i0,
                            int D, const Layout& L) {
   deal(kRows, width, threadIdx.x, kThreads, [&](int r, int c) {
     const int i = i0 + r;
-    const bool ok = i < L.N && c < D;
-    cp_async4(dst + r * stride + c, x + (ok ? at(L, f, i, h, D, c) : 0), ok);
+    const bool ok = i < L.Nq && c < D;
+    cp_async4(dst + r * stride + c, x + (ok ? atq(L, f, i, h, D, c) : 0), ok);
   });
 }
 
 // pair_z rows r0.. r0+7 and keys j0.. j0+15 into dst [8][kPZs] ([key][32]
 // a row), by one warp, as one cp.async group: at Dz = 32 each row's 16 Dz
-// floats are one contiguous run of [N, N, Dz], copied 16 bytes at a time.
+// floats are one contiguous run of [Nq, Nk, Dz], copied 16 bytes at a
+// time.
 __device__ void fetch_pz(float* dst, const float* __restrict__ pz, int r0,
                          int j0, const Layout& L) {
   const int lane = threadIdx.x & 31;
-  const int nk = min(kKeys, L.N - j0);  // real keys of the step
+  const int nk = min(kKeys, L.Nk - j0);  // real keys of the step
   for (int r = 0; r < 8; ++r) {
     const int i = r0 + r;
-    const float* src = pz + ((size_t)min(i, L.N - 1) * L.N + j0) * L.Dz;
+    const float* src = pz + ((size_t)min(i, L.Nq - 1) * L.Nk + j0) * L.Dz;
     float* d = dst + r * kPZs;
     if (L.pz_vec) {
       for (int c = 4 * lane; c < kKeys * kMaxDz; c += 4 * 32) {
-        const bool ok = i < L.N && c < nk * kMaxDz;
+        const bool ok = i < L.Nq && c < nk * kMaxDz;
         cp_async16(d + c, ok ? src + c : pz, ok);
       }
     } else {
       for (int c = lane; c < kKeys * L.Dz; c += 32) {
         const int key = c / L.Dz, x = c - key * L.Dz;
-        const bool ok = i < L.N && key < nk;
+        const bool ok = i < L.Nq && key < nk;
         cp_async4(d + key * kMaxDz + x, ok ? src + c : pz, ok);
       }
     }
@@ -309,18 +334,20 @@ __device__ void fetch_pz(float* dst, const float* __restrict__ pz, int r0,
 }
 
 // A fragment (raw float32) of rows row0 + g, row0 + g + 8 and columns
-// col + t, col + t + 4 of the (f, h) rows of a [F, N, H, D] tensor; zero
-// past N and past `cols`.
+// col + t, col + t + 4 of the (f, h) rows of a [F, rows, H, D] tensor
+// (rows: L.Nq for a query-side tensor, L.Nk for a key-side one); zero past
+// `rows` and past `cols`.
 __device__ __forceinline__ void load_afrag(float (&a)[4],
                                            const float* __restrict__ x,
-                                           const Layout& L, int f, int h,
-                                           int row0, int D, int col,
+                                           const Layout& L, int rows, int f,
+                                           int h, int row0, int D, int col,
                                            int cols) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int i = row0 + g + 8 * (e & 1), c = col + t + 4 * (e >> 1);
-    a[e] = (i < L.N && c < cols) ? x[at(L, f, i, h, D, c)] : 0.f;
+    a[e] = (i < rows && c < cols) ? x[at_rows(rows, L.H, f, i, h, D, c)]
+                                  : 0.f;
   }
 }
 
@@ -632,7 +659,7 @@ __device__ __forceinline__ void tile_products(
 // a, dl and the point distance of rows r0 + g, r0 + g + 8 (tile `tile` of
 // the block) and keys j0 + 8 n + 2 t + {0, 1} of the step in kt, from the
 // exchange: the four warps of the tile read the same operands and compute
-// the same values. a = dl = 0 past N.
+// the same values. a = dl = 0 past Nq and past Nk.
 __device__ __forceinline__ void tile_a_dl(
     float (&a)[2][4], float (&dl)[2][4], float (&dist)[2][4],
     const float* xch, const KeyTile& kt, int tile, const float (&qm)[2],
@@ -644,7 +671,7 @@ __device__ __forceinline__ void tile_a_dl(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1, c = 8 * n + 2 * t + (e & 1);
-      const bool valid = r0 + g + 8 * r < L.N && j0 + c < L.N;
+      const bool valid = r0 + g + 8 * r < L.Nq && j0 + c < L.Nk;
       dist[n][e] = xval(xch, kDist, n, e);
       const float l = ipa_logit(
           xsum4(xch, kQK, n, e), kt.bias[(16 * tile + g + 8 * r) * kBS + c],

@@ -11,6 +11,14 @@ bias and pair_z, as the JAX package's Pallas branch does (``ipa.py:206-216``),
 and logits, softmax, geometry and the block output stay float32.
 Parameter names follow the reference torch layout, whose point projections
 are xyz-major (row xyz*(H*P) + hp).
+
+Under sequence parallelism (``parallel/sp.py``) s, r and mask hold this
+rank's rows and z is [rows, N, c_z], this rank's rows against every
+residue. q, k, v and the points are projected and lifted on this rank's
+rows; k, v, their points and the key mask are then gathered over the
+ranks (``sp.gather_rows``, one collective a call), and the kernel takes
+this rank's query rows against all N keys. b and pair_z come from z's rows
+as they are.
 """
 from __future__ import annotations
 
@@ -24,11 +32,25 @@ from dynamicpdb_tpu_torch.config import IPAConfig
 from dynamicpdb_tpu_torch.models.layers import Linear
 from dynamicpdb_tpu_torch.ops.ipa_attention import ipa_attention
 from dynamicpdb_tpu_torch.ops.rigid import Rigid
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 def _xyz_major_points(x, n_pts: int):
     """[..., 3*n_pts] in xyz-major order -> [..., n_pts, 3]."""
     return x.reshape(x.shape[:-1] + (3, n_pts)).transpose(-1, -2)
+
+
+def _gather_keys(n_res: int, *keys):
+    """k, v, k_pts, v_pts and the mask of this rank's rows ([F, rows, ...],
+    float32) gathered over the 'seq' ranks into one collective and cut to
+    the window's ``n_res`` keys, each contiguous in its own shape."""
+    F_, rows = keys[0].shape[:2]
+    flat = torch.cat([t.reshape(F_, rows, -1) for t in keys], dim=-1)
+    whole = sp.gather_rows(flat, n_res, dim=1)
+    widths = [t[0, 0].numel() for t in keys]
+    return tuple(
+        part.reshape((F_, n_res) + t.shape[2:]).contiguous()
+        for part, t in zip(whole.split(widths, dim=-1), keys))
 
 
 class InvariantPointAttention(nn.Module):
@@ -78,10 +100,16 @@ class InvariantPointAttention(nn.Module):
         def f32(x):
             return x.float().contiguous()
 
+        q, k, v, q_pts = f32(q), f32(k), f32(v), f32(q_pts)
+        k_pts, v_pts, mask = f32(k_pts), f32(v_pts), f32(mask)
+        key_mask = None
+        if sp.is_active():
+            k, v, k_pts, v_pts, key_mask = _gather_keys(
+                z.shape[1], k, v, k_pts, v_pts, mask)
         o, o_pt_global, o_pair, _ = ipa_attention(
-            f32(q), f32(k), f32(v), f32(q_pts), f32(k_pts), f32(v_pts),
-            f32(b), f32(pair_z), f32(mask), f32(head_weights),
-            math.sqrt(1.0 / (3 * C)), math.sqrt(1.0 / 3), self.inf,
+            q, k, v, q_pts, k_pts, v_pts, f32(b), f32(pair_z), mask,
+            f32(head_weights), math.sqrt(1.0 / (3 * C)), math.sqrt(1.0 / 3),
+            self.inf, key_mask=key_mask,
         )
 
         # DFOLD extra: keep the global-frame point outputs beside the local

@@ -6,12 +6,18 @@ from JAX params loads with ``strict=True``. Parameters are float32; a
 ``compute_dtype`` of bfloat16 runs a layer's matmul or convolution in bf16.
 Weights come from a checkpoint (or ``weights.randomize_``); the layers keep
 torch's default init.
+
+Under sequence parallelism (``parallel/sp.py``) x holds this rank's rows of
+the window: ``global_stat_norm`` sums its statistics over the ranks and
+``ConvNet`` takes two rows of each neighbour before every convolution.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 class Linear(nn.Linear):
@@ -35,16 +41,27 @@ def global_stat_norm(x, mask=None, eps: float = 1e-4):
 
     ``mask`` ([..., N], broadcast over x's leading dims) keeps padded
     residues out of the statistics, so real-residue outputs do not depend on
-    the padding. Statistics are float32; the result has x's dtype."""
+    the padding. Statistics are float32; the result has x's dtype.
+
+    Under sequence parallelism x and mask hold this rank's rows, and the
+    statistics take two reductions over the ranks, as one process takes
+    them in two passes: n and the masked sum of x give the mean, then the
+    masked sum of (x - mean)^2 the variance. The mask is required there
+    (the pad rows must stay out)."""
     x32 = x.float()
     if mask is None:
+        if sp.is_active():
+            raise ValueError("global_stat_norm under sequence parallelism "
+                             "needs the mask of this rank's rows")
         mean = torch.mean(x32)
         var = torch.sum((x32 - mean) ** 2) / max(x.numel() - 1, 1)
     else:
         m = mask.float()[..., None].expand(x32.shape)
-        n = torch.sum(m)
-        mean = torch.sum(x32 * m) / torch.clamp(n, min=1.0)
-        var = torch.sum((x32 - mean) ** 2 * m) / torch.clamp(n - 1.0, min=1.0)
+        n, s = sp.all_reduce_sum(torch.stack([torch.sum(m),
+                                              torch.sum(x32 * m)])).unbind(0)
+        mean = s / torch.clamp(n, min=1.0)
+        var = sp.all_reduce_sum(torch.sum((x32 - mean) ** 2 * m)) / (
+            torch.clamp(n - 1.0, min=1.0))
     return ((x32 - mean) / torch.sqrt(var + eps)).to(x.dtype)
 
 
@@ -78,10 +95,17 @@ class _ConvPair(nn.Sequential):
 
 def _conv5x5(conv: nn.Conv2d, x, dtype):
     """5x5 SAME convolution over the [F, N] grid of x [F, N, C]; the
-    [1, C, F, N] view is channels-last, so no copy is made."""
+    [1, C, F, N] view is channels-last, so no copy is made. Under sequence
+    parallelism x is this rank's rows: two rows of each neighbour (zeros
+    at the window's ends, as SAME pads) join them, and the residue axis
+    takes no padding."""
     w = conv.weight.to(dtype)
     b = conv.bias.to(dtype)
-    y = F.conv2d(x.to(dtype)[None].permute(0, 3, 1, 2), w, b, padding=2)
+    x = x.to(dtype)
+    padding = 2
+    if sp.is_active():
+        x, padding = sp.halo_exchange(x, 2, dim=1), (2, 0)
+    y = F.conv2d(x[None].permute(0, 3, 1, 2), w, b, padding=padding)
     return y.permute(0, 2, 3, 1)[0]
 
 

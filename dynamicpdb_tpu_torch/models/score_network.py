@@ -22,6 +22,23 @@ params onto it.
 ``model.remat`` wraps each IPA block in ``torch.utils.checkpoint``, as
 ``nn.remat`` does (``:148-157``): its activations are recomputed in the
 backward instead of kept.
+
+Sequence parallelism (``parallel/sp.py``, active inside
+``sp.activated(mesh)``): the forward takes the whole window's features on
+every rank and first cuts every per-residue input to this rank's rows
+(``_local_window``), edge_repr to [rows, N, De] before ``expand_edge``, so
+no activation is [N, N, .]. The input edge_repr itself is whole on the
+device unless the caller cut it on the host (``sp.host_edge_rows``: the
+Trainer, ``sampling/evaluate.py`` and ``tools/sp_run.py`` do; a caller of
+the samplers under ``sp.activated`` should too). The trunk runs on those rows
+(IPA gathers its keys, GlobalStatNorm sums its statistics, ConvNet trades
+halo rows), and the per-residue outputs are gathered back to the whole
+window at the end (``sp.gather_replicated``, one collective): every rank
+returns the one-process outputs, so the score conversion, the loss and the
+samplers run unchanged on every rank. Their gradient is the same on every
+rank, and the gather's backward hands each rank its rows' slice; every
+parameter is used on this rank's rows only, so a parameter's gradient is
+this rank's share, and the trainer sums the shares over 'seq'.
 """
 from __future__ import annotations
 
@@ -43,12 +60,43 @@ from dynamicpdb_tpu_torch.models.layers import (
 )
 from dynamicpdb_tpu_torch.ops import frames as frame_ops
 from dynamicpdb_tpu_torch.ops.rigid import Rigid
+from dynamicpdb_tpu_torch.parallel import sp
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
+
+# the per-residue inputs of the forward, by the axis that runs over residues
+ROW_INPUTS = {"res_mask": 1, "fixed_mask": 1, "seq_idx": 1, "rigids_0": 1,
+              "torsion_angles_sin_cos": 1, "torsion_angles_mask": 1,
+              "force": 1, "vel": 1, "aatype": 1, "node_repr": 0}
+OUTPUT_KEYS = ("rigids", "angles", "unorm_angles", "rigid_update", "atom14",
+               "atom37")
+IDENTITY7 = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 
 def _ref_cat(x):
     """[F, ...] -> references + copy of F-2 in the last slot."""
     return torch.cat([x[:-1], x[-2:-1]], dim=0)
+
+
+def _local_window(feats: dict) -> dict:
+    """The forward's inputs cut to this rank's rows (pad rows past the
+    window: masked, identity rigids); edge_repr [rows, N, De]."""
+    n_res = feats["res_mask"].shape[1]
+    out = {k: sp.take_rows(feats[k], n_res, dim,
+                           fill=IDENTITY7 if k == "rigids_0" else None)
+           for k, dim in ROW_INPUTS.items()}
+    out["edge_repr"] = sp.edge_rows(feats["edge_repr"], n_res)
+    return out
+
+
+def _gather_outputs(out: dict, n_res: int) -> dict:
+    """The per-residue outputs [F, rows, ...] of every rank, in one
+    collective, as the whole window's [F, n_res, ...]."""
+    F, rows = out["rigids"].shape[:2]
+    flat = torch.cat([out[k].reshape(F, rows, -1) for k in OUTPUT_KEYS], -1)
+    whole = sp.gather_replicated(flat, n_res, dim=1)
+    widths = [out[k][0, 0].numel() for k in OUTPUT_KEYS]
+    return {k: part.reshape((F, n_res) + out[k].shape[2:])
+            for k, part in zip(OUTPUT_KEYS, whole.split(widths, dim=-1))}
 
 
 class _Trunk(nn.Module):
@@ -103,8 +151,17 @@ class DFoldScoreNetwork(nn.Module):
         drop_ref: False, or a 0/1 float (tensor) that drops the
           conditioning when 1.
         Returns rigids (tensor-7, unscaled), angles, unorm_angles,
-          rigid_update, atom14, atom37.
+          rigid_update, atom14, atom37. Under sequence parallelism
+          edge_repr may also be this rank's rows alone
+          (``sp.host_edge_rows``).
         """
+        if not sp.is_active():
+            return self._forward(feats, drop_ref)
+        n_res = feats["res_mask"].shape[1]
+        out = self._forward(_local_window(feats), drop_ref)
+        return _gather_outputs(out, n_res)
+
+    def _forward(self, feats: dict[str, Any], drop_ref=False):
         cfg, sm = self.cfg, self.score_model
         ipa_cfg = cfg.ipa
         dtype = self.dtype

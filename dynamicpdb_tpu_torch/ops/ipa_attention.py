@@ -37,6 +37,15 @@ the tensor cores (3xTF32, float32 accuracy), which bounds their widths:
 C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``). The wide
 kernels run every operation on the CUDA cores in float32.
 
+Rectangular calls. Every function takes ``key_mask``: the queries are
+then Nq rows (q, q_pts, ``mask`` [F, Nq] and the cotangents) against Nk
+keys (k, v, k_pts, v_pts, ``key_mask`` [F, Nk]), bias is [Nq, Nk, H] and
+pair_z [Nq, Nk, Dz]; dk, dkp, dv and dvp are the sums over these Nq rows,
+and dbias and dpz [Nq, Nk, .]. Sequence parallelism (``parallel/sp.py``)
+calls them so with one rank's rows against every key. Without
+``key_mask`` (None) the call is square: Nq = Nk = N, and the kernels take
+``mask`` as both masks, which is the call they took before the split.
+
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
 ``bwd_pair_launches`` count the tensor-core kernels' launches of this
 process, ``wide_launches``, ``wide_bwd_dq_launches``,
@@ -66,10 +75,12 @@ INPUT_NAMES = ("q", "k", "v", "q_pts", "k_pts", "v_pts", "bias", "pair_z",
 
 
 def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
-                        head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
+                        head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                        key_mask=None):
     """Dense IPA attention in float32, the semantics of record
     (``dynamicpdb_tpu/models/ipa.py:55 dense_ipa_attention``) plus the row
     log-sum-exp. Shapes as in ``ipa_attention``."""
+    key_mask = mask if key_mask is None else key_mask
     f32 = torch.float32
     q, k, v = q.to(f32), k.to(f32), v.to(f32)
     bias, pair_z = bias.to(f32), pair_z.to(f32)
@@ -84,8 +95,8 @@ def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
         - 2 * cross
     )  # [F, H, N, N]
     a = a + (-0.5) * head_weights[None, :, None, None] * pt_att
-    a = a + inf * (mask[:, :, None] * mask[:, None, :] - 1.0)[:, None]
-    lse = torch.logsumexp(a, dim=-1)  # [F, H, N]
+    a = a + inf * (mask[:, :, None] * key_mask[:, None, :] - 1.0)[:, None]
+    lse = torch.logsumexp(a, dim=-1)  # [F, H, Nq]
     a = torch.softmax(a, dim=-1)
     return (
         torch.einsum("fhij,fjhc->fihc", a, v),
@@ -99,10 +110,11 @@ def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
 # plain versions of the three backward kernels
 # ---------------------------------------------------------------------------
 def _recompute(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
-               lse, dvec, g_o, g_opt, g_pair, c_qk, c_b, inf):
+               lse, dvec, g_o, g_opt, g_pair, c_qk, c_b, inf, key_mask=None):
     """The backward's tile recompute (``_tile_a_dl`` :240) over all (i, j)
-    at once: a, dl and dist, each [F, H, N, N]. Points are [F, N, H, P*3];
-    lse and dvec [F, H, N]."""
+    at once: a, dl and dist, each [F, H, Nq, Nk]. Points are
+    [F, N, H, P*3]; lse and dvec [F, H, Nq]."""
+    key_mask = mask if key_mask is None else key_mask
     hw = head_weights[None, :, None, None]
     logits = c_qk * torch.einsum("fihc,fjhc->fhij", q, k)
     logits = logits + c_b * bias.permute(2, 0, 1)[None]
@@ -110,7 +122,8 @@ def _recompute(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
     kp_sq = torch.sum(k_pts * k_pts, -1).transpose(1, 2)[..., None, :]
     dist = qp_sq + kp_sq - 2.0 * torch.einsum("fihx,fjhx->fhij", q_pts, k_pts)
     logits = logits + (-0.5) * hw * dist
-    logits = logits + inf * (mask[:, :, None] * mask[:, None, :] - 1.0)[:, None]
+    logits = logits + inf * (mask[:, :, None] * key_mask[:, None, :]
+                             - 1.0)[:, None]
     a = torch.exp(logits - lse[..., None])
     ds = (torch.einsum("fihc,fjhc->fhij", g_o, v)
           + torch.einsum("fihx,fjhx->fhij", g_opt, v_pts)
@@ -118,26 +131,26 @@ def _recompute(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
     return a, a * (ds - dvec[..., None]), dist
 
 
-def ipa_bwd_dq_plain(*inputs, c_qk, c_b, inf):
-    """Kernel A's function: (dq [F,N,H,C], dqp [F,N,H,Pq*3],
-    dhw_rows [F,H,N])."""
+def ipa_bwd_dq_plain(*inputs, c_qk, c_b, inf, key_mask=None):
+    """Kernel A's function: (dq [F,Nq,H,C], dqp [F,Nq,H,Pq*3],
+    dhw_rows [F,H,Nq])."""
     k, qp, kp, hw = inputs[1], inputs[3], inputs[4], inputs[9]
-    _, dl, dist = _recompute(*inputs, c_qk, c_b, inf)
+    _, dl, dist = _recompute(*inputs, c_qk, c_b, inf, key_mask)
     dq = c_qk * torch.einsum("fhij,fjhc->fihc", dl, k)
-    rowsum = dl.sum(-1).transpose(1, 2)[..., None]  # [F, N, H, 1]
+    rowsum = dl.sum(-1).transpose(1, 2)[..., None]  # [F, Nq, H, 1]
     dlkp = torch.einsum("fhij,fjhx->fihx", dl, kp)
     dqp = -hw[:, None] * (rowsum * qp - dlkp)
     return dq, dqp, torch.sum(-0.5 * dist * dl, -1)
 
 
-def ipa_bwd_dkv_plain(*inputs, c_qk, c_b, inf):
+def ipa_bwd_dkv_plain(*inputs, c_qk, c_b, inf, key_mask=None):
     """Kernel B's function: (dk, dkp, dv, dvp) in the layouts of k, k_pts,
-    v, v_pts (points flattened to P*3)."""
+    v, v_pts (points flattened to P*3), summed over the Nq query rows."""
     q, kp, qp, hw = inputs[0], inputs[4], inputs[3], inputs[9]
     g_o, g_opt = inputs[12], inputs[13]
-    a, dl, _ = _recompute(*inputs, c_qk, c_b, inf)
+    a, dl, _ = _recompute(*inputs, c_qk, c_b, inf, key_mask)
     dk = c_qk * torch.einsum("fhij,fihc->fjhc", dl, q)
-    colsum = dl.sum(-2).transpose(1, 2)[..., None]  # [F, N, H, 1]
+    colsum = dl.sum(-2).transpose(1, 2)[..., None]  # [F, Nk, H, 1]
     dlqp = torch.einsum("fhij,fihx->fjhx", dl, qp)
     dkp = -hw[:, None] * (colsum * kp - dlqp)
     dv = torch.einsum("fhij,fihc->fjhc", a, g_o)
@@ -145,10 +158,10 @@ def ipa_bwd_dkv_plain(*inputs, c_qk, c_b, inf):
     return dk, dkp, dv, dvp
 
 
-def ipa_bwd_pair_plain(*inputs, c_qk, c_b, inf):
-    """Kernel C's function: (dbias [N,N,H], dpz [N,N,Dz])."""
+def ipa_bwd_pair_plain(*inputs, c_qk, c_b, inf, key_mask=None):
+    """Kernel C's function: (dbias [Nq,Nk,H], dpz [Nq,Nk,Dz])."""
     g_pair = inputs[14]
-    a, dl, _ = _recompute(*inputs, c_qk, c_b, inf)
+    a, dl, _ = _recompute(*inputs, c_qk, c_b, inf, key_mask)
     dbias = c_b * dl.sum(0).permute(1, 2, 0)
     dpz = torch.einsum("fhij,fihd->ijd", a, g_pair)
     return dbias, dpz
@@ -171,9 +184,9 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     libraries export the same functions as the tensor-core ones, under
     names of their own."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    shapes = [i] * 7 + [f] * 3 + [i, p]
+    shapes = [i] * 8 + [f] * 3 + [i, p]  # F, Nq, Nk, H, C, Pq, Pv, Dz, ...
     if name in ("ipa_attention_fwd", "ipa_attention_wide_fwd"):
-        getattr(lib, name).argtypes = [p] * 14 + shapes
+        getattr(lib, name).argtypes = [p] * 15 + shapes
         getattr(lib, name).restype = i
         err = name.removesuffix("_fwd") + "_error_string"
         n_smem_args = 4
@@ -182,7 +195,7 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
             lib.ipa_attention_wide_smem_limit.restype = ctypes.c_longlong
     else:
         for kind, n_out in (("dq", 3), ("dkv", 4), ("pair", 2)):
-            getattr(lib, f"{name}_{kind}").argtypes = [p] * (15 + n_out) + shapes
+            getattr(lib, f"{name}_{kind}").argtypes = [p] * (16 + n_out) + shapes
             getattr(lib, f"{name}_{kind}").restype = i
         err = f"{name}_error_string"
         n_smem_args = 5
@@ -274,9 +287,11 @@ def kernel_route(fn: str, C: int, P3q: int, P3v: int, Dz: int,
     return "wide"
 
 
-def _launch(fn: str, route: str, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, c_b,
-            inf, device):
-    """Launch wrapper ``fn``'s kernel on ``route`` on the current stream."""
+def _launch(fn: str, route: str, ptrs, F, Nq, Nk, H, C, Pq, Pv, Dz, c_qk,
+            c_b, inf, device):
+    """Launch wrapper ``fn``'s kernel on ``route`` on the current stream;
+    ``ptrs``: the inputs with the key mask after the mask, then the
+    outputs."""
     if route == "tc":
         lib = _lib("ipa_attention_fwd" if fn == "ipa_attention_fwd"
                    else "ipa_attention_bwd")
@@ -286,7 +301,8 @@ def _launch(fn: str, route: str, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, c_b,
         lib = _lib(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, launcher)(
-        *ptrs, F, N, H, C, Pq, Pv, Dz, float(c_qk), float(c_b), float(inf),
+        *ptrs, F, Nq, Nk, H, C, Pq, Pv, Dz, float(c_qk), float(c_b),
+        float(inf),
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
     )
@@ -295,31 +311,48 @@ def _launch(fn: str, route: str, ptrs, F, N, H, C, Pq, Pv, Dz, c_qk, c_b,
                            f"{lib.error_string(rc).decode()} (code {rc})")
 
 
+def input_shapes(F, Nq, Nk, H, C, P3q, P3v, Dz, points) -> dict:
+    """The shape of each of ``INPUT_NAMES`` and of ``key_mask`` in a call of
+    Nq query rows against Nk keys; points [..., P, 3] (``points`` True:
+    the forward's layout) or [..., P*3] (the backward kernels')."""
+    def pts(n, p3):
+        return (F, n, H, p3 // 3, 3) if points else (F, n, H, p3)
+
+    return {
+        "q": (F, Nq, H, C), "k": (F, Nk, H, C), "v": (F, Nk, H, C),
+        "q_pts": pts(Nq, P3q), "k_pts": pts(Nk, P3q), "v_pts": pts(Nk, P3v),
+        "bias": (Nq, Nk, H), "pair_z": (Nq, Nk, Dz), "mask": (F, Nq),
+        "key_mask": (F, Nk), "head_weights": (H,),
+    }
+
+
 def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
-                      head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
+                      head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                      key_mask=None):
     """Fused IPA attention forward (no autograd).
 
-    q, k, v [F, N, H, C]; q_pts, k_pts [F, N, H, Pq, 3] and v_pts
-    [F, N, H, Pv, 3] in the global frame; bias [N, N, H] and pair_z
-    [N, N, Dz] shared by the frames; mask [F, N]; head_weights [H] (already
-    softplus'ed and scaled). Returns (o [F, N, H, C], o_pt [F, N, H, Pv, 3],
-    o_pair [F, N, H, Dz], lse [F, H, N]), all float32.
+    q [F, Nq, H, C], k, v [F, Nk, H, C]; q_pts [F, Nq, H, Pq, 3], k_pts
+    [F, Nk, H, Pq, 3] and v_pts [F, Nk, H, Pv, 3] in the global frame; bias
+    [Nq, Nk, H] and pair_z [Nq, Nk, Dz] shared by the frames; mask [F, Nq];
+    key_mask [F, Nk] (None: the square call, Nq = Nk, ``mask`` for both);
+    head_weights [H] (already softplus'ed and scaled). Returns
+    (o [F, Nq, H, C], o_pt [F, Nq, H, Pv, 3], o_pair [F, Nq, H, Dz],
+    lse [F, H, Nq]), all float32.
     """
     global launches, wide_launches
     args = (q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights)
-    device = _device_of("ipa_attention", args)
+    key_mask = mask if key_mask is None else key_mask
+    device = _device_of("ipa_attention", args + (key_mask,))
     if device.type == "cpu":
-        return ipa_attention_plain(*args, c_qk, c_b=c_b, inf=inf)
+        return ipa_attention_plain(*args, c_qk, c_b=c_b, inf=inf,
+                                   key_mask=key_mask)
 
     F, N, H, C = q.shape
+    Nk = k.shape[1]
     Pq, Pv, Dz = q_pts.shape[-2], v_pts.shape[-2], pair_z.shape[-1]
-    expected = {
-        "q": (F, N, H, C), "k": (F, N, H, C), "v": (F, N, H, C),
-        "q_pts": (F, N, H, Pq, 3), "k_pts": (F, N, H, Pq, 3),
-        "v_pts": (F, N, H, Pv, 3), "bias": (N, N, H), "pair_z": (N, N, Dz),
-        "mask": (F, N), "head_weights": (H,),
-    }
-    _check_kernel_inputs("ipa_attention", dict(zip(INPUT_NAMES, args)),
+    expected = input_shapes(F, N, Nk, H, C, 3 * Pq, 3 * Pv, Dz, points=True)
+    _check_kernel_inputs("ipa_attention", dict(zip(INPUT_NAMES, args),
+                                               key_mask=key_mask),
                          expected, C)
     route = kernel_route("ipa_attention_fwd", C, 3 * Pq, 3 * Pv, Dz)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -329,9 +362,9 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     o_pt = torch.empty((F, N, H, Pv, 3), dtype=torch.float32, device=device)
     o_pair = torch.empty((F, N, H, Dz), dtype=torch.float32, device=device)
     lse = torch.empty((F, H, N), dtype=torch.float32, device=device)
-    _launch("ipa_attention_fwd", route,
-            [t.data_ptr() for t in args + (o, o_pt, o_pair, lse)],
-            F, N, H, C, Pq, Pv, Dz, c_qk, c_b, inf, device)
+    operands = args[:9] + (key_mask,) + args[9:] + (o, o_pt, o_pair, lse)
+    _launch("ipa_attention_fwd", route, [t.data_ptr() for t in operands],
+            F, N, Nk, H, C, Pq, Pv, Dz, c_qk, c_b, inf, device)
     if route == "tc":
         launches += 1
     else:
@@ -342,48 +375,52 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
 BWD_INPUT_NAMES = INPUT_NAMES + ("lse", "dvec", "g_o", "g_opt", "g_pair")
 
 
-def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf):
+def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf, key_mask):
     """Run backward kernel ``fn`` (or ``plain`` on the CPU) on the 15
-    backward inputs (points flattened to P*3); ``out_shapes(F, N, H, C,
-    P3q, P3v, Dz)`` gives the shapes of its outputs. Returns the outputs
-    and the route that ran (``kernel_route``; None on the CPU)."""
-    device = _device_of(fn, inputs)
+    backward inputs (points flattened to P*3) and the key mask (None: the
+    square call); ``out_shapes(F, Nq, Nk, H, C, P3q, P3v, Dz)`` gives the
+    shapes of its outputs. Returns the outputs and the route that ran
+    (``kernel_route``; None on the CPU)."""
+    key_mask = inputs[8] if key_mask is None else key_mask
+    device = _device_of(fn, tuple(inputs) + (key_mask,))
     if device.type == "cpu":
-        return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf), None
-    q, q_pts, v_pts, pair_z = inputs[0], inputs[3], inputs[5], inputs[7]
+        return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf,
+                     key_mask=key_mask), None
+    q, k, q_pts, v_pts, pair_z = (inputs[0], inputs[1], inputs[3], inputs[5],
+                                  inputs[7])
     F, N, H, C = q.shape
+    Nk = k.shape[1]
     P3q, P3v, Dz = q_pts.shape[-1], v_pts.shape[-1], pair_z.shape[-1]
     if P3q % 3 or P3v % 3:
         raise ValueError(f"{fn}: point widths {P3q}, {P3v} are not P*3")
-    expected = {
-        "q": (F, N, H, C), "k": (F, N, H, C), "v": (F, N, H, C),
-        "q_pts": (F, N, H, P3q), "k_pts": (F, N, H, P3q),
-        "v_pts": (F, N, H, P3v), "bias": (N, N, H), "pair_z": (N, N, Dz),
-        "mask": (F, N), "head_weights": (H,), "lse": (F, H, N),
-        "dvec": (F, H, N), "g_o": (F, N, H, C), "g_opt": (F, N, H, P3v),
-        "g_pair": (F, N, H, Dz),
-    }
-    named = dict(zip(BWD_INPUT_NAMES, inputs))
+    expected = dict(
+        input_shapes(F, N, Nk, H, C, P3q, P3v, Dz, points=False),
+        lse=(F, H, N), dvec=(F, H, N), g_o=(F, N, H, C), g_opt=(F, N, H, P3v),
+        g_pair=(F, N, H, Dz))
+    named = dict(zip(BWD_INPUT_NAMES, inputs), key_mask=key_mask)
     _check_kernel_inputs(fn, named, expected, C)
     route = kernel_route(fn, C, P3q, P3v, Dz)
     if any(named[n].data_ptr() % 16 for n in ("q", "k", "v", "g_o")):
         raise ValueError(f"{fn}: q, k, v and g_o must be 16-byte aligned")
     outs = [torch.empty(shape, dtype=torch.float32, device=device)
-            for shape in out_shapes(F, N, H, C, P3q, P3v, Dz)]
-    _launch(fn, route, [t.data_ptr() for t in tuple(inputs) + tuple(outs)],
-            F, N, H, C, P3q // 3, P3v // 3, Dz, c_qk, c_b, inf, device)
+            for shape in out_shapes(F, N, Nk, H, C, P3q, P3v, Dz)]
+    operands = tuple(inputs[:9]) + (key_mask,) + tuple(inputs[9:]) + tuple(outs)
+    _launch(fn, route, [t.data_ptr() for t in operands],
+            F, N, Nk, H, C, P3q // 3, P3v // 3, Dz, c_qk, c_b, inf, device)
     return tuple(outs), route
 
 
-def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
+def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                         key_mask=None):
     """Kernel A on the backward inputs (``BWD_INPUT_NAMES``, points
-    [F, N, H, P*3], lse and dvec [F, H, N]): (dq, dqp, dhw_rows [F, H, N])."""
+    [F, N, H, P*3], lse and dvec [F, H, Nq]) and the key mask (None: the
+    square call): (dq, dqp, dhw_rows [F, H, Nq])."""
     global bwd_dq_launches, wide_bwd_dq_launches
     out, route = _bwd_call(
         "ipa_attention_bwd_dq", ipa_bwd_dq_plain,
-        lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
-                                          (F, H, N)),
-        inputs, c_qk, c_b, inf)
+        lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((F, Nq, H, C),
+                                               (F, Nq, H, P3q), (F, H, Nq)),
+        inputs, c_qk, c_b, inf, key_mask)
     if route == "tc":
         bwd_dq_launches += 1
     elif route == "wide":
@@ -391,14 +428,18 @@ def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
     return out
 
 
-def ipa_attention_bwd_dkv(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
-    """Kernel B on the backward inputs: (dk, dkp, dv, dvp)."""
+def ipa_attention_bwd_dkv(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                          key_mask=None):
+    """Kernel B on the backward inputs: (dk, dkp, dv, dvp), each [F, Nk, ...]
+    and summed over the Nq query rows."""
     global bwd_dkv_launches, wide_bwd_dkv_launches
     out, route = _bwd_call(
         "ipa_attention_bwd_dkv", ipa_bwd_dkv_plain,
-        lambda F, N, H, C, P3q, P3v, Dz: ((F, N, H, C), (F, N, H, P3q),
-                                          (F, N, H, C), (F, N, H, P3v)),
-        inputs, c_qk, c_b, inf)
+        lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((F, Nk, H, C),
+                                               (F, Nk, H, P3q),
+                                               (F, Nk, H, C),
+                                               (F, Nk, H, P3v)),
+        inputs, c_qk, c_b, inf, key_mask)
     if route == "tc":
         bwd_dkv_launches += 1
     elif route == "wide":
@@ -406,13 +447,15 @@ def ipa_attention_bwd_dkv(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
     return out
 
 
-def ipa_attention_bwd_pair(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
-    """Kernel C on the backward inputs: (dbias [N, N, H], dpz [N, N, Dz])."""
+def ipa_attention_bwd_pair(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                           key_mask=None):
+    """Kernel C on the backward inputs: (dbias [Nq, Nk, H],
+    dpz [Nq, Nk, Dz])."""
     global bwd_pair_launches, wide_bwd_pair_launches
     out, route = _bwd_call(
         "ipa_attention_bwd_pair", ipa_bwd_pair_plain,
-        lambda F, N, H, C, P3q, P3v, Dz: ((N, N, H), (N, N, Dz)),
-        inputs, c_qk, c_b, inf)
+        lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((Nq, Nk, H), (Nq, Nk, Dz)),
+        inputs, c_qk, c_b, inf, key_mask)
     if route == "tc":
         bwd_pair_launches += 1
     elif route == "wide":
@@ -429,15 +472,16 @@ def backward_inputs(saved, g_o, g_opt, g_pair):
     (:583-587) computes it."""
     (q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
      o, o_pt, o_pair, lse) = saved
-    F, N, H = q.shape[:3]
+    F, N, H = q.shape[:3]  # the query rows
+    Nk = k.shape[1]
     g_o = g_o.float().contiguous()
     g_opt = g_opt.float().reshape(F, N, H, -1).contiguous()
     g_pair = g_pair.float().contiguous()
     dvec = (torch.sum(g_o * o, -1)
             + torch.sum(g_opt * o_pt.reshape(F, N, H, -1), -1)
             + torch.sum(g_pair * o_pair, -1))  # [F, N, H]
-    return (q, k, v, q_pts.reshape(F, N, H, -1), k_pts.reshape(F, N, H, -1),
-            v_pts.reshape(F, N, H, -1), bias, pair_z, mask, head_weights,
+    return (q, k, v, q_pts.reshape(F, N, H, -1), k_pts.reshape(F, Nk, H, -1),
+            v_pts.reshape(F, Nk, H, -1), bias, pair_z, mask, head_weights,
             lse, dvec.transpose(1, 2).contiguous(), g_o, g_opt, g_pair)
 
 
@@ -448,12 +492,13 @@ class IPAAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
-                head_weights, c_qk, c_b, inf):
+                head_weights, c_qk, c_b, inf, key_mask):
         o, o_pt, o_pair, lse = ipa_attention_fwd(
             q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights,
-            c_qk, c_b=c_b, inf=inf)
+            c_qk, c_b=c_b, inf=inf, key_mask=key_mask)
         ctx.save_for_backward(q, k, v, q_pts, k_pts, v_pts, bias, pair_z,
-                              mask, head_weights, o, o_pt, o_pair, lse)
+                              mask, head_weights, o, o_pt, o_pair, lse,
+                              key_mask)
         ctx.consts = (c_qk, c_b, inf)
         ctx.mark_non_differentiable(lse)
         return o, o_pt, o_pair, lse
@@ -461,9 +506,10 @@ class IPAAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_o, g_opt, g_pair, _g_lse):
         c_qk, c_b, inf = ctx.consts
-        saved = ctx.saved_tensors
+        saved = ctx.saved_tensors  # unpacked once (remat allows no more)
+        saved, key_mask = saved[:14], saved[14]
         inputs = backward_inputs(saved, g_o, g_opt, g_pair)
-        kw = dict(c_qk=c_qk, c_b=c_b, inf=inf)
+        kw = dict(c_qk=c_qk, c_b=c_b, inf=inf, key_mask=key_mask)
         dq, dqp, dhw_rows = ipa_attention_bwd_dq(*inputs, **kw)
         dk, dkp, dv, dvp = ipa_attention_bwd_dkv(*inputs, **kw)
         dbias, dpz = ipa_attention_bwd_pair(*inputs, **kw)
@@ -474,12 +520,16 @@ class IPAAttention(torch.autograd.Function):
                 dkp.reshape(k_pts.shape).to(k_pts.dtype),
                 dvp.reshape(v_pts.shape).to(v_pts.dtype),
                 dbias.to(bias.dtype), dpz.to(pair_z.dtype), None,
-                dhw.to(head_weights.dtype), None, None, None)
+                dhw.to(head_weights.dtype), None, None, None, None)
 
 
 def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
-                  head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5):
+                  head_weights, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
+                  key_mask=None):
     """Differentiable fused IPA attention (``IPAAttention``); arguments and
-    results as ``ipa_attention_fwd``. The lse output carries no gradient."""
+    results as ``ipa_attention_fwd``. The lse output carries no gradient;
+    in a rectangular call dk, dv and their points' gradients are this
+    call's rows' share, and the masks none."""
     return IPAAttention.apply(q, k, v, q_pts, k_pts, v_pts, bias, pair_z,
-                              mask, head_weights, c_qk, c_b, inf)
+                              mask, head_weights, c_qk, c_b, inf,
+                              mask if key_mask is None else key_mask)

@@ -9,19 +9,21 @@ calls the collectives itself:
   * ``maybe_initialize_distributed`` starts ``torch.distributed`` when a
     launcher's environment is set (the counterpart of
     ``jax.distributed.initialize``);
-  * ``Mesh`` names the ranks' axes ('slice', 'data', 'model'), laid out
-    row-major over the ranks as ``np.arange(world).reshape(shape)``, and
-    holds one process group per set of axes the trainer reduces over;
+  * ``Mesh`` names the ranks' axes ('slice', 'data', 'model', 'seq'),
+    laid out row-major over the ranks as ``np.arange(world).reshape(
+    shape)``, and holds one process group per set of axes the trainer
+    reduces over;
   * ``batch_axes``, ``data_size`` and ``data_index`` say which rows of the
     global batch a rank trains on (the sampler hands each process its own
     rows, as in the JAX multi-host path, so ``shard_batch`` has no
     counterpart);
-  * ``all_reduce_`` and ``all_gather`` run on a mesh group,
-    or do nothing when there is no process group (one process, no
+  * ``all_reduce_``, ``all_gather`` and ``reduce_scatter`` run on a mesh
+    group, or do nothing when there is no process group (one process, no
     launcher).
 
-The 'seq' axis (residue-axis sequence parallelism, ``parallel/sp.py`` in
-the JAX package) is not ported: a mesh that names it raises.
+The 'seq' axis splits each window's residues (``parallel/sp.py``): its
+ranks train on the same batch rows, so it is no batch axis, and
+``group('seq')`` is the group of one window's row ranks.
 """
 from __future__ import annotations
 
@@ -34,7 +36,6 @@ import torch.distributed as dist
 
 LAUNCHER_ENV = ("MASTER_ADDR", "RANK", "WORLD_SIZE")
 NOT_BATCH_AXES = ("model", "seq")
-UNPORTED_AXES = {"seq": "sequence parallelism (dynamicpdb_tpu/parallel/sp.py)"}
 
 
 def launched() -> bool:
@@ -109,12 +110,6 @@ class Mesh:
         if len(axis_names) != len(shape):
             raise ValueError(f"mesh shape {shape} needs {len(shape)} axis "
                              f"names, got {axis_names}")
-        for axis in axis_names:
-            if axis in UNPORTED_AXES:
-                raise ValueError(
-                    f"mesh axis {axis!r} ({UNPORTED_AXES[axis]}) is not yet "
-                    "ported to dynamicpdb_tpu_torch; use 'slice', 'data' "
-                    "and 'model' axes")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"repeated mesh axis in {axis_names}")
         self.shape, self.axis_names = shape, axis_names
@@ -125,7 +120,8 @@ class Mesh:
         self._groups: dict[tuple, object] = {}
         if groups and dist.is_initialized():
             # every rank builds the groups in the same order
-            for axes in (batch_axes(self), ("data",), ("model",)):
+            for axes in (batch_axes(self), ("data",), ("model",), ("seq",),
+                         grad_axes(self)):
                 if (axes and axes not in self._groups
                         and all(a in self.sizes for a in axes)):
                     self._groups[axes] = self._new_group(axes)
@@ -143,17 +139,22 @@ class Mesh:
     def group(self, *axes):
         return self._groups.get(tuple(axes))
 
-    def _new_group(self, axes: tuple):
-        """Every rank builds every group of the partition by ``axes`` (a
-        collective); returns this rank's."""
+    def partition(self, *axes) -> list[list[int]]:
+        """The ranks of each group of ``group(*axes)``: the ranks that
+        differ only on ``axes``, each list in group rank order."""
         grid = np.arange(math.prod(self.shape)).reshape(self.shape)
         keep = [self.axis_names.index(a) for a in axes]
         rest = [i for i in range(len(self.shape)) if i not in keep]
-        rows = np.transpose(grid, rest + keep).reshape(
-            -1, math.prod(self.shape[i] for i in keep))
-        if rows.shape[0] == 1:
+        return np.transpose(grid, rest + keep).reshape(
+            -1, math.prod(self.shape[i] for i in keep)).tolist()
+
+    def _new_group(self, axes: tuple):
+        """Every rank builds every group of the partition by ``axes`` (a
+        collective); returns this rank's."""
+        rows = self.partition(*axes)
+        if len(rows) == 1:
             return dist.group.WORLD
-        mine, _ = dist.new_subgroups_by_enumeration(rows.tolist())
+        mine, _ = dist.new_subgroups_by_enumeration(rows)
         return mine
 
     def __repr__(self):
@@ -164,7 +165,7 @@ def make_mesh(shape: tuple = (), axes: tuple = ("data",)) -> Mesh:
     """A mesh over every rank; ``shape=()`` puts them all on 'data'. A
     world of one process (with or without a process group) gives a mesh
     of shape (1,). Raises ValueError when the shape does not cover the
-    world exactly, or names an axis that is not ported ('seq')."""
+    world exactly."""
     rank, n = world()
     shape = tuple(int(s) for s in shape) or (n,)
     if math.prod(shape) != n:
@@ -207,6 +208,14 @@ def batch_axes(mesh: Mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a not in NOT_BATCH_AXES)
 
 
+def grad_axes(mesh: Mesh) -> tuple:
+    """The axes the gradients are summed over: the data-like axes, and
+    'seq', whose ranks each hold their rows' share of a window's
+    gradient."""
+    return batch_axes(mesh) + tuple(a for a in ("seq",)
+                                    if a in mesh.axis_names)
+
+
 def data_size(mesh: Mesh | None) -> int:
     """How many ways the global batch is split."""
     return 1 if mesh is None else mesh.size(*batch_axes(mesh))
@@ -236,6 +245,20 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(t, group=group)
     return t
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, split along ``dim`` into n equal
+    parts, of which this rank gets the one at its group rank: an all-reduce
+    and this rank's part of the sum, on every backend (gloo has no
+    reduce-scatter; NCCL's waits for a run across cards to measure it)."""
+    if group is None:
+        return t
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    rows = t.shape[dim] // n
+    total = t.contiguous().clone()
+    dist.all_reduce(total, group=group)
+    return total.narrow(dim, r * rows, rows).contiguous()
 
 
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from dynamicpdb_tpu_torch.analysis.metrics import eval_window_metrics
 from dynamicpdb_tpu_torch.data.featurize import eval_init_window, featurize_window
+from dynamicpdb_tpu_torch.parallel import sp
 from dynamicpdb_tpu_torch.sampling.reverse import reverse_sample
 from dynamicpdb_tpu_torch.train.experiment import RAW_KEYS
 
@@ -46,7 +47,9 @@ def evaluate(model, diffuser, windows: Iterable[dict], *, num_t: int = 10,
     for i, raw in enumerate(windows):
         raw = dict(raw)  # the caller's dict is not changed
         name = raw.pop("name", f"window_{i}")
-        window = {k: torch.as_tensor(raw[k], device=device) for k in RAW_KEYS}
+        # under sequence parallelism only this rank's edge rows go over
+        window = {k: torch.as_tensor(v, device=device) for k, v in
+                  sp.host_edge_rows({k: raw[k] for k in RAW_KEYS}).items()}
         feats = eval_init_window(featurize_window(window), diffuser,
                                  generator=generator)
         out = reverse_sample(model, diffuser, feats, num_t=num_t, min_t=min_t,

@@ -13,7 +13,11 @@ Port of ``dynamicpdb_tpu/sampling/reverse.py`` (``set_t_feats``,
   * ``batched_rollout`` runs the rollout of several windows, one after
     another (the network has no batch axis), each with its own generator.
 
-The parallel-in-time sampler is ``sampling/picard.py``.
+The parallel-in-time sampler is ``sampling/picard.py``. Inside
+``parallel.sp.activated(mesh)`` every function here runs split over the
+mesh's 'seq' ranks unchanged: each rank draws the same noise from the same
+generator, the model splits and gathers its own rows, and every rank
+returns the one-process trajectory.
 """
 from __future__ import annotations
 

@@ -31,6 +31,14 @@ compute wrong results; they are timed, never checked. The edits are made on
 the source text and fail loudly when the kernel no longer has the lines
 they expect.
 
+``--save-outputs FILE`` writes the four kernels' outputs at the timed
+inputs (the forward's o, o_pt, o_pair and lse; dq, dqp, dhw rows; dk,
+dkp, dv, dvp; dbias, dpz) to FILE; ``--compare-outputs FILE`` computes
+them again and prints, per output, whether it equals FILE's bit for bit
+and its largest difference: run the parent with the first and this
+checkout with the second to show that a change left the kernels'
+arithmetic as it was.
+
 ``--precision`` runs the four kernels in float32 at the release widths with
 one frame and two heads, and holds them, the float32 plain versions and the
 emulations below (every product through ``bench_geom.mm_3xtf32`` with the
@@ -237,6 +245,24 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
     return [{"kernel": k, **t} for k, t in times.items()]
 
 
+def kernel_outputs(smoke, mod, device) -> dict:
+    """The four kernels' outputs at ``timings``' inputs, on the host."""
+    args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+    inputs, _ = smoke.ipa_bwd_inputs(torch, args, c_qk, zero_pad=False,
+                                     seed=4)
+    kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
+    names = {"ipa_attention_fwd": ("o", "o_pt", "o_pair", "lse"),
+             "ipa_attention_bwd_dq": ("dq", "dqp", "dhw_rows"),
+             "ipa_attention_bwd_dkv": ("dk", "dkp", "dv", "dvp"),
+             "ipa_attention_bwd_pair": ("dbias", "dpz")}
+    out = {}
+    for kind, outs in names.items():
+        got = (mod.ipa_attention_fwd(*args, c_qk) if kind == KERNELS[0]
+               else getattr(mod, kind)(*inputs, **kw))
+        out.update({n: t.cpu() for n, t in zip(outs, got)})
+    return out
+
+
 def precision(smoke, mod, device) -> dict:
     fwd_args, bwd_inputs, c_qk = precision_inputs(smoke, device)
     o, o_pt, o_pair, _ = mod.ipa_attention_fwd(*fwd_args, c_qk)
@@ -386,6 +412,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--precision", action="store_true")
+    ap.add_argument("--save-outputs", metavar="FILE")
+    ap.add_argument("--compare-outputs", metavar="FILE")
     ap.add_argument("--ablate", nargs="?", const="ipa_attention_fwd",
                     choices=list(ABLATIONS), metavar="KERNEL")
     args = ap.parse_args(argv)
@@ -398,6 +426,17 @@ def main(argv=None) -> int:
     label = os.path.relpath(os.path.abspath(args.package), bench_geom.ROOT)
     for row in timings(smoke, mod, device, args.rounds, args.reps):
         print(json.dumps({"package": label, "card": card, **row}))
+    if args.save_outputs:
+        torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
+    if args.compare_outputs:
+        got = kernel_outputs(smoke, mod, device)
+        want = torch.load(args.compare_outputs, weights_only=True)
+        print(json.dumps({"package": label, "card": card,
+                          "against": args.compare_outputs,
+                          "bit_identical": {k: bool(torch.equal(got[k], w))
+                                            for k, w in want.items()},
+                          "max_abs_diff": {k: float((got[k] - w).abs().max())
+                                           for k, w in want.items()}}))
     if args.precision:
         print(json.dumps({"package": label, "card": card,
                           "max_abs_err_vs_float64":

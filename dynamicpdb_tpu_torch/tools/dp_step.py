@@ -5,7 +5,7 @@ each rank saw.
         -m dynamicpdb_tpu_torch.tools.dp_step --config configs/tiny.yaml \\
         --device cpu --steps 3 --csv train.csv --pad-to 16 --out DIR \\
         experiment.batch_size=2 [experiment.mesh_shape=(1,2) \\
-        experiment.mesh_axes=(data,model) ...]
+        experiment.mesh_axes=(data,model) ...] [--time-sp]
 
 Without a launcher it runs the same steps in one process, the reference a
 data-parallel run must equal. The batches are the global ones: ``--csv``
@@ -17,15 +17,22 @@ dicts, as ``Trainer.draw_window_noise`` returns them), of which each rank
 takes rows r, r + D, ... like the sampler's striding. With
 ``--backend gloo`` and ``--device cuda:0`` several ranks share one card.
 
+A 'seq' axis (``experiment.mesh_axes=(data,seq)``) splits each window's
+residues over its ranks (``parallel/sp.py``); they share the data rows.
+
 Each rank writes ``DIR/rank<r>.pt``: the whole parameters and AMSGrad
-state (gathered, as a checkpoint holds them), each step's aux, its seconds
-and all-reduce seconds, the peak device memory and the memory the
-parameters and optimizer state hold between steps, and its IPA kernel
-launches.
+state (gathered, as a checkpoint holds them; with ``--rank0-state`` only
+rank 0 does, the others None) and their digest, each step's aux, its seconds
+and all-reduce seconds, the seconds each step spent in the sequence-
+parallel collectives (``--time-sp``: each collective between device
+synchronisations, which then slow the step; else None, not timed) and
+their number, the peak device memory and the memory the parameters and
+optimizer state hold between steps, and its IPA kernel launches.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import time
 
@@ -40,6 +47,7 @@ from dynamicpdb_tpu_torch.data.dataset import (
 )
 from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
+from dynamicpdb_tpu_torch.parallel import sp
 from dynamicpdb_tpu_torch.train.experiment import Trainer
 from dynamicpdb_tpu_torch.train_cli import make_run_mesh
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
@@ -87,6 +95,20 @@ def state_bytes(trainer) -> int:
     return n
 
 
+def state_digest(params: dict, opt: dict) -> str:
+    """A hash of the parameters' and the moments' bytes: two ranks whose
+    states are equal bit for bit have the same."""
+    h = hashlib.sha256()
+    tensors = [params[k] for k in sorted(params)] + [
+        opt["state"][i][k] for i in sorted(opt["state"])
+        for k in sorted(opt["state"][i])]
+    for t in tensors:
+        if torch.is_tensor(t):
+            h.update(str((t.dtype, tuple(t.shape))).encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", default=None,
@@ -99,6 +121,12 @@ def main(argv=None) -> int:
                         help="default: data.filtering.max_len, as train_cli")
     parser.add_argument("--payload", default=None)
     parser.add_argument("--out", required=True)
+    parser.add_argument("--time-sp", action="store_true",
+                        help="time the sequence-parallel collectives (each "
+                             "between device synchronisations)")
+    parser.add_argument("--rank0-state", action="store_true",
+                        help="only rank 0 writes the whole parameters and "
+                             "moments; the others write their digest")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_intermixed_args(argv)
     if (args.csv is None) == (args.payload is None):
@@ -121,12 +149,16 @@ def main(argv=None) -> int:
             torch.cuda.reset_peak_memory_stats(device)
         for name in IPA_COUNTERS:
             setattr(ipa_mod, name, 0)
-        auxs, seconds, comm = [], [], []
+        sp.timed(args.time_sp)
+        auxs, seconds, comm, sp_seconds, sp_calls = [], [], [], [], []
         for batch, noises in steps:
+            sp.reset_counts()
             t0 = time.perf_counter()
             auxs.append(trainer.train_step(batch, noises))  # floats: synced
             seconds.append(time.perf_counter() - t0)
             comm.append(trainer.comm_seconds)
+            sp_seconds.append(sp.seconds if args.time_sp else None)
+            sp_calls.append(sp.calls)
         launches = {n: getattr(ipa_mod, n) for n in IPA_COUNTERS}
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         resident = state_bytes(trainer)
@@ -137,11 +169,16 @@ def main(argv=None) -> int:
         opt["state"] = {i: {k: v.cpu() for k, v in st.items()}
                         for i, st in opt["state"].items()}
         rank = mesh_lib.world()[0]
+        digest = state_digest(params, opt)
+        if rank and args.rank0_state:
+            params = opt = None
         os.makedirs(args.out, exist_ok=True)
         torch.save(dict(
             rank=rank, mesh=None if mesh is None else dict(mesh.sizes),
-            params=params, optimizer=opt, aux=auxs, seconds=seconds,
-            comm_seconds=comm, peak_bytes=peak, state_bytes=resident,
+            params=params, optimizer=opt, digest=digest, aux=auxs,
+            seconds=seconds,
+            comm_seconds=comm, sp_seconds=sp_seconds, sp_calls=sp_calls,
+            peak_bytes=peak, state_bytes=resident,
             launches=launches, device=str(device),
             rng=trainer.generator.get_state()),
             os.path.join(args.out, f"rank{rank}.pt"))

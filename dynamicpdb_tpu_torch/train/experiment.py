@@ -27,13 +27,33 @@ Each window's loss is divided by the global batch; after the window loop
 one ``all_reduce`` sums the gradients and the aux sums in one flat bucket,
 so every rank holds the global mean, its norm, and the logged means.
 ZeRO-1 (``experiment.zero_opt_state``) and the 'model' axis split the
-optimizer's work and state (``parallel/sharding.ParamLayout``). The 'seq'
-axis (sequence parallelism) is not ported; a mesh naming it raises.
+optimizer's work and state (``parallel/sharding.ParamLayout``).
+
+Sequence parallelism (a 'seq' mesh axis, ``parallel/sp.py``): the ranks of
+a 'seq' group share batch rows and draw the same noise; each window's
+forward and backward run inside ``sp.activated``, each rank on its rows of
+the residue axis (the model slices the whole-window features and gathers
+its outputs back). The all-reduce stays one flat bucket a step, over the
+data-like axes and 'seq' together. Why the scaling is right: a rank's
+parameter gradient is its rows' share of d(loss / B_global) (every
+parameter acts on this rank's rows only, and the output gather's backward
+hands each rank its slice of the gradient every rank computed alike), so
+the sum over 'seq' is the window's gradient and the sum over the data
+axes the global batch's. The loss and aux, in contrast, are whole-window
+values that every rank of a 'seq' group computed alike: only the rank at
+'seq' index 0 puts them in the bucket, so the sum counts each window once.
+ZeRO-1 regions stay split over 'data' alone: the ranks of a 'seq' group
+hold the same regions and make the same update. The 'model' axis combines
+with 'seq' unchanged (its ranks compute whole parameters on the same rows).
+With remat, the backward re-runs IPA's key gather: every rank takes the
+same path, so the collectives pair up.
 ``multi_train_step`` takes K steps over a [K, B, ...] stack, one
 ``train_step`` after another. The epoch loop takes its batches from
 ``data/prefetch.py``: the next batches are read, stacked and copied to the
 device by a worker thread while the current step runs, as in the JAX loop.
-Rank 0 alone writes checkpoints and evaluates; the other ranks wait.
+Rank 0 alone writes checkpoints; the ranks of rank 0's 'seq' group
+evaluate together (rank 0 alone without a 'seq' axis), and the others
+wait.
 """
 from __future__ import annotations
 
@@ -51,13 +71,17 @@ from dynamicpdb_tpu_torch.data.featurize import (
     featurize_window,
     perturb_conditioning_rigids,
 )
-from dynamicpdb_tpu_torch.data.prefetch import prefetch_to_device
+from dynamicpdb_tpu_torch.data.prefetch import (
+    default_place,
+    prefetch_to_device,
+)
 from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
 from dynamicpdb_tpu_torch.models.score_network import (
     DFoldScoreNetwork,
     score_forward,
 )
 from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
+from dynamicpdb_tpu_torch.parallel import sp
 from dynamicpdb_tpu_torch.parallel.sharding import ParamLayout
 from dynamicpdb_tpu_torch.train import checkpoint as ckpt
 from dynamicpdb_tpu_torch.train.losses import dfold_loss
@@ -93,10 +117,11 @@ class Trainer:
             self.layout.release()
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.experiment.seed)
-        self.batch_group = (None if mesh is None
-                            else mesh.group(*mesh_lib.batch_axes(mesh)))
+        self.grad_group = (None if mesh is None
+                           else mesh.group(*mesh_lib.grad_axes(mesh)))
         self.n_ranks = mesh_lib.data_size(mesh)
         self.rank_index = mesh_lib.data_index(mesh)
+        self.seq_index = sp.index(mesh)
         # seconds of the last step's gradient all-reduce (device synced)
         self.comm_seconds = 0.0
 
@@ -206,11 +231,22 @@ class Trainer:
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
         return torch.stack(losses).mean(), aux
 
+    def host_rows(self, raw_batch: dict) -> dict:
+        """A host batch as this rank copies it to the device: under a 'seq'
+        axis its edge_repr cut to this rank's rows
+        (``sp.host_edge_rows``)."""
+        return sp.host_edge_rows(raw_batch, self.mesh)
+
     def to_device(self, raw_batch: dict) -> dict:
         """The batch's RAW_KEYS as tensors on the device; a tensor already
-        there (the prefetcher's) passes through without a copy."""
-        return {k: torch.as_tensor(raw_batch[k], device=self.device)
-                for k in RAW_KEYS}
+        there (the prefetcher's) passes through without a copy. A host
+        edge_repr is cut to this rank's rows first (``host_rows``)."""
+        raw_batch = {k: raw_batch[k] for k in RAW_KEYS}
+        if not torch.is_tensor(raw_batch["edge_repr"]) or (
+                raw_batch["edge_repr"].device != self.device):
+            raw_batch = self.host_rows(raw_batch)
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in raw_batch.items()}
 
     def loss_and_grads(self, raw_batch: dict, noises=None):
         """Mean loss and aux over the global batch, with the parameters'
@@ -233,23 +269,26 @@ class Trainer:
             self.layout.materialize()
         self.optimizer.zero_grad(set_to_none=True)
         losses, auxs = [], []
-        for b in range(B):
-            loss, aux = self.window_loss({k: v[b] for k, v in batch.items()},
-                                         noises[b])
-            (loss / n_global).backward()
-            losses.append(loss.detach())
-            auxs.append({k: v.detach() for k, v in aux.items()})
+        with sp.activated(self.mesh):  # the backward too: remat re-runs IPA
+            for b in range(B):
+                loss, aux = self.window_loss(
+                    {k: v[b] for k, v in batch.items()}, noises[b])
+                (loss / n_global).backward()
+                losses.append(loss.detach())
+                auxs.append({k: v.detach() for k, v in aux.items()})
         sums = torch.stack([torch.stack(losses).sum()] + [
             torch.stack([a[k] for a in auxs]).sum() for k in auxs[0]])
         if self.mesh is not None:
+            if self.seq_index:  # counted once, by 'seq' index 0
+                sums = torch.zeros_like(sums)
             sums = self._all_reduce(sums)
         means = sums / n_global
         return means[0], dict(zip(auxs[0], means[1:]))
 
     def _all_reduce(self, sums: torch.Tensor) -> torch.Tensor:
-        """Sum the gradients and ``sums`` over the data-like ranks in one
-        flat float32 bucket. A gradient that is None on every rank stays
-        None (the optimizer skips it, as without a mesh)."""
+        """Sum the gradients and ``sums`` over the data-like and 'seq'
+        ranks in one flat float32 bucket. A gradient that is None on every
+        rank stays None (the optimizer skips it, as without a mesh)."""
         params = list(self.model.parameters())
         parts = [torch.zeros(p.shape, device=self.device) if p.grad is None
                  else p.grad.float() for p in params]
@@ -262,7 +301,7 @@ class Trainer:
         if sync:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        mesh_lib.all_reduce_(bucket, self.batch_group)
+        mesh_lib.all_reduce_(bucket, self.grad_group)
         if sync:
             torch.cuda.synchronize(self.device)
         self.comm_seconds = time.perf_counter() - t0
@@ -333,17 +372,29 @@ class Experiment:
         # waited for its batch from the prefetcher
         self.step_metrics: list[dict] = []
         log.info("model parameters: %.1fM", self.trainer.n_params / 1e6)
+        # the prefetcher's placement: under a 'seq' axis only this rank's
+        # edge rows cross to the device
+        self._place = None
+        if sp.size(mesh) > 1:
+            place = default_place(self.trainer.device)
+            self._place = lambda batch: place(self.trainer.host_rows(batch))
 
     def run_eval(self) -> dict:
-        """Rank 0 evaluates while the other ranks wait for its metrics;
+        """Rank 0 evaluates, with the other ranks of its 'seq' group under
+        sequence parallelism, while the other ranks wait for its metrics;
         every rank then keeps the best values, and a new best writes
         ``<ckpt_dir>/best.ckpt``."""
         t = self.trainer
+        mesh = t.mesh
+        evaluates = mesh_lib.is_main_process() or (
+            mesh is not None and sp.size(mesh) > 1
+            and all(c == 0 for a, c in mesh.coords.items() if a != "seq"))
         with t.whole_params():
             metrics = None
-            if mesh_lib.is_main_process():
-                metrics = {k: float(v) for k, v in
-                           self.eval_fn(t.model, t.diffuser).items()}
+            if evaluates:
+                with sp.activated(mesh):
+                    metrics = {k: float(v) for k, v in
+                               self.eval_fn(t.model, t.diffuser).items()}
             metrics = mesh_lib.broadcast_object(metrics)
         if self.metrics_writer is not None:
             self.metrics_writer.write(
@@ -371,6 +422,7 @@ class Experiment:
             # worker blocked in its put, holding device batches
             with prefetch_to_device(self.data_iter_factory(epoch),
                                     buffer_size=2,
+                                    place=self._place,
                                     device=self.trainer.device) as prefetcher:
                 batches = iter(prefetcher)
                 while True:

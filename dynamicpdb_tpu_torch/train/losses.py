@@ -14,7 +14,11 @@ reference kept exactly:
   * the torsion loss uses squared distances, so its gradient stays finite
     where the prediction equals the target.
 
-All functions take ONE window ([F, N, ...]).
+All functions take ONE window ([F, N, ...]). Under sequence parallelism
+(``parallel/sp.py``) every rank still computes the loss on the whole
+window: the model gathers its outputs back, so the sums over N are global
+and the outlier guard reads the global translation loss, as in one
+process.
 """
 from __future__ import annotations
 

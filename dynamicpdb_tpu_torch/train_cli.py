@@ -18,15 +18,24 @@ checkpoint. Under a launcher (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
 set) it joins ``torch.distributed`` (NCCL on cards, one rank a card; gloo
 on the CPU or with ``--backend gloo``), ``--device cuda`` means
 ``cuda:{LOCAL_RANK}``, and the mesh is ``experiment.mesh_shape`` over
-``experiment.mesh_axes`` ('slice', 'data', 'model'), else ('slice',
-'data') across several nodes, else 'data' over every rank.
-``experiment.batch_size`` is the batch of one rank: the global batch is
-that times the product of the data-like axes, and each rank trains on its
-rows of it; ``experiment.zero_opt_state`` shards the AMSGrad moments over
-'data' (ZeRO-1). A 'seq' axis (sequence parallelism) is not ported and
-raises, as does a mesh that does not cover the world. Rank 0 writes the
-metrics and checkpoints (any mesh's checkpoint resumes on any other) and
-runs ``--eval-every``; the other ranks wait for it.
+``experiment.mesh_axes`` ('slice', 'data', 'model', 'seq'), else
+('slice', 'data') across several nodes, else 'data' over every rank.
+``experiment.batch_size`` is the batch of one rank of the data-like axes:
+the global batch is that times the product of the data-like axes
+('slice', 'data'; not 'model' or 'seq', whose ranks share their rows),
+and each rank trains on its rows of it; ``experiment.zero_opt_state``
+shards the AMSGrad moments over 'data' (ZeRO-1). A 'seq' axis splits
+each window's residues over its ranks (sequence parallelism,
+``parallel/sp.py``), e.g.
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m dynamicpdb_tpu_torch.train_cli --device cpu --backend gloo \
+        ... experiment.mesh_shape=(1,2) experiment.mesh_axes=(data,seq)
+
+A mesh that does not cover the world raises. Rank 0 writes the metrics
+and checkpoints (any mesh's checkpoint resumes on any other) and runs
+``--eval-every`` (with the other ranks of its 'seq' group); the other
+ranks wait for it.
 ``--eval-every N`` evaluates the model on the ``val`` split
 (``sampling/evaluate.py``) after every N-th completed epoch, logs
 ``eval/ave_rot``, ``eval/ave_trans``, ``eval/all_atom_mae`` and
@@ -162,7 +171,7 @@ def _train(args, cfg, device, log):
     log.info("device=%s mesh=%s global_batch=%d (%d a rank) pad_to=%d",
              device, mesh, global_batch, cfg.experiment.batch_size, pad_to)
 
-    eval_fn = None  # called on rank 0; every rank takes part in run_eval
+    eval_fn = None  # rank 0's 'seq' group calls it; all join run_eval
     if args.eval_every:
         eval_fn = make_eval_fn(
             cfg, TrajectoryDataset(cfg.data, split="val", pad_to=pad_to),

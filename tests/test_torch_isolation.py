@@ -63,6 +63,25 @@ def test_serving_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+def test_sequence_parallel_modules_load_without_jax():
+    """parallel/sp.py and the modules that call it, imported alone."""
+    assert os.path.join(ROOT, "dynamicpdb_tpu_torch", "parallel",
+                        "sp.py") in PORT_FILES
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.parallel.sp\n"
+        "import dynamicpdb_tpu_torch.tools.sp_run\n"
+        "import dynamicpdb_tpu_torch.tools.dp_step\n"
+        "import dynamicpdb_tpu_torch.train_cli\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'dynamicpdb_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 def test_training_modules_load_without_jax():
     code = (
         "import sys\n"

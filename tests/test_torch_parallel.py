@@ -3,8 +3,8 @@
   * the sharding rules (``param_spec``, ``zero_spec``, ``sharded_fraction``)
     against the JAX functions on the same parameters, carried across by
     ``weights.state_dict_from_jax``; ``local_batch_indices``;
-  * the meshes and the refusals ('seq', a mesh the world cannot fill, NCCL
-    with two ranks on one card);
+  * the meshes (a 'seq' axis among them) and the refusals (a mesh the
+    world cannot fill, NCCL with two ranks on one card);
   * a 2-rank gloo step (``tools/dp_step.py`` under
     ``python -m torch.distributed.run``) against the JAX data-parallel step
     on its 8 virtual CPU devices, on the same parameters and JAX's noise;
@@ -236,18 +236,38 @@ def test_meshes_in_one_process(monkeypatch):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(ValueError, match="'seq'.*not yet ported"):
-        mesh_lib.make_mesh((1,), ("seq",))
-    with pytest.raises(ValueError, match="'seq'.*not yet ported"):
-        mesh_lib.Mesh((2, 4), ("data", "seq"), groups=False)
+    # a 'seq' axis (sequence parallelism, parallel/sp.py) is a mesh axis:
+    # the meshes once refused here are built, with their sizes and groups
+    seq = mesh_lib.make_mesh((1,), ("seq",))
+    assert seq.sizes == {"seq": 1} and seq.group("seq") is None
+    assert mesh_lib.data_size(seq) == 1 and mesh_lib.grad_axes(seq) == (
+        "seq",)
+    ds = mesh_lib.Mesh((2, 4), ("data", "seq"), rank=6, groups=False)
+    assert ds.sizes == {"data": 2, "seq": 4}
+    assert ds.coords == {"data": 1, "seq": 2}
+    # 'seq' ranks share their batch rows and sum their gradients
+    assert mesh_lib.batch_axes(ds) == ("data",)
+    assert mesh_lib.data_size(ds) == 2 and mesh_lib.data_index(ds) == 1
+    assert mesh_lib.grad_axes(ds) == ("data", "seq")
+    assert ds.partition("seq") == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert ds.partition("data") == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    assert ds.partition("data", "seq") == [list(range(8))]
     with pytest.raises(ValueError, match="holds 2 ranks but the world has 1"):
         mesh_lib.make_mesh((2,), ("data",))
     cfg = pcfg.apply_overrides(pcfg.Config(), [
         "experiment.mesh_shape=(1,1)", "experiment.mesh_axes=(data,seq)"])
     from dynamicpdb_tpu_torch.train_cli import make_run_mesh
 
-    with pytest.raises(ValueError, match="'seq'"):
-        make_run_mesh(cfg)
+    run = make_run_mesh(cfg)
+    assert run.sizes == {"data": 1, "seq": 1}
+    assert run.partition("seq") == [[0]] and run.group("seq") is None
+    # a 'seq' axis with no process group cannot split a window
+    with pytest.raises(RuntimeError, match="no process group"):
+        from dynamicpdb_tpu_torch.parallel import sp
+
+        sp.enable(mesh_lib.Mesh((2,), ("seq",), groups=False))
+    with pytest.raises(ValueError, match="repeated mesh axis"):
+        mesh_lib.Mesh((2, 2), ("seq", "seq"), groups=False)
     # NCCL puts one rank on one card: two local ranks and one card raise
     monkeypatch.setenv("LOCAL_RANK", "1")
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
@@ -349,6 +369,28 @@ def test_dp_variants_equal_plain_dp(manifest, plain_dp, tmp_path):
     assert tp[0]["state_bytes"] < 0.8 * plain_dp[0]["state_bytes"]
     for r in plain_dp + tp:
         assert r["comm_seconds"][0] > 0
+
+
+def test_state_digest_tells_states_apart(plain_dp):
+    """tools/dp_step.py's digest, which ``--rank0-state`` leaves in place
+    of the other ranks' states: the replicas' agree, it is the hash of the
+    state saved beside it, and one element moved by one ulp changes it."""
+    from dynamicpdb_tpu_torch.tools.dp_step import state_digest
+
+    r0, r1 = plain_dp
+    assert r0["digest"] == r1["digest"]
+    assert state_digest(r0["params"], r0["optimizer"]) == r0["digest"]
+    params = dict(r0["params"])
+    name = next(iter(params))
+    moved = params[name].clone().reshape(-1)
+    moved[0] = torch.nextafter(moved[0], torch.tensor(math.inf))
+    params[name] = moved.reshape(params[name].shape)
+    assert state_digest(params, r0["optimizer"]) != r0["digest"]
+    opt = {**r0["optimizer"], "state": {
+        i: dict(st) for i, st in r0["optimizer"]["state"].items()}}
+    i = next(iter(opt["state"]))
+    opt["state"][i]["mu"] = opt["state"][i]["mu"] + 1.0
+    assert state_digest(r0["params"], opt) != r0["digest"]
 
 
 def test_grad_accum_divides_the_local_batch():
