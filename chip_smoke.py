@@ -108,10 +108,25 @@ Phases, each printing its own lines:
      collectives timed: the loss within bfloat16's precision of one
      process's, each rank's peak memory printed beside (and below) the
      one process's, each rank's IPA launches.
+  10. OmegaFold under sequence parallelism (run after phase 7, on phase
+     5's checkpoint; two gloo ranks sharing cuda:0 on a ('data', 'seq') =
+     (1, 2) mesh, tools/sp_run.py): 10a, phase 5's sequences (256, and 203
+     padded to 224), 3 cycles with the structure, against one process:
+     every cycle's node, edge and confidence, the selected cycle (equal),
+     its pos14 and pLDDT within SP_OF_RTOL of their scale, every rank's
+     result equal to rank 0's, each rank's GeoFormer kernel launches; a
+     run with a planted fault (the column view from the rank's own rows)
+     must read past the bound; 10b, one cycle at 512 residues, one
+     process then a 'seq' rank with its collectives timed: each one's
+     peak memory (a rank's below one process's), seconds and collectives.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
-core. Every kernel report carries two bounds: bound_ms with every
+core; then their rectangular calls under sequence parallelism
+(node_attention on rows 0-127 and 128-255 of the release window and on a
+ragged block with a pad row, the odd rows' last 33 keys masked;
+geom_attention on B = 128 rows of a 256 window), each against its plain
+version and equal to the square call's rows bit for bit, timed. Every kernel report carries two bounds: bound_ms with every
 operation on the CUDA cores in float32, tc_bound_ms with the products on
 the TF32 tensor cores in three passes (bounds()).
 The line before the last is the kernel report (launches: the tensor-core
@@ -121,7 +136,9 @@ forward's report adds those of serving, batched rollout, Picard and eval,
 the GeoFormer kernels' those of fold_cli, the tensor-core IPA kernels'
 a 'seq' rank's in 9c's step and the forward's in 9b's rollout; errors
 and times at the same shapes; each IPA kernel's "rectangular" entry its
-rectangular call's errors, times and bounds),
+rectangular call's errors, times and bounds; the GeoFormer kernels'
+rectangular calls as two reports of their own, their launches a 'seq'
+rank's in 10a),
 the last line {"ok": true, "device": {...}}. Any failed check exits
 nonzero; with no CUDA device, or without the package beside it, the script
 exits 1 and prints no result.
@@ -905,15 +922,19 @@ GEOM_BF16_RTOL = 2.0 ** -7
 
 def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
                 pad: int = 0, *, B: int | None = None, masked_prefix: int = 0,
-                wdtype=None):
+                wdtype=None, rows: tuple | None = None,
+                masked_suffix: int = 0):
     """Seeded inputs of kernel ``kind`` at its release widths and length L:
     x ~ N(0, 1) (a normalised activation) in ``dtype``, weights ~ N(0, 1/d)
     and biases ~ N(0, 0.1^2) in ``wdtype`` (default: ``dtype``), the
     attention bias ~ N(0, 1) with the last ``pad`` keys at -1e9 (pad_safe
     padding); node_attention's key mask drops ~12% of the keys of every row
-    but the first (the pseudo-MSA's mask rate), and row 1 also its first
-    ``masked_prefix`` keys. ``B`` overrides the release batch (B = L for
-    geom_attention)."""
+    but the first (the pseudo-MSA's mask rate), row 1 also its first
+    ``masked_prefix`` keys and every odd row its last ``masked_suffix``.
+    ``B`` overrides the release batch (B = L for geom_attention).
+    ``rows`` = (q0, Lq): node_attention's rectangular call, the query rows
+    [q0, q0 + Lq) (``inp["q0"]``) with their rows of the bias (rows past L
+    have a bias too: a 'seq' rank's pad rows)."""
     shp = GEOM_SHAPES[kind]
     B = B or shp["B"] or L
     R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
@@ -927,7 +948,8 @@ def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
              qg_b=rnd(R, H, 1, 2 * c, scale=0.1),
              kv_w=rnd(d, R, H, 2 * c, scale=d ** -0.5),
              kv_b=rnd(R, H, 1, 2 * c, scale=0.1))
-    bias = rnd(R, H, L, L)
+    q0, Lq = rows or (0, L)
+    bias = rnd(R, H, max(L, q0 + Lq), L)[:, :, q0:q0 + Lq].contiguous()
     if pad:
         bias[..., L - pad:] = -1e9
     kmask = None
@@ -935,9 +957,10 @@ def geom_inputs(torch, device, kind: str, L: int, dtype, seed: int,
         kmask = (torch.rand((B, L), generator=g, device=device) > 0.12).float()
         kmask[0] = 1.0
         kmask[1, :masked_prefix] = 0.0
+        kmask[1::2, L - masked_suffix:] = 0.0
         x, bias = x[:, 0], bias[0]
     w = {k: v.to(wdtype or dtype) for k, v in w.items()}
-    return dict(x=x, bias=bias, kmask=kmask, **w)
+    return dict(x=x, bias=bias, kmask=kmask, q0=q0, **w)
 
 
 def geom_call(mod, kind: str, inp: dict, plain: bool):
@@ -947,7 +970,10 @@ def geom_call(mod, kind: str, inp: dict, plain: bool):
             inp["bias"]]
     if kind == "node_attention":
         fn = mod.node_attention_plain if plain else mod.fused_gated_node_attention
-        return fn(*args, inp["kmask"], c=c, scale=scale)
+        # q0 only for a rectangular call: another checkout's package may
+        # predate it (tools/bench_geom.py --package)
+        q0 = {"q0": inp["q0"]} if inp.get("q0") else {}
+        return fn(*args, inp["kmask"], c=c, scale=scale, **q0)
     fn = mod.geom_attention_plain if plain else mod.fused_gated_geom_attention_t
     return fn(*args, c=c, scale=scale)
 
@@ -962,20 +988,24 @@ def geom_error(got, want) -> tuple[float, float]:
     return float(err.max()), float((err - rtol * w.abs() - GEOM_ATOL).max())
 
 
-def geom_cost(kind: str, L: int, bytes_per_elem: int = 4):
-    """(operations, bytes, elementwise operations) of one launch: the q|gate
-    and k|v projections and the two L x L x c contractions (2 per
-    multiply-add), ~4 elementwise operations per logit and ~4 per output; x
-    read once, the bias, key mask and weights once, the output written
-    once."""
+def geom_cost(kind: str, L: int, bytes_per_elem: int = 4, *,
+              B: int | None = None, Lq: int | None = None):
+    """(operations, bytes, elementwise operations) of one launch of Lq query
+    rows (default L) against L keys: the q|gate projection of the Lq rows
+    and the k|v projection of the L rows, the two Lq x L x c contractions
+    (2 per multiply-add), ~4 elementwise operations per logit and ~4 per
+    output; x read once, the bias, key mask and weights once, the output
+    written once. ``B`` overrides the release batch (B = L for
+    geom_attention)."""
     shp = GEOM_SHAPES[kind]
-    B = shp["B"] or L
+    B = B or shp["B"] or L
+    Lq = Lq or L
     R, H, d, c = shp["R"], shp["H"], shp["d"], GEOM_C
     G = R * H
-    ew_ops = B * G * (4 * L * L + 4 * L * c)
-    ops = B * G * (2 * L * d * 4 * c + 4 * L * L * c) + ew_ops
-    nbytes = (bytes_per_elem * (B * R * L * d + B * G * L * c)
-              + 4 * (G * L * L + 2 * G * d * 2 * c + 2 * G * 2 * c))
+    ew_ops = B * G * (4 * Lq * L + 4 * Lq * c)
+    ops = B * G * (2 * (Lq + L) * d * 2 * c + 4 * Lq * L * c) + ew_ops
+    nbytes = (bytes_per_elem * (B * R * L * d + B * G * Lq * c)
+              + 4 * (G * Lq * L + 2 * G * d * 2 * c + 2 * G * 2 * c))
     if kind == "node_attention":
         nbytes += 4 * B * L
     return ops, nbytes, ew_ops
@@ -996,14 +1026,17 @@ def geom_kernel_ms(torch, mod, kind: str, inp: dict, reps: int) -> float:
     if kind == "node_attention":
         x, bias = x[:, None], bias[None]
     B, R, L, d = x.shape
-    H = inp["qg_w"].shape[2]
+    H, Lq = inp["qg_w"].shape[2], bias.shape[2]
     ops = mod.kernel_inputs(kind, x, inp["qg_w"], inp["qg_b"], inp["kv_w"],
                             inp["kv_b"], bias, inp["kmask"], GEOM_C)
-    out = torch.empty((B, R * H, L, GEOM_C), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, R * H, Lq, GEOM_C), dtype=x.dtype, device=x.device)
     lib, stream = mod._lib(), torch.cuda.current_stream().cuda_stream
+    # the query block only for a rectangular call, as in geom_call
+    rect = ({"q0": inp["q0"], "Lq": Lq} if (inp.get("q0") or Lq != L)
+            else {})
     return time_ms(torch, lambda: mod.launch(
         lib, kind, ops, out, B, R, H, L, d, GEOM_C, GEOM_C ** -0.5,
-        x.device.index, stream), reps)
+        x.device.index, stream, **rect), reps)
 
 
 def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
@@ -1014,15 +1047,18 @@ def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
     x = inp["x"].float()
     if kind == "node_attention":
         x = x[:, None]
-    qg = torch.einsum("brld,drhe->brhle", x, inp["qg_w"].float()) + inp["qg_b"].float()
+    Lq = inp["bias"].shape[-2]
+    xq = mod.query_rows(x, inp.get("q0", 0), Lq)
+    qg = torch.einsum("brld,drhe->brhle", xq, inp["qg_w"].float()) + inp["qg_b"].float()
     kv = torch.einsum("brld,drhe->brhle", x, inp["kv_w"].float()) + inp["kv_b"].float()
-    B, R, H, L = qg.shape[:4]
-    q, k, v = (t.reshape(B, R * H, L, c).contiguous()
-               for t in (qg[..., :c], kv[..., :c], kv[..., c:]))
-    mask = inp["bias"].float().reshape(1, -1, L, L)
+    B, R, H, L = kv.shape[:4]
+    q = qg[..., :c].reshape(B, R * H, Lq, c).contiguous()
+    k, v = (t.reshape(B, R * H, L, c).contiguous()
+            for t in (kv[..., :c], kv[..., c:]))
+    mask = inp["bias"].float().reshape(1, -1, Lq, L)
     if kind == "node_attention":
         mask = mask + (inp["kmask"][:, None, None, :] - 1.0) * 1e9
-    mask = mask.expand(B, R * H, L, L)
+    mask = mask.expand(B, R * H, Lq, L)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), 20)
 
@@ -1106,6 +1142,106 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
               f"bfloat16 {ms16:.4f} ms ({kernel_ms16:.4f} alone); warm L2 "
               f"[{card}]")
     return list(reports.values())
+
+
+# The rectangular calls of OmegaFold under sequence parallelism (phase 10):
+# node_attention on one rank's block of query rows [q0, q0 + Lq) against
+# all L keys (two 'seq' ranks: rows 0-127 and 128-255 of the release
+# window; the ragged 203 residues give rank 1 rows 102-203, its last a pad
+# row past L), the odd pseudo-MSA rows with their last 33 keys masked; and
+# geom_attention with a rank's B = 128 rows of a 256 window as its batch,
+# the bias whole. (label, kind, L, (q0, Lq) or None, B).
+GEOM_RECT_CASES = (
+    ("rows 128-255", "node_attention", 256, (128, 128), None),
+    ("rows 0-127", "node_attention", 256, (0, 128), None),
+    ("ragged rows 102-203", "node_attention", 203, (102, 102), None),
+    ("B 128", "geom_attention", 256, None, 128),
+)
+GEOM_RECT_MASKED = 33
+GEOM_RECT_TIMED = {"node_attention": "rows 128-255",
+                   "geom_attention": "B 128"}
+
+
+def geom_rect_phase(torch, device, card: str) -> list[dict]:
+    """Phase 2b's rectangular calls (GEOM_RECT_CASES) against their plain
+    versions at phase 2b's tolerances, float32 and bfloat16; then one case
+    of each kernel (GEOM_RECT_TIMED) timed as phase 2b times the square
+    calls, with its bounds at the rectangular work. Returns the two
+    reports (``launches`` filled by phase 10)."""
+    from dynamicpdb_tpu_torch.ops import geom_attention as mod
+
+    worst, inputs = {}, {}
+    for label, kind, L, rows, B in GEOM_RECT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = geom_inputs(torch, device, kind, L, dtype,
+                              seed=40 + L + (dtype == torch.bfloat16), B=B,
+                              rows=rows, masked_suffix=GEOM_RECT_MASKED)
+            got = geom_call(mod, kind, inp, plain=False)
+            torch.cuda.synchronize()
+            want = geom_call(mod, kind, inp, plain=True)
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"{kind} {label}: {got.dtype} {tuple(got.shape)}, want "
+                  f"{dtype} {tuple(want.shape)}")
+            err, over = geom_error(got, want)
+            print(f"kernel {kind} rectangular {label} L={L} "
+                  f"{str(dtype)[6:]}: max_abs_err {err:.3e} (tol "
+                  f"{'1e-4' if dtype == torch.float32 else '1e-4 + 2^-7 |want|'}"
+                  f"; scale {float(want.float().abs().max()):.3f})")
+            check(over <= 0, f"{kind} rectangular {label} {dtype}: "
+                  f"max_abs_err {err} out of tolerance")
+            # a row's arithmetic does not depend on the rows beside it:
+            # the block's rows are the square call's bit for bit
+            if kind == "geom_attention":
+                half = dict(inp, x=inp["x"][:B // 2])
+                same = torch.equal(geom_call(mod, kind, half, plain=False),
+                                   got[:B // 2])
+                what = f"batch rows 0-{B // 2 - 1} of a {B // 2}-row call"
+            elif rows[0] + rows[1] <= L:
+                square = geom_inputs(torch, device, kind, L, dtype,
+                                     seed=40 + L + (dtype == torch.bfloat16),
+                                     masked_suffix=GEOM_RECT_MASKED)
+                same = torch.equal(geom_call(mod, kind, square, plain=False)
+                                   [:, :, rows[0]:rows[0] + rows[1]], got)
+                what = "the square call's rows"
+            else:
+                same, what = True, None
+            if what:
+                print(f"kernel {kind} rectangular {label} {str(dtype)[6:]}: "
+                      f"equal to {what} bit for bit: {same}")
+                check(same, f"{kind} rectangular {label} {dtype}: not "
+                      f"{what} bit for bit")
+            if dtype == torch.float32:
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                if GEOM_RECT_TIMED[kind] == label:
+                    inputs[kind] = (inp, L, rows, B)
+            del got, want
+    reports = []
+    for kind, (inp, L, rows, B) in inputs.items():
+        Lq = rows[1] if rows else L
+        ops, nbytes, ew_ops = geom_cost(kind, L, B=B, Lq=Lq)
+        rep = {
+            "name": f"{kind}_rectangular", "route": "cuda",
+            "source": "dynamicpdb_tpu_torch/csrc/geom_attention.cu",
+            "replaces": GEOM_REPLACES[kind], "launches": None,
+            "case": GEOM_RECT_TIMED[kind], "max_abs_err": worst[kind],
+            "ms": time_ms(torch, lambda: geom_call(mod, kind, inp,
+                                                   plain=False), 20),
+            "ms_kernel": geom_kernel_ms(torch, mod, kind, inp, 20),
+            "plain_ms": time_ms(torch, lambda: geom_call(mod, kind, inp,
+                                                         plain=True), 5),
+            **bounds(ops, ew_ops, nbytes),
+            "library_ms": sdpa_core_ms(torch, mod, kind, inp),
+            "library": "scaled_dot_product_attention (attention core only)",
+        }
+        reports.append(rep)
+        print(f"kernel {kind} rectangular {rep['case']} float32: "
+              f"{rep['ms']:.4f} ms through the wrapper, {rep['ms_kernel']:.4f}"
+              f" ms alone, plain {rep['plain_ms']:.4f} ms, SDPA core only "
+              f"{rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+              f"({rep['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f}"
+              f" MB), tensor-core bound {rep['tc_bound_ms']:.4f} ms "
+              f"({rep['tc_bound_by']}); warm L2 [{card}]")
+    return reports
 
 
 # ---------------------------------------------------------------------------
@@ -2303,7 +2439,10 @@ SP_UPDATE_BOUND = DP_GAP_BOUNDS["update"]
 # after the fault): 'halo', ConvNet's halo rows hand their gradient back to
 # no one (the backward of sp.halo_exchange keeps its own rows only);
 # 'keys', each rank keeps only its own queries' part of its keys' gradient
-# (the reduce-scatter of sp.gather_rows's backward sums nothing). 'keys'
+# (the reduce-scatter of sp.gather_rows's backward sums nothing); 'column',
+# OmegaFold's column view taken from the rank's own rows (sp.column_view's
+# all-to-all hands each rank its own block in every rank's place: phase
+# 10a). 'keys'
 # is not run: at the release init IPA's projections take gradients at the
 # rounding level (a zero-initialised output projection), which two honest
 # runs already differ on, so its reading stays with the split's (PERF.md
@@ -2324,6 +2463,12 @@ elif fault == "keys":
         rows = t.shape[dim] // dist.get_world_size(group)
         return t.narrow(dim, dist.get_rank(group) * rows, rows).contiguous()
     mesh.reduce_scatter = reduce_scatter
+elif fault == "column":
+    import torch
+    def all_to_all(t, group):
+        part = t.chunk(dist.get_world_size(group))[dist.get_rank(group)]
+        return torch.cat([part] * dist.get_world_size(group))
+    mesh.all_to_all = all_to_all
 else:
     raise SystemExit("no planted fault " + fault)
 runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
@@ -2425,20 +2570,26 @@ def sp_against_one_process(torch, label: str, split: dict, one: dict,
               f"exceed {SP_UPDATE_BOUND})")
 
 
+def module_command(module: str, nproc: int, fault: str | None = None
+                   ) -> list[str]:
+    """``module`` in one process without a launcher (``nproc`` 1), or on
+    ``nproc`` ranks of the launcher, with ``fault`` planted
+    (PLANTED_FAULT)."""
+    if nproc == 1:
+        return [sys.executable, "-m", module]
+    if fault is None:
+        return LAUNCHER + [f"--nproc_per_node={nproc}", "-m", module]
+    return LAUNCHER + [f"--nproc_per_node={nproc}", "--no-python",
+                       sys.executable, "-c", PLANTED_FAULT, fault, module]
+
+
 def dp_step_command(tmp: str, label: str, nproc: int, args: list[str],
                     fault: str | None = None) -> tuple[list[str], str]:
     """The command of tools/dp_step.py on ``nproc`` ranks (1: without a
     launcher; more: gloo ranks, rank 0 alone writing the whole state), with
     ``fault`` planted (PLANTED_FAULT), and its output directory."""
     out = os.path.join(tmp, label.replace(" ", "_"))
-    module = "dynamicpdb_tpu_torch.tools.dp_step"
-    if nproc == 1:
-        cmd = [sys.executable, "-m", module]
-    elif fault is None:
-        cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "-m", module]
-    else:
-        cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "--no-python",
-                          sys.executable, "-c", PLANTED_FAULT, fault, module]
+    cmd = module_command("dynamicpdb_tpu_torch.tools.dp_step", nproc, fault)
     more = [] if nproc == 1 else ["--backend", "gloo", "--rank0-state"]
     return cmd + args + ["--out", out] + more, out
 
@@ -2992,6 +3143,12 @@ def eval_card_vs_cpu(tmp: str, devices=("cuda", "cpu")) -> dict:
 RESTYPES = "ARNDCQEGHILKMFPSTWYV"
 
 
+def random_sequences(lengths, seed: int) -> list[str]:
+    """Phase 5's random sequences of ``lengths`` from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list(RESTYPES), n)) for n in lengths]
+
+
 def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
                   num_pseudo_msa: int, pad_multiple: int, tmp: str,
                   seed: int = 0, dtype: str = "float32", tag: str = "") -> dict:
@@ -3017,11 +3174,10 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
     gb = os.path.getsize(ckpt) / 1e9
     print(f"extract: {n_params:,} parameters, {gb:.2f} GB checkpoint written "
           f"in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(seed)
     fasta = os.path.join(tmp, "seqs.fasta")
     with open(fasta, "w") as f:
-        for i, n in enumerate(lengths):
-            f.write(f">seq{i}_{n}\n{''.join(rng.choice(list(RESTYPES), n))}\n")
+        for i, seq in enumerate(random_sequences(lengths, seed)):
+            f.write(f">seq{i}_{len(seq)}\n{seq}\n")
     out_dir = os.path.join(tmp, f"npz_{device}_{dtype}")
     on_card = device == "cuda"
     if on_card:
@@ -3271,6 +3427,235 @@ def fold_card_vs_cpu(seed: int = 2, devices=("cuda", "cpu")) -> None:
           f"confidences within {conf_err:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: OmegaFold under sequence parallelism
+# ---------------------------------------------------------------------------
+# Two gloo ranks share cuda:0 on a ('data', 'seq') = (1, 2) mesh; each
+# holds its rows of every [L, L, .] tensor of the PLM, the embedders and
+# the GeoFormer (tools/sp_run.py's "omegafold" part). 10a: the release
+# OmegaFold on phase 5's sequences (256 and 203 residues, the second
+# padded to 224), 3 cycles each with the structure, against one process on
+# the same weights and inputs, beside a planted fault ('column'); 10b: one
+# cycle of a 512-residue sequence, one process and a 'seq' rank, each
+# one's peak memory, seconds and collectives.
+SP_OF_LENGTHS = (256, 203)
+SP_OF_CYCLES = 3
+SP_OF_LONG_N = 512
+# The split against one process, in float32: every residue's arithmetic is
+# one process's, in matmuls over a rank's rows instead of all L, so sums
+# run in another order; two recycles and the structure module then carry
+# the differences. Every output (each cycle's node and edge, the
+# confidences, the selected pos14 and pLDDT) is held to SP_OF_RTOL of its
+# scale (its largest magnitude, at least 1). On the CPU (the tiny
+# configuration, tests/test_torch_sp_omegafold.py) the readings were at
+# most 1.5e-6 of the scale; the card's kernels sum on the tensor cores in
+# another order again, and the card against the CPU is held to 1e-3
+# (EXTRACT_RTOL) over these depths, so the bound sits between: 1e-4.
+SP_OF_RTOL = 1e-4
+# The planted fault must read past the bound by this factor on cycle 0's
+# edge.
+SP_OF_FAULT_FACTOR = 10.0
+
+
+def sp_run_command(tmp: str, label: str, nproc: int, payload: str,
+                   device: str, fault: str | None = None
+                   ) -> tuple[list[str], str]:
+    """tools/sp_run.py on ``payload``: one process without a launcher
+    (``nproc`` 1), else ``nproc`` gloo ranks on a ('data', 'seq') = (1,
+    nproc) mesh sharing ``device`` (cuda: cuda:0), with ``fault`` planted
+    (PLANTED_FAULT). Returns the command and its output directory."""
+    out = os.path.join(tmp, label.replace(" ", "_"))
+    cmd = module_command("dynamicpdb_tpu_torch.tools.sp_run", nproc, fault)
+    rank_device = "cuda:0" if device == "cuda" else device
+    more = [] if nproc == 1 else [
+        "--backend", "gloo", "experiment.mesh_shape=(1,%d)" % nproc,
+        "experiment.mesh_axes=(data,seq)"]
+    return cmd + ["--device", rank_device, "--payload", payload, "--out",
+                  out] + more, out
+
+
+def sp_of_gap(got, want) -> tuple[float, float]:
+    """(max_abs_err, scale): the scale is want's largest magnitude, at
+    least 1."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape, f"shapes {tuple(got.shape)} and "
+          f"{tuple(want.shape)}")
+    return (float((got - want).abs().max()),
+            max(1.0, float(want.abs().max())))
+
+
+def sp_of_compare(torch, label: str, ranks: list[dict], one: dict,
+                  rtol: float) -> float:
+    """Every output of the split run ``ranks`` (each rank's sp_run result
+    for one sequence) against one process's ``one``: each cycle's node
+    (rank 0's) and edge (every rank's rows), confidence, the selected cycle
+    (equal), the Embedding's node, edge, pos14, pLDDT, each within ``rtol``
+    of its scale; every rank's Embedding equal to rank 0's bit for bit.
+    Returns the largest relative reading."""
+    r0, L = ranks[0], one["edge"].shape[0]
+    worst = 0.0
+
+    def held(name, got, want):
+        nonlocal worst
+        err, scale = sp_of_gap(torch.as_tensor(got), torch.as_tensor(want))
+        worst = max(worst, err / scale)
+        print(f"sp 10 {label}: {name} max_abs_err {err:.3e} (scale "
+              f"{scale:.3f}, tol {rtol * scale:.3e})")
+        check(err <= rtol * scale, f"sp 10 {label}: {name} {err} > "
+              f"{rtol} x {scale}")
+
+    check(len(r0["cycles"]) == len(one["cycles"]), f"sp 10 {label}: "
+          f"{len(r0['cycles'])} cycles, one process ran "
+          f"{len(one['cycles'])}")
+    for c, want in enumerate(one["cycles"]):
+        edge = torch.cat([r["cycles"][c]["edge_rows"] for r in ranks])[:L]
+        held(f"cycle {c} node", r0["cycles"][c]["node"], want["node"])
+        held(f"cycle {c} edge", edge, want["edge_rows"])
+        held(f"cycle {c} confidence", r0["cycles"][c]["confidence"],
+             want["confidence"])
+    check(r0["cycle"] == one["cycle"], f"sp 10 {label}: cycle "
+          f"{r0['cycle']} selected, one process selected {one['cycle']}")
+    for name in ("node", "edge", "pos14", "plddt"):
+        if one[name] is not None:
+            held(f"selected {name}", r0[name], one[name])
+    for r in ranks[1:]:
+        for name in ("node", "edge", "pos14", "plddt"):
+            check(r[name] is None or torch.equal(r[name], r0[name]),
+                  f"sp 10 {label}: rank's {name} differs from rank 0's")
+    return worst
+
+
+def sp_of_inputs(lengths, seed: int, num_cycles: int, num_pseudo_msa: int,
+                 pad_multiple: int) -> list:
+    """The pipeline's cycle inputs of phase 5's sequences of ``lengths``."""
+    from dynamicpdb_tpu_torch.models.omegafold import pipeline
+
+    lines = []
+    for i, seq in enumerate(random_sequences(lengths, seed)):
+        lines += [f">seq{i}\n", seq + "\n"]
+    got = dict(pipeline.fasta2inputs(lines, num_pseudo_msa=num_pseudo_msa,
+                                     num_cycle=num_cycles,
+                                     pad_multiple=pad_multiple))
+    return [got[f"seq{i}"] for i in range(len(lengths))]
+
+
+def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
+                       cfg=None, lengths=SP_OF_LENGTHS,
+                       num_cycles: int = SP_OF_CYCLES,
+                       num_pseudo_msa: int = 15, pad_multiple: int = 32,
+                       long_n: int | None = SP_OF_LONG_N,
+                       device: str = "cuda", seed: int = 0) -> dict:
+    """10a and 10b (above). ``weights``: a reference-layout OmegaFold
+    checkpoint of ``cfg`` (phase 5's); None writes seeded random ones of
+    ``cfg`` into ``tmp`` (the CPU rehearsal passes a tiny cfg). Returns the
+    split and one-process results, the relative readings and the launches
+    a 'seq' rank made per cycle."""
+    from dynamicpdb_tpu_torch.models.omegafold.model import OmegaFoldConfig
+    from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
+
+    cfg = cfg or OmegaFoldConfig()
+    if weights is None:
+        weights = os.path.join(tmp, "sp_omegafold.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    random_omegafold_state_dict(cfg, seed).items()}, weights)
+    seqs = sp_of_inputs(lengths, seed, num_cycles, num_pseudo_msa,
+                        pad_multiple)
+    spec = dict(weights=weights, return_structure=True, pad_safe=True)
+    main = os.path.join(tmp, "sp_of_10a.pt")
+    torch.save({"omegafold": dict(spec, sequences=seqs)}, main)
+    fault = os.path.join(tmp, "sp_of_fault.pt")
+    torch.save({"omegafold": dict(spec, sequences=[seqs[0][:1]])}, fault)
+    jobs = {"one": sp_run_command(tmp, "10a one", 1, main, device),
+            "seq": sp_run_command(tmp, "10a seq", 2, main, device),
+            "fault": sp_run_command(tmp, "10a fault", 2, fault, device,
+                                    fault="column")}
+    t0 = time.perf_counter()
+    run_commands([(cmd, f"sp 10a {k}") for k, (cmd, _) in jobs.items()])
+    print(f"sp 10a: one process, the split and the planted fault side by "
+          f"side in {time.perf_counter() - t0:.2f} s of wall [{card}]")
+    res = {k: load_ranks(torch, out, 1 if k == "one" else 2)
+           for k, (_, out) in jobs.items()}
+    on_card = device == "cuda"
+    blocks = cfg.geo_num_blocks if on_card else 0
+    readings = []
+    for i, one in enumerate(res["one"][0]["omegafold"]):
+        L = one["edge"].shape[0]
+        ranks = [r["omegafold"][i] for r in res["seq"]]
+        readings.append(sp_of_compare(torch, f"10a L={L}", ranks, one,
+                                      SP_OF_RTOL))
+        for r, got in enumerate(ranks):
+            n = len(got["cycles"])
+            want = {"geom_launches": n * blocks * cfg.geom_count,
+                    "node_launches": n * blocks}
+            launched = {k: got["launches"][k] for k in want}
+            check(launched == want, f"sp 10a L={L}: rank {r} launches "
+                  f"{launched}, expected {want}")
+            print(f"sp 10a L={L}: rank {r} rows {got['rows'][:2]} of "
+                  f"{got['rows'][2]}: {n} cycles in {got['seconds']:.3f} s "
+                  f"(one process {one['seconds']:.3f} s; side by side), "
+                  f"cycle {got['cycle']} selected (one process "
+                  f"{one['cycle']}), launches {launched}, "
+                  f"{got['sp_calls']} collectives, peak "
+                  f"{got['peak_bytes'] / 2**30:.3f} GiB (one process "
+                  f"{one['peak_bytes'] / 2**30:.3f} GiB) [{card}]")
+    # the planted fault: cycle 0's edge of the first sequence
+    one0 = res["one"][0]["omegafold"][0]
+    L = one0["edge"].shape[0]
+    edge = torch.cat([r["omegafold"][0]["cycles"][0]["edge_rows"]
+                      for r in res["fault"]])[:L]
+    err, scale = sp_of_gap(edge, one0["cycles"][0]["edge_rows"])
+    print(f"sp 10a planted fault 'column' (the column view from the rank's "
+          f"own rows): cycle 0 edge max_abs_err {err:.3e} = "
+          f"{err / scale:.3e} of its scale; the split's worst reading "
+          f"{max(readings):.3e}; it must read past {SP_OF_FAULT_FACTOR} x "
+          f"the bound {SP_OF_RTOL}")
+    check(err / scale > SP_OF_FAULT_FACTOR * SP_OF_RTOL, "sp 10a: the "
+          f"planted fault reads {err / scale:.3e}, within "
+          f"{SP_OF_FAULT_FACTOR} x the bound: the check cannot see it")
+    first = res["seq"][0]["omegafold"][0]  # rank 0, the first sequence
+    out = dict(one=res["one"], seq=res["seq"], readings=readings,
+               fault=err / scale,
+               launches={k: sum(s["launches"][k] for s in
+                                res["seq"][0]["omegafold"])
+                         for k in ("geom_launches", "node_launches")},
+               per_cycle={k: first["launches"][k] // len(first["cycles"])
+                          for k in ("geom_launches", "node_launches")})
+    if not long_n:
+        return out
+    # 10b: one cycle at long_n, one process then a 'seq' rank, timed
+    long = os.path.join(tmp, "sp_of_10b.pt")
+    torch.save({"omegafold": dict(
+        spec, time_sp=True, sequences=sp_of_inputs(
+            (long_n,), seed + 1, 1, num_pseudo_msa, 0))}, long)
+    runs = {}
+    for label, nproc in (("one", 1), ("seq", 2)):
+        cmd, dirname = sp_run_command(tmp, f"10b {label}", nproc, long,
+                                      device)
+        t0 = time.perf_counter()
+        run_command(cmd, f"sp 10b {label}")
+        runs[label] = load_ranks(torch, dirname, nproc)
+        print(f"sp 10b: {label}: {nproc} process(es) in "
+              f"{time.perf_counter() - t0:.2f} s of wall")
+    one = runs["one"][0]["omegafold"][0]
+    ranks = [r["omegafold"][0] for r in runs["seq"]]
+    out["long"] = sp_of_compare(torch, f"10b L={long_n}", ranks, one,
+                                SP_OF_RTOL)
+    for label, got in [("one process", one)] + [
+            (f"'seq' rank {r}", g) for r, g in enumerate(ranks)]:
+        print(f"sp 10b L={long_n}, 1 cycle: {label}: {got['seconds']:.3f} s,"
+              f" peak torch.cuda.max_memory_allocated "
+              f"{got['peak_bytes'] / 2**30:.3f} GiB, {got['sp_calls']} "
+              f"collectives taking {got['sp_seconds']:.3f} s (timed between "
+              f"device synchronises), launches "
+              f"{ {k: got['launches'][k] for k in ('geom_launches', 'node_launches')} }"
+              f" [{card}]")
+    check(not on_card or max(g["peak_bytes"] for g in ranks)
+          < one["peak_bytes"], "sp 10b: a 'seq' rank's peak memory is not "
+          "below one process's")
+    out["long_runs"] = dict(one=one, seq=ranks)
+    return out
+
+
 def dp_cards_main() -> int:
     """``--dp-cards``: only the data-parallel check across every card."""
     import torch
@@ -3375,6 +3760,7 @@ def main() -> int:
     rect_kernel_phase(torch, device, card, {
         r["name"]: r for r in [fwd_report, wide_fwd_report] + bwd_reports})
     geom_reports = geom_kernel_phase(torch, device, card)
+    geom_rect_reports = geom_rect_phase(torch, device, card)
     print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 3: the serving path at release width
@@ -3508,6 +3894,18 @@ def main() -> int:
                           tag=f" [{card}]")
         print(f"fold: release width and depth, 2 sequences in "
               f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+        # phase 10: OmegaFold under sequence parallelism, on the same
+        # checkpoint
+        t0 = time.perf_counter()
+        sp_of = sp_omegafold_phase(torch, tmp, card, weights=ext["ckpt"])
+        for rep in geom_rect_reports:
+            key = ("geom_launches" if rep["name"].startswith("geom")
+                   else "node_launches")
+            rep["launches"] = sp_of["launches"][key]
+            rep["launches_per_cycle"] = sp_of["per_cycle"][key]
+        print(f"sp omegafold: phase in {time.perf_counter() - t0:.2f} s "
+              f"[{card}]")
     check(ext["params"] == 795_074_210, f"extract: the release model has "
           f"{ext['params']:,} parameters, not 795,074,210")
     for rep in geom_reports:
@@ -3521,7 +3919,8 @@ def main() -> int:
     fold_card_vs_cpu()
     print(f"fold: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
-    reports = [fwd_report, wide_fwd_report] + bwd_reports + geom_reports
+    reports = ([fwd_report, wide_fwd_report] + bwd_reports + geom_reports
+               + geom_rect_reports)
     for rep in reports:
         check(rep["launches"] > 0, f"{rep['name']} never launched on its "
               "main path")

@@ -17,6 +17,15 @@
 // to float32 accuracy, with the output in the input's type. Neither the
 // projections nor the [L, L] logits ever reach device memory.
 //
+// node_attention also takes a block of query rows: row i of its output is
+// x's row q0 + i (zeros past L: a 'seq' rank's pad rows), i < Lq, against
+// all L keys, with the bias [H, Lq, L] of those rows; sequence
+// parallelism gives each rank its own rows of the GeoFormer's residues.
+// geom_attention's queries are all L rows (q0 = 0, Lq = L): under sequence
+// parallelism a rank's rows are its batch rows B. Only offsets, limits and
+// the grid depend on (q0, Lq): the square call computes what it computed
+// before, bit for bit.
+//
 // Bound on an H100 at the release shapes: geom_attention (B = L = 256,
 // n_axis 2, H 4, d 128, c 32) does 34.4 GFLOP of products and 0.6 GFLOP of
 // elementwise work per launch against ~137 MB of compulsory traffic;
@@ -246,23 +255,25 @@ __device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
   }
 }
 
-// The bias tile [kRows query rows][kTile keys] at (row0, j0) into sb; rows
-// and keys past L are zero-filled (and never used).
+// The bias tile [kRows query rows][kTile keys] at (row0, j0) into sb, of
+// a bias with Lq rows of L keys; rows past Lq and keys past L are
+// zero-filled (and never used).
 __device__ __forceinline__ void fetch_bias(float* sb,
                                            const float* __restrict__ bias_g,
-                                           int row0, int j0, int L, bool vec) {
+                                           int row0, int j0, int Lq, int L,
+                                           bool vec) {
   const int tid = threadIdx.x;
   if (vec) {  // L % 4 == 0: 16-byte aligned rows, whole 4-key groups
     for (int e = tid; e < kRows * (kTile / 4); e += kThreads) {
       const int r = e / (kTile / 4), j = j0 + 4 * (e % (kTile / 4));
-      const bool ok = row0 + r < L && j < L;
+      const bool ok = row0 + r < Lq && j < L;
       cp_async16(sb + r * kBS + (j - j0),
                  ok ? bias_g + (size_t)(row0 + r) * L + j : bias_g, ok);
     }
   } else {
     for (int e = tid; e < kRows * kTile; e += kThreads) {
       const int r = e / kTile, j = j0 + e % kTile;
-      const bool ok = row0 + r < L && j < L;
+      const bool ok = row0 + r < Lq && j < L;
       cp_async4(sb + r * kBS + (j - j0),
                 ok ? bias_g + (size_t)(row0 + r) * L + j : bias_g, ok);
     }
@@ -276,7 +287,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
                  const float* __restrict__ bqg, const float* __restrict__ wkv,
                  const float* __restrict__ bkv, const float* __restrict__ bias,
                  const float* __restrict__ kmask, T* __restrict__ out,
-                 int n_axis, int H, int L, int d, float scale) {
+                 int n_axis, int H, int L, int Lq, int q0, int d,
+                 float scale) {
   extern __shared__ float4 smem4[];
   float* sKh = reinterpret_cast<float*>(smem4);  // [kChunk][kKS]
   float* sKl = sKh + kChunk * kKS;
@@ -289,13 +301,13 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int head = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
+  const int row0 = blockIdx.y * kRows;           // of the Lq query rows
   const int ba = blockIdx.z;                     // b * n_axis + axis
   const int b = ba / n_axis;
   const int gi = (ba % n_axis) * H + head;
   const int G = n_axis * H;
   const T* xg = x + (size_t)ba * L * d;
-  const float* bias_g = bias + (size_t)gi * L * L;
+  const float* bias_g = bias + (size_t)gi * Lq * L;
   const bool vec = (L % 4) == 0;
   const int wrow = 16 * kMT * warp;              // this warp's first row
 
@@ -303,8 +315,9 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
   uint32_t qh[kMT][4][4], ql[kMT][4][4];  // A fragments per 8-channel step
   {
     float acc[kMT][8][4];
-    project<T, kRows, kC2, PP>(acc, xg, row0, L, d, wqg + gi * kC2, G * kC2,
-                               stage);
+    // x rows q0 + row0 + r, read as 0 at and past min(q0 + Lq, L)
+    project<T, kRows, kC2, PP>(acc, xg, q0 + row0, min(q0 + Lq, L), d,
+                               wqg + gi * kC2, G * kC2, stage);
     const float* bq = bqg + (size_t)gi * kC2;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
@@ -380,7 +393,7 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
         sMask[tid] = kc0 + tid < L ? kmask[(size_t)b * L + kc0 + tid] : 0.f;
     }
     const int n_tiles = (min(kChunk, L - kc0) + kTile - 1) / kTile;
-    fetch_bias(sb[0], bias_g, row0, kc0, L, vec);
+    fetch_bias(sb[0], bias_g, row0, kc0, Lq, L, vec);
     for (int jt = 0; jt < n_tiles; ++jt) {
       cp_async_wait<0>();
       // the bias tile jt has landed (and k|v and the mask, at jt == 0), and
@@ -388,8 +401,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // which now takes tile jt + 1 while this step computes
       __syncthreads();
       if (jt + 1 < n_tiles)
-        fetch_bias(sb[(jt + 1) & 1], bias_g, row0, kc0 + (jt + 1) * kTile, L,
-                   vec);
+        fetch_bias(sb[(jt + 1) & 1], bias_g, row0, kc0 + (jt + 1) * kTile, Lq,
+                   L, vec);
       const int kl0 = jt * kTile;  // first key of the step, in the chunk
       const int j0 = kc0 + kl0;
 
@@ -506,8 +519,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
     for (int h = 0; h < 2; ++h) {
       const float l = quad_sum(l_run[mt][h]);
       const int i = row0 + wrow + 16 * mt + g + 8 * h;
-      if (i >= L) continue;
-      T* orow = out + (((size_t)b * G + gi) * L + i) * kC;
+      if (i >= Lq) continue;
+      T* orow = out + (((size_t)b * G + gi) * Lq + i) * kC;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         float v[2];
@@ -525,10 +538,10 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
 template <typename T, bool MASKED, int PP>
 int launch(const void* x, const float* wqg, const float* bqg, const float* wkv,
            const float* bkv, const float* bias, const float* kmask, void* out,
-           int B, int n_axis, int H, int L, int d, int c, float scale,
-           int device, cudaStream_t stream) {
-  if (B < 1 || n_axis < 1 || H < 1 || L < 1 || d < 8 || d % 8 != 0 ||
-      c != kC || (long long)B * n_axis > 65535 || H > 65535)
+           int B, int n_axis, int H, int L, int Lq, int q0, int d, int c,
+           float scale, int device, cudaStream_t stream) {
+  if (B < 1 || n_axis < 1 || H < 1 || L < 1 || Lq < 1 || q0 < 0 || d < 8 ||
+      d % 8 != 0 || c != kC || (long long)B * n_axis > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   static_assert(kSmemBytes <= (size_t)kMaxSmem, "fits one block");
   cudaError_t err = cudaSetDevice(device);
@@ -537,10 +550,10 @@ int launch(const void* x, const float* wqg, const float* bqg, const float* wkv,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, (L + kRows - 1) / kRows, B * n_axis);
+  const dim3 grid(H, (Lq + kRows - 1) / kRows, B * n_axis);
   geom_attn_kernel<T, MASKED, PP><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(x), wqg, bqg, wkv, bkv, bias, kmask,
-      static_cast<T*>(out), n_axis, H, L, d, scale);
+      static_cast<T*>(out), n_axis, H, L, Lq, q0, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -548,18 +561,20 @@ template <bool MASKED>
 int dispatch(const void* x, const float* wqg, const float* bqg,
              const float* wkv, const float* bkv, const float* bias,
              const float* kmask, void* out, int B, int n_axis, int H, int L,
-             int d, int c, float scale, int bf16, int w_bf16, int device,
-             cudaStream_t stream) {
+             int Lq, int q0, int d, int c, float scale, int bf16, int w_bf16,
+             int device, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   if (!bf16)
     return launch<float, MASKED, 3>(x, wqg, bqg, wkv, bkv, bias, kmask, out,
-                                    B, n_axis, H, L, d, c, scale, device,
-                                    stream);
+                                    B, n_axis, H, L, Lq, q0, d, c, scale,
+                                    device, stream);
   if (w_bf16)
     return launch<bf, MASKED, 1>(x, wqg, bqg, wkv, bkv, bias, kmask, out, B,
-                                 n_axis, H, L, d, c, scale, device, stream);
+                                 n_axis, H, L, Lq, q0, d, c, scale, device,
+                                 stream);
   return launch<bf, MASKED, 3>(x, wqg, bqg, wkv, bkv, bias, kmask, out, B,
-                               n_axis, H, L, d, c, scale, device, stream);
+                               n_axis, H, L, Lq, q0, d, c, scale, device,
+                               stream);
 }
 
 }  // namespace
@@ -570,26 +585,29 @@ int dispatch(const void* x, const float* wqg, const float* bqg,
 // wqg, wkv [d, n_axis * H, 2c] and bqg, bkv [n_axis * H, 2c], float32, with
 // g = axis * H + head; w_bf16 = 1 promises that every value of wqg and wkv
 // is a bfloat16 value (one projection pass with bf16 x); bias
-// [n_axis * H, L, L] float32, shared over the batch rows; kmask [M, L]
-// float32; out [B, n_axis * H, L, c] in x's type. All contiguous and
-// 16-byte aligned; d divisible by 8; c = 32.
+// [n_axis * H, L, L] float32, shared over the batch rows (node_attention:
+// [H, Lq, L], its query rows' bias); kmask [M, L] float32; out
+// [B, n_axis * H, L, c] in x's type (node_attention: [M, H, Lq, c], row i
+// the query x[q0 + i], zeros past L). All contiguous and 16-byte aligned;
+// d divisible by 8; c = 32.
 extern "C" int geom_attention(const void* x, const float* wqg, const float* bqg,
                               const float* wkv, const float* bkv,
                               const float* bias, void* out, int B, int n_axis,
                               int H, int L, int d, int c, float scale, int bf16,
                               int w_bf16, int device, cudaStream_t stream) {
   return dispatch<false>(x, wqg, bqg, wkv, bkv, bias, nullptr, out, B, n_axis,
-                         H, L, d, c, scale, bf16, w_bf16, device, stream);
+                         H, L, L, 0, d, c, scale, bf16, w_bf16, device,
+                         stream);
 }
 
 extern "C" int node_attention(const void* x, const float* wqg, const float* bqg,
                               const float* wkv, const float* bkv,
                               const float* bias, const float* kmask, void* out,
-                              int M, int H, int L, int d, int c, float scale,
-                              int bf16, int w_bf16, int device,
+                              int M, int H, int L, int Lq, int q0, int d, int c,
+                              float scale, int bf16, int w_bf16, int device,
                               cudaStream_t stream) {
   return dispatch<true>(x, wqg, bqg, wkv, bkv, bias, kmask, out, M, 1, H, L,
-                        d, c, scale, bf16, w_bf16, device, stream);
+                        Lq, q0, d, c, scale, bf16, w_bf16, device, stream);
 }
 
 // Dynamic shared memory per block (bytes); the same for every d.

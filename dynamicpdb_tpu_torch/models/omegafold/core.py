@@ -5,6 +5,11 @@ attention with an optional edge return, RoPE, multi-headed scale-shift,
 relative-position lookup, the GAU logits scaling, and the GAU itself as an
 ``nn.Module`` whose parameter names are the reference OmegaFold's
 (``gva_proj.0``, ``multi_headed_scaling``, ``relpos``, ``output_proj``).
+
+Under sequence parallelism (``parallel/sp.py``) the GAU takes this rank's
+residues as its queries and gathers every rank's keys and values
+(``sp.gather_rows``): RoPE and the relative positions read the rows'
+global positions (``offset``, ``q0``).
 """
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ import math
 
 import torch
 from torch import nn
+
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 def layer_norm_f32(x, weight=None, bias=None, eps=1e-5,
@@ -68,14 +75,15 @@ def attention(query, key, scale, value, bias, *, return_edge: bool = False,
     return out, None
 
 
-def rope(x, seq_dim: int):
-    """Rotary position embedding over the flattened ``seq_dim``: the
-    feature dim splits into halves (x1, x2) -> [x1 cos - x2 sin,
-    x2 cos + x1 sin]."""
+def rope(x, seq_dim: int, offset: int = 0):
+    """Rotary position embedding over the flattened ``seq_dim``, whose
+    entries sit at positions offset, offset + 1, ...: the feature dim splits
+    into halves (x1, x2) -> [x1 cos - x2 sin, x2 cos + x1 sin]."""
     half = x.shape[-1] // 2
     inv_freq = 10000.0 ** (
         -torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    pos = torch.arange(x.shape[seq_dim], dtype=x.dtype, device=x.device)
+    pos = torch.arange(offset, offset + x.shape[seq_dim], dtype=x.dtype,
+                       device=x.device)
     sinusoid = pos[:, None] * inv_freq[None, :]
     sin, cos = torch.sin(sinusoid), torch.cos(sinusoid)
     n_between = x.dim() - 1 - (seq_dim % x.dim()) - 1
@@ -94,12 +102,16 @@ def multi_headed_scaling(x, weight, bias, on_out_ready=None):
     return [y[..., h, :] for h in range(weight.shape[0])]
 
 
-def relpos_embedding(table, num_res: int):
+def relpos_embedding(table, num_res: int, q0: int = 0,
+                     rows: int | None = None):
     """AF2 relative-position lookup: table [2*one_side + 1, dim] ->
-    [num_res, num_res, dim]."""
+    [rows, num_res, dim], the rows [q0, q0 + rows) (default: all) of the
+    [num_res, num_res, dim] table."""
     one_side = table.shape[0] // 2
     idx = torch.arange(num_res, device=table.device)
-    rel = torch.clamp(idx[None, :] - idx[:, None], -one_side, one_side)
+    rows_idx = idx if rows is None else torch.arange(q0, q0 + rows,
+                                                     device=table.device)
+    rel = torch.clamp(idx[None, :] - rows_idx[:, None], -one_side, one_side)
     return table[rel + one_side]
 
 
@@ -134,17 +146,24 @@ class GatedAttentionUnit(nn.Module):
         self.output_proj = nn.Linear(proj_dim, node, device=device)
 
     def forward(self, node, scaling, bias):
-        """node [..., L, node]; bias broadcastable to [..., L, L]. Returns
-        (node update, edge [L, L] summed over the pseudo-MSA rows)."""
+        """node [..., Lr, node], this rank's rows of the L residues (all L
+        outside sequence parallelism); bias broadcastable to [..., 1, L].
+        Returns (node update [..., Lr, node], edge [Lr, L] summed over the
+        pseudo-MSA rows)."""
         gva = linear(self.gva_proj[0], node)
         gva = gva * torch.reciprocal(1 + torch.exp(-gva))  # SiLU
         p = self.proj_dim
         gates, values, base = gva[..., :p], gva[..., p:2 * p], gva[..., 2 * p:]
+        L = bias.shape[-1]
+        q0, rows, _ = sp.row_range(L)
         mhs = self.multi_headed_scaling
         queries, keys = multi_headed_scaling(
             base, mhs.weight, mhs.bias,
-            on_out_ready=lambda x: rope(x, x.dim() - 3))
-        rel = relpos_embedding(self.relpos.weight, base.shape[-2])[..., 0]
+            on_out_ready=lambda x: rope(x, x.dim() - 3, q0))
+        # every rank's keys and values (identities outside a 'seq' mesh)
+        keys = sp.gather_rows(keys, L, dim=-2)
+        values = sp.gather_rows(values, L, dim=-2)
+        rel = relpos_embedding(self.relpos.weight, L, q0, rows)[..., 0]
         out, edge = attention(queries, keys, scaling, values, bias + rel,
                               return_edge=True, edge_reduction_dim=-3)
         return linear(self.output_proj, out * gates), edge

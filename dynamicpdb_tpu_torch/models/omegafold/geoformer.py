@@ -11,6 +11,29 @@ tensor launches the hand-written kernels of ``ops/geom_attention.py``, a
 CPU tensor runs their plain versions. The JAX package's ``flash`` switch
 and its ``MAX_FLASH_RES`` bound (a TPU VMEM limit) have no counterpart: the
 kernels tile the keys and take every length.
+
+Sequence parallelism (``parallel/sp.py``; JAX ``geoformer.py:315-353``,
+where GSPMD partitions the dense path and the Pallas kernel is bypassed):
+node holds this rank's residues [M, Lr, d], edge its query rows
+[Lr, L, de], the mask [M, L] stays whole. Per block, the collectives are
+  * attention with edge bias: the normalised node gathered for the keys
+    (``gather_rows``), the rectangular ``node_attention`` on the rows;
+  * the outer product: its right half gathered, so out[i, j] is whole for
+    this rank's i;
+  * each geometric attention: the normalised edge gathered whole, the
+    bias b [2, H, L, L] gathered whole (every row attends over all of it;
+    ``geom_attention`` takes the rank's rows as its batch rows), and the
+    column view of the column branch's output (``column_view``, an
+    all-to-all). The triangle product needs act_col of every residue j,
+    made from edge row j and edge column j: the rank gathers the
+    normalised edge (L^2 de numbers) rather than act_col itself (2 L^2 de)
+    and projects every j's act_col from it, a row block at a time; the
+    whole edge also gives the rank its rows of the column view. Against an
+    all-to-all column view of the edge and a gathered act_col, a rank
+    receives half the numbers, in three collectives instead of four;
+  * column attention and the transitions are local.
+Outside a 'seq' mesh every collective is the identity and every rank view
+the whole, and the code computes what one process computed before.
 """
 from __future__ import annotations
 
@@ -23,6 +46,7 @@ from dynamicpdb_tpu_torch.ops.geom_attention import (
     fused_gated_geom_attention_t,
     fused_gated_node_attention,
 )
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 def _span(name: str):
@@ -91,15 +115,18 @@ class AttentionWEdgeBias(nn.Module):
 
 
 def attention_w_edge_bias(p: AttentionWEdgeBias, node, edge, mask):
-    """node [M, L, d]; edge [L, L, de]; mask [M, L], the full pseudo-MSA
-    mask: each row masks its own keys. The edge bias [H, L, L] is shared
-    by the rows and the row's key mask is applied in the kernel."""
+    """node [M, Lr, d]; edge [Lr, L, de] (this rank's rows; Lr = L outside
+    sequence parallelism); mask [M, L], the full pseudo-MSA mask: each row
+    masks its own keys. The edge bias [H, Lr, L] is shared by the
+    pseudo-MSA rows and the row's key mask is applied in the kernel."""
     a = p.attention
-    node = _normalize(node)
+    L = mask.shape[-1]
+    node = sp.gather_rows(_normalize(node), L, dim=1)  # every residue's keys
     edge_bias = linear(p.proj_edge_bias, _normalize(edge)).permute(2, 0, 1)
     out = fused_gated_node_attention(
         node, a.qg_weights, a.qg_bias, a.kv_weights, a.kv_bias, edge_bias,
-        mask, c=a.c, scale=a.c ** (-0.5))  # [M, H, L, c], gated
+        mask, c=a.c, scale=a.c ** (-0.5),
+        q0=sp.row_range(L)[0])  # [M, H, Lr, c], gated
     return _attn_out_proj(out[:, None], a)[..., 0]
 
 
@@ -126,13 +153,17 @@ class Node2Edge(nn.Module):
 
 
 def node2edge(p: Node2Edge, node, mask):
-    """node [M, L, d]; mask [M, L]: masked mean outer product over rows."""
+    """node [M, Lr, d] (this rank's residues); mask [M, L]: masked mean
+    outer product over the pseudo-MSA rows, [Lr, L, d_edge]."""
     proj = p.out_weights.shape[0]
+    L = mask.shape[-1]
     act = linear(p.input_proj, _normalize(node))
-    m = mask[..., None].to(act.dtype)
+    m_all = mask[..., None].to(act.dtype)
+    m = sp.take_rows(m_all, L, 1)
     act = act * m
-    norm = torch.einsum("sid,sjd->ijd", m, m)
-    left, right = act[..., :proj], act[..., proj:]
+    norm = torch.einsum("sid,sjd->ijd", m, m_all)
+    left = act[..., :proj]
+    right = sp.gather_rows(act[..., proj:], L, dim=1)
     out = torch.einsum("sid,def->sief", left, p.out_weights)
     out = torch.einsum("sief,sje->ijf", out, right) + p.out_bias
     return out / (norm + 1e-3)
@@ -168,19 +199,24 @@ def _sliced(w, d_edge: int, shift: int):
 
 def geometric_attention(p: GeometricAttention, edge, mask, *,
                         pad_safe: bool = False):
-    """edge [L, L, d]; mask [L]. Returns the residual update.
+    """edge [Lr, L, d], this rank's rows (all L outside sequence
+    parallelism); mask [L]. Returns the residual update [Lr, L, d].
 
     The reference builds the attended branch's mask bias and then
     overwrites it, so its mask never reaches that branch; that is kept.
     ``pad_safe=True`` restores the key masking there and masks the
     triangle product's summed-out axis, so that padding cannot perturb
     real positions; with an all-ones mask it changes nothing."""
-    d = edge.shape[-1]
+    d, L = edge.shape[-1], mask.shape[-1]
     edge = _normalize(edge)
-    # axis-major [B, 2, L, d]: the row and column views, as the kernel reads
-    stacked = torch.stack([edge, edge.transpose(0, 1)], dim=-3)
+    whole = sp.gather_rows(edge, L, dim=0)  # [L, L, d]; edge itself at S 1
+    cols = whole.transpose(0, 1)  # the column view: cols[j, k] = whole[k, j]
+    rows = sp.row_range(L)[1]
+    # axis-major [Lr, 2, L, d]: the row and column views, as the kernel
+    # reads them; the kernel's batch rows are this rank's rows
+    stacked = torch.stack([edge, sp.take_rows(cols, L, 0)], dim=-3)
     b = torch.einsum("qrkc,crh->rhqk", stacked, p.linear_b_weights)
-    b = b + p.linear_b_bias
+    b = sp.gather_rows(b + p.linear_b_bias, L, dim=2)  # [2, H, L, L]
     if pad_safe:
         b = b + _mask2bias(mask)[None, None, None, :]
     a = p.attention
@@ -188,18 +224,27 @@ def geometric_attention(p: GeometricAttention, edge, mask, *,
         stacked, a.qg_weights, a.qg_bias, a.kv_weights, a.kv_bias, b,
         c=a.c, scale=a.c ** (-0.5))  # [B, 2, H, L, c], gated
     attended = _attn_out_proj(out5, a)
-    attended = attended[..., 0] + attended[..., 1].transpose(-2, -3)
+    attended = attended[..., 0] + sp.column_view(attended[..., 1], L)
 
     # the triangle-multiplicative branch
-    m = mask.to(stacked.dtype)
+    m_all = mask.to(stacked.dtype)
+    m = sp.take_rows(m_all, L, 0)
     row_w, row_b = _sliced(p.act_w, d, 0), _sliced(p.act_b, d, 0)
     col_w, col_b = _sliced(p.act_w, d, 1), _sliced(p.act_b, d, 1)
     act_row = _glu(torch.einsum("irkd,drc->ikrc", stacked, row_w) + row_b)
     act_row = act_row * m[:, None, None, None]
     if pad_safe:
-        act_row = act_row * m[None, :, None, None]
-    act_col = _glu(torch.einsum("jrkd,drc->jkrc", stacked, col_w) + col_b)
-    act_col = act_col * m[:, None, None, None]
+        act_row = act_row * m_all[None, :, None, None]
+
+    def col_act(x):  # x [j, 2, L, d] -> [j, L, 2, d]
+        return _glu(torch.einsum("jrkd,drc->jkrc", x, col_w) + col_b)
+
+    # every residue j's act_col; split, one row block at a time, so that
+    # no more than a block's [rows, L, 2, 2d] projection is alive at once
+    act_col = (col_act(stacked) if not sp.is_active() else torch.cat([
+        col_act(torch.stack([whole[j:j + rows], cols[j:j + rows]], dim=-3))
+        for j in range(0, L, rows)]))
+    act_col = act_col * m_all[:, None, None, None]
     ab = _normalize(torch.einsum("ikrd,jkrd->ijrd", act_row, act_col))
     gated = torch.einsum("ijrd,rdc->ijrc", ab, p.out_proj_w) + p.out_proj_b
     act_g = torch.sigmoid(torch.einsum("irjd,drc->ijrc", stacked,
@@ -228,14 +273,16 @@ class GeoFormerBlock(nn.Module):
 
 def geoformer_block(p: GeoFormerBlock, node, edge, mask, *,
                     pad_safe: bool = False):
-    """node [M, L, d_node]; edge [L, L, d_edge]; mask [M, L]. Each step runs
-    under a profiler range named for it (tools/profile_extract.py)."""
+    """node [M, Lr, d_node]; edge [Lr, L, d_edge] (this rank's rows; Lr = L
+    outside sequence parallelism); mask [M, L]. Each step runs under a
+    profiler range named for it (tools/profile_extract.py)."""
     with _span("attention_w_edge_bias"):
         node = node + attention_w_edge_bias(p.attention_w_edge_bias, node,
                                             edge, mask)
     with _span("column_attention"):  # over the pseudo-MSA axis
         node_col = _normalize(node.transpose(0, 1))
-        col_bias = _mask2bias(mask.T[..., None, None, :])
+        rows_mask = sp.take_rows(mask, mask.shape[-1], 1)
+        col_bias = _mask2bias(rows_mask.T[..., None, None, :])
         node_col = gated_attention(p.column_attention, node_col, node_col,
                                    col_bias)
         node = node + node_col.transpose(0, 1).to(node.dtype)
@@ -261,8 +308,9 @@ class GeoFormer(nn.Module):
                                          device=device)
 
     def forward(self, node, edge, mask, *, pad_safe: bool = False):
-        """node [M, L, d_node], edge [L, L, d_edge], mask [M, L] ->
-        (node_repr, edge_repr, final_node [M, L, d_struct])."""
+        """node [M, Lr, d_node], edge [Lr, L, d_edge], mask [M, L] ->
+        (node_repr, edge_repr, final_node [M, Lr, d_struct]), Lr = L
+        outside sequence parallelism, else this rank's rows."""
         for block in self.blocks:
             node, edge = geoformer_block(block, node, edge, mask,
                                          pad_safe=pad_safe)

@@ -9,6 +9,20 @@ greater than the best so far, which starts at 0.0, and the first cycle is
 kept when none beats it. The selection stays on the device (no host sync
 per cycle), as the JAX package's ``omegafold_embed_scan``.
 
+Sequence parallelism (``parallel/sp.py``, inside ``sp.activated(mesh)``
+with a 'seq' axis; JAX ``model.py:123-126`` and the constraints of its PLM
+and GeoFormer): the PLM, the embedders and the GeoFormer run on this
+rank's residues and on its rows of every [L, L, .] tensor. Before the
+structure module the cycle gathers the GeoFormer's node and edge whole
+(``sp.gather_replicated``), and the structure module, atom14 and the
+confidence head run whole on every rank (JAX leaves them unconstrained):
+every rank computes the same fold. ``omegafold_embed`` keeps the previous
+and the best cycle's edge as rows between cycles and gathers the selected
+one once, at the end; the choice of a cycle reads rank 0's confidence
+(``sp.rank0``), so no two ranks can choose differently. A window that S
+does not divide is padded to S ceil(L / S) rows; the pad rows never reach
+a real one and are cut by every gather.
+
 ``OmegaFold``'s state-dict keys are the reference OmegaFold's, the keys
 the JAX package's ``params_from_state_dict`` reads, so a released
 checkpoint loads strictly (``omegafold_from_state_dict``).
@@ -33,6 +47,7 @@ from dynamicpdb_tpu_torch.models.omegafold.structure import (
     ConfidenceHead,
     StructureModule,
 )
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 @dataclass(frozen=True)
@@ -112,7 +127,10 @@ def get_all_confidence(plddt, ca_pos, mask, cutoff: float = 15.0):
 
 
 def deep_sequence_embed(model: OmegaFold, p_msa, p_msa_mask):
-    """PLM forward, its projections and the input edge embedder."""
+    """PLM forward, its projections and the input edge embedder: node
+    [M, Lr, node_dim] and edge [Lr, L, edge_dim], this rank's rows (the
+    PLM's edge stack stays as rows; Lr = L outside sequence
+    parallelism)."""
     node, edges = model.omega_plm(p_msa, p_msa_mask)
     node = linear(model.plm_node_embedder, _normalize_unbiased(node))
     edge = linear(model.plm_edge_embedder,
@@ -122,9 +140,12 @@ def deep_sequence_embed(model: OmegaFold, p_msa, p_msa_mask):
 
 def omegafold_cycle(model: OmegaFold, p_msa, p_msa_mask, prev_node,
                     prev_edge, prev_x, *, pad_safe: bool = False):
-    """One recycling iteration. Returns (node_out [L, node_dim],
-    edge_out [L, L, edge_dim], confidence, plddt [L], pos14 [L, 14, 3]).
-    Each stage runs under a profiler range named for it."""
+    """One recycling iteration on prev_node [L, node_dim], prev_edge
+    [Lr, L, edge_dim] (this rank's rows; Lr = L outside sequence
+    parallelism) and prev_x [L, 14, 3]. Returns (node_out [L, node_dim],
+    edge_out [Lr, L, edge_dim], confidence, plddt [L], pos14 [L, 14, 3]):
+    all but the edge whole, the same on every rank. Each stage runs under a
+    profiler range named for it."""
     fasta, mask = p_msa[0], p_msa_mask[0]
     cyc = model.omega_fold_cycle
     with _span("plm_and_embedders"):
@@ -134,15 +155,18 @@ def omegafold_cycle(model: OmegaFold, p_msa, p_msa_mask, prev_node,
     with _span("geoformer"):
         node, edge, final_node = cyc.geoformer(node, edge, p_msa_mask,
                                                pad_safe=pad_safe)
+    L = fasta.shape[-1]
+    node0 = sp.gather_replicated(node[0], L, dim=0)
     with _span("structure_module"):
         node_struct, (rots, trans), torsions = cyc.structure_module(
-            final_node[0], edge, mask)
+            sp.gather_replicated(final_node[0], L, dim=0),
+            sp.gather_replicated(edge, L, dim=0), mask)
     with _span("atom14_and_confidence"):
         pos14, _ = atoms.frames_and_torsions_to_atom14(
             rots, trans, mask.bool(), torsions.float(), fasta)
         plddt = cyc.confidence_head(node_struct)
         conf = get_all_confidence(plddt, pos14[..., 1, :], mask.float())
-    return node[0], edge, conf, plddt, pos14
+    return node0, edge, conf, plddt, pos14
 
 
 @dataclass
@@ -165,7 +189,8 @@ class Embedding:
 def omegafold_embed(model: OmegaFold, cycle_inputs, *,
                     predict_with_confidence: bool = True,
                     pad_safe: bool = False,
-                    return_structure: bool = False) -> Embedding:
+                    return_structure: bool = False,
+                    on_cycle=None) -> Embedding:
     """Run every recycling cycle of ``cycle_inputs`` (the pipeline's
     {p_msa, p_msa_mask} dicts) on the model's device and dtype; keep the
     most confident cycle's reprs, or the last cycle's when
@@ -173,13 +198,18 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
     cycle's either way, as in the JAX package). ``return_structure`` also
     keeps the selected cycle's pos14 and pLDDT, selected on the device like
     the reprs. ``pad_safe`` for inputs padded by the pipeline (the outputs
-    then carry the padded length)."""
+    then carry the padded length). ``on_cycle(i, node, edge, confidence)``,
+    if given, sees each cycle's outputs as it ends (edge: this rank's
+    rows).
+
+    Under sequence parallelism every rank returns the same Embedding."""
     w = model.plm_node_embedder.weight
     dev, act = w.device, w.dtype
     cfg = model.cfg
     L = cycle_inputs[0]["p_msa"].shape[-1]
+    rows = sp.row_range(L)[1]
     prev_node = torch.zeros(L, cfg.node_dim, dtype=act, device=dev)
-    prev_edge = torch.zeros(L, L, cfg.edge_dim, dtype=act, device=dev)
+    prev_edge = torch.zeros(rows, L, cfg.edge_dim, dtype=act, device=dev)
     prev_x = torch.zeros(L, 14, 3, dtype=act, device=dev)
     best_conf = torch.zeros((), dtype=torch.float32, device=dev)
     best_cycle = torch.zeros((), dtype=torch.int64, device=dev)
@@ -192,6 +222,9 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
             model, p_msa, mask, prev_node, prev_edge, prev_x,
             pad_safe=pad_safe)
         prev_node, prev_edge, prev_x = node.to(act), edge.to(act), pos14.to(act)
+        if on_cycle is not None:
+            on_cycle(i, node, edge, conf)
+        conf = sp.rank0(conf)  # one choice on every rank
         better = conf > best_conf
         if i == 0 or not predict_with_confidence:  # this cycle fills them
             better = torch.ones_like(better)
@@ -206,6 +239,7 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
                                                           best_plddt)
         best_conf = torch.where(conf > best_conf, conf.float(), best_conf)
         confs.append(conf.float())
+    best_edge = sp.gather_replicated(best_edge, L, dim=0)
     return Embedding(edge=best_edge.float(), node=best_node.float(),
                      confidence=float(best_conf), cycle=int(best_cycle),
                      confidences=torch.stack(confs).tolist(),

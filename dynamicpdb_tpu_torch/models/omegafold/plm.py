@@ -6,6 +6,11 @@ the token-dropout rescale, a stack of pre-LayerNorm gated attention units
 map, summed over the pseudo-MSA rows, is one channel of the edge
 representation. Parameter names are the reference's (``input_embedding``,
 ``layers.{i}.gau``, ``output_norm``).
+
+Under sequence parallelism (``parallel/sp.py``; JAX ``plm.py:74-84``)
+the node is cut to this rank's residues and each layer's edge map is kept
+as this rank's query rows, [layers, Lr, L]; the scalings count every
+residue of the whole mask.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from dynamicpdb_tpu_torch.models.omegafold.core import (
     gau_qk_scaling,
     layer_norm_f32,
 )
+from dynamicpdb_tpu_torch.parallel import sp
 
 
 @dataclass(frozen=True)
@@ -60,12 +66,14 @@ class OmegaPLM(nn.Module):
         return ((1 - self.cfg.masked_ratio) / (1 - observed))[:, None, None]
 
     def forward(self, tokens, mask):
-        """tokens, mask [M, L] -> (node [M, L, node], edges [layers, L, L])."""
+        """tokens, mask [M, L] -> (node [M, Lr, node], edges [layers, Lr,
+        L]), Lr = L outside sequence parallelism, else this rank's rows."""
         qk_scaling = gau_qk_scaling(mask.sum(-1, dtype=torch.float32),
                                     self.cfg.attn_dim)[..., None, None]
         bias = (mask[..., None, :].float() - 1.0) * 1e9  # [M, 1, L]
         node = self.input_embedding(tokens)
         node = (node * self._finetuning_scale(mask, tokens)).to(node.dtype)
+        node = sp.take_rows(node, tokens.shape[-1], dim=1)
         edges = []
         for layer in self.layers:
             update, edge = layer.gau(layer_norm_f32(node), qk_scaling, bias)

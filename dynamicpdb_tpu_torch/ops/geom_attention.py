@@ -13,7 +13,11 @@ Two wrappers, each the counterpart of a JAX entry point of
 
 Each computes, per (axis, head, row), q|gate = x Wqg + b, k|v = x Wkv + b,
 softmax(scale q k^T + bias [+ (kmask - 1) 1e9]) v * sigmoid(gate), to
-float32 accuracy, returning the input's dtype (float32 or bfloat16). For a
+float32 accuracy, returning the input's dtype (float32 or bfloat16).
+``fused_gated_node_attention`` also takes a block of query rows, [q0, q0 +
+Lq) of the L rows that give the keys (``q0``, and Lq from the bias's
+rows): one 'seq' rank's rows under sequence parallelism
+(``parallel/sp.py``). The square call is q0 = 0, Lq = L. For a
 CUDA tensor each launches its hand-written kernel (``csrc/geom_attention.cu``,
 built by ``nvcc``, loaded with ``ctypes``); for a CPU tensor it runs its
 plain version. Nothing falls back from one to the other: a CUDA call that
@@ -57,13 +61,27 @@ node_launches = 0
 KERNEL_C = 32  # the head width the kernels are compiled for
 
 
-def _gated_attention_plain(x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale):
+def query_rows(x, q0: int, Lq: int):
+    """Rows [q0, q0 + Lq) of x [..., L, d] along its L axis, rows past L
+    zero (a 'seq' rank's pad rows); x itself for the square call."""
+    L = x.shape[-2]
+    if q0 == 0 and Lq == L:
+        return x
+    part = x[..., min(q0, L):min(q0 + Lq, L), :]
+    pad = x.new_zeros(x.shape[:-2] + (Lq - part.shape[-2], x.shape[-1]))
+    return torch.cat([part, pad], -2)
+
+
+def _gated_attention_plain(x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale,
+                           q0: int = 0):
     """x [B, R, L, d]; weights [d, R, H, 2c], biases [R, H, 1, 2c]; bias
-    broadcastable to [B, R, H, L, L]; kmask [B, L] or None. Returns
-    [B, R, H, L, c] in float32."""
+    broadcastable to [B, R, H, Lq, L]; kmask [B, L] or None. The queries are
+    x's rows [q0, q0 + Lq) (``query_rows``), the keys all L. Returns
+    [B, R, H, Lq, c] in float32."""
     f32 = torch.float32
     x = x.to(f32)
-    qg = torch.einsum("brld,drhe->brhle", x, qg_w.to(f32)) + qg_b.to(f32)
+    xq = query_rows(x, q0, bias.shape[-2])
+    qg = torch.einsum("brld,drhe->brhle", xq, qg_w.to(f32)) + qg_b.to(f32)
     kv = torch.einsum("brld,drhe->brhle", x, kv_w.to(f32)) + kv_b.to(f32)
     q, gate, k, v = qg[..., :c], qg[..., c:], kv[..., :c], kv[..., c:]
     logits = torch.einsum("...ic,...jc->...ij", q * scale, k) + bias.to(f32)
@@ -83,10 +101,10 @@ def geom_attention_plain(stacked_t, qg_w, qg_b, kv_w, kv_b, bias, *, c: int,
 
 
 def node_attention_plain(node, qg_w, qg_b, kv_w, kv_b, bias, kmask, *,
-                         c: int, scale: float):
+                         c: int, scale: float, q0: int = 0):
     """``fused_gated_node_attention`` in plain PyTorch (float32 math)."""
     out = _gated_attention_plain(node[:, None], qg_w, qg_b, kv_w, kv_b,
-                                 bias[None, None], kmask, c, scale)
+                                 bias[None, None], kmask, c, scale, q0)
     return out[:, 0].to(node.dtype)
 
 
@@ -103,7 +121,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.geom_attention.argtypes = [p] * 7 + [i] * 6 + [f, i, i, i, p]
     lib.geom_attention.restype = i
-    lib.node_attention.argtypes = [p] * 8 + [i] * 5 + [f, i, i, i, p]
+    lib.node_attention.argtypes = [p] * 8 + [i] * 7 + [f, i, i, i, p]
     lib.node_attention.restype = i
     lib.geom_attention_smem.argtypes = [i]
     lib.geom_attention_smem.restype = ctypes.c_longlong
@@ -116,12 +134,14 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
     """The kernel's operands from the wrapper's: x contiguous in its own
     dtype (float32 or bfloat16); the weights as [d, R*H, 2c] and biases
     [R*H, 2c] (g = axis * H + head, the TPU kernel's flattening), the bias
-    [R*H, L, L] and kmask, all float32 and contiguous; ``w_bf16`` whether
+    [R*H, Lq, L] and kmask, all float32 and contiguous; ``w_bf16`` whether
     both weights are bfloat16 (so their float32 copies are bf16 values and
     one projection pass is exact). Raises on what the kernel cannot take.
-    x is [B, R, L, d]."""
+    x is [B, R, L, d]; Lq (the query rows) is the bias's third dim for
+    node_attention, L for geom_attention."""
     B, R, L, d = x.shape
     H = qg_w.shape[2]
+    Lq = bias.shape[2] if fn == "node_attention" and bias.dim() == 4 else L
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{fn}: x is {x.dtype}, the kernel takes float32 or "
                         "bfloat16")
@@ -131,7 +151,7 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
         raise ValueError(f"{fn}: d={d} is not a multiple of 8")
     expected = {"qg_w": (d, R, H, 2 * c), "kv_w": (d, R, H, 2 * c),
                 "qg_b": (R, H, 1, 2 * c), "kv_b": (R, H, 1, 2 * c),
-                "bias": (R, H, L, L)}
+                "bias": (R, H, Lq, L)}
     got = {"qg_w": qg_w, "kv_w": kv_w, "qg_b": qg_b, "kv_b": kv_b,
            "bias": bias}
     for name, shape in expected.items():
@@ -149,7 +169,7 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
         bqg=qg_b.to(f32).reshape(G, 2 * c).contiguous(),
         wkv=kv_w.to(f32).reshape(d, G, 2 * c).contiguous(),
         bkv=kv_b.to(f32).reshape(G, 2 * c).contiguous(),
-        bias=bias.to(f32).reshape(G, L, L).contiguous(),
+        bias=bias.to(f32).reshape(G, Lq, L).contiguous(),
     )
     if kmask is not None:
         ops["kmask"] = kmask.to(f32).contiguous()
@@ -162,13 +182,15 @@ def kernel_inputs(fn: str, x, qg_w, qg_b, kv_w, kv_b, bias, kmask, c: int):
 
 
 def launch(lib, fn: str, ops: dict, out, B, R, H, L, d, c, scale, device,
-           stream):
+           stream, *, q0: int = 0, Lq: int | None = None):
     """Launch ``fn`` (geom_attention or node_attention) of ``lib`` on the
-    operands of ``kernel_inputs``; raises if the launch is refused."""
+    operands of ``kernel_inputs``; raises if the launch is refused.
+    node_attention's queries are rows [q0, q0 + Lq) (Lq None: L)."""
     names = ("x", "wqg", "bqg", "wkv", "bkv", "bias") + (
         ("kmask",) if fn == "node_attention" else ())
     ptrs = [ops[n].data_ptr() for n in names] + [out.data_ptr()]
-    dims = (B, R, H, L, d, c) if fn == "geom_attention" else (B, H, L, d, c)
+    dims = ((B, R, H, L, d, c) if fn == "geom_attention"
+            else (B, H, L, L if Lq is None else Lq, q0, d, c))
     rc = getattr(lib, fn)(*ptrs, *dims, float(scale),
                           int(ops["x"].dtype == torch.bfloat16),
                           int(ops["w_bf16"]), device, stream)
@@ -180,18 +202,22 @@ def launch(lib, fn: str, ops: dict, out, B, R, H, L, d, c, scale, device,
                            "memory)")
 
 
-def _cuda_call(fn: str, x4, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale):
-    """Run kernel ``fn`` on the card; x4 is [B, R, L, d]. Returns
-    [B, R*H, L, c] in x's dtype."""
+def _cuda_call(fn: str, x4, qg_w, qg_b, kv_w, kv_b, bias, kmask, c, scale,
+               q0: int = 0):
+    """Run kernel ``fn`` on the card; x4 is [B, R, L, d], the queries its
+    rows [q0, q0 + Lq) (Lq: bias.shape[2]). Returns [B, R*H, Lq, c] in x's
+    dtype."""
     B, R, L, d = x4.shape
-    H = qg_w.shape[2]
+    H, Lq = qg_w.shape[2], bias.shape[2]
+    if q0 < 0 or Lq < 1:
+        raise ValueError(f"{fn}: query rows [{q0}, {q0 + Lq}) of L={L}")
     ops = kernel_inputs(fn, x4, qg_w, qg_b, kv_w, kv_b, bias, kmask, c)
-    out = torch.empty((B, R * H, L, c), dtype=x4.dtype, device=x4.device)
+    out = torch.empty((B, R * H, Lq, c), dtype=x4.dtype, device=x4.device)
     device = x4.device.index
     if device is None:
         device = torch.cuda.current_device()
     launch(_lib(), fn, ops, out, B, R, H, L, d, c, scale, device,
-           torch.cuda.current_stream(x4.device).cuda_stream)
+           torch.cuda.current_stream(x4.device).cuda_stream, q0=q0, Lq=Lq)
     return out
 
 
@@ -217,18 +243,21 @@ def fused_gated_geom_attention_t(stacked_t, qg_w, qg_b, kv_w, kv_b, bias, *,
 
 
 def fused_gated_node_attention(node, qg_w, qg_b, kv_w, kv_b, bias, kmask, *,
-                               c: int, scale: float):
-    """AttentionWEdgeBias's gated attention with each row's key mask.
+                               c: int, scale: float, q0: int = 0):
+    """AttentionWEdgeBias's gated attention with each row's key mask, for
+    the query rows [q0, q0 + Lq) of node against all its L keys.
 
     node [M, L, d]; qg_w, kv_w [d, 1, H, 2c]; qg_b, kv_b [1, H, 1, 2c];
-    bias [H, L, L], shared over the rows; kmask [M, L]. Returns the gated
-    output [M, H, L, c] (before the output projection) in node's dtype."""
+    bias [H, Lq, L], the query rows' bias, shared over the pseudo-MSA rows;
+    kmask [M, L]. Query rows past L read zeros (a 'seq' rank's pad rows).
+    Returns the gated output [M, H, Lq, c] (before the output projection)
+    in node's dtype."""
     global node_launches
     args = (node, qg_w, qg_b, kv_w, kv_b, bias, kmask)
     device = _device_of("node_attention", args)
     if device.type == "cpu":
-        return node_attention_plain(*args, c=c, scale=scale)
+        return node_attention_plain(*args, c=c, scale=scale, q0=q0)
     out = _cuda_call("node_attention", node[:, None], qg_w, qg_b, kv_w, kv_b,
-                     bias[None], kmask, c, scale)
+                     bias[None], kmask, c, scale, q0)
     node_launches += 1
     return out

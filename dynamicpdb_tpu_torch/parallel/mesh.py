@@ -17,8 +17,8 @@ calls the collectives itself:
     global batch a rank trains on (the sampler hands each process its own
     rows, as in the JAX multi-host path, so ``shard_batch`` has no
     counterpart);
-  * ``all_reduce_``, ``all_gather`` and ``reduce_scatter`` run on a mesh
-    group, or do nothing when there is no process group (one process, no
+  * ``all_reduce_``, ``all_gather``, ``reduce_scatter`` and ``all_to_all``
+    run on a mesh group, or do nothing when there is no process group (one process, no
     launcher).
 
 The 'seq' axis splits each window's residues (``parallel/sp.py``): its
@@ -261,17 +261,52 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return total.narrow(dim, r * rows, rows).contiguous()
 
 
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _host_buffer(like: torch.Tensor, shape) -> torch.Tensor:
+    """A host tensor for gloo to send from or receive into: pinned (and so
+    reused by torch's caching host allocator, with fast copies to and from
+    the card) when ``like`` is a CUDA tensor."""
+    return torch.empty(shape, dtype=like.dtype, pin_memory=like.is_cuda)
+
+
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """[n, *t.shape]: ``t`` of each of the group's n ranks, in group rank
-    order, on ``t``'s device. Gloo's all_gather takes only CPU tensors, so
-    under gloo a CUDA tensor (two ranks sharing one card) is staged
-    through host memory; NCCL gathers on the card."""
+    order, on ``t``'s device. NCCL gathers on the card. Under gloo the
+    gather is an ``all_to_all_single`` whose every part is ``t``, faster
+    than gloo's own all_gather at the sizes OmegaFold's split gathers
+    (``tools/bench_collectives.py``; PERF.md §5), and a CUDA tensor
+    (two ranks sharing one card) is staged through pinned host memory."""
     if group is None:
         return t.unsqueeze(0)
     n = dist.get_world_size(group)
-    src = t.contiguous()
-    if src.is_cuda and dist.get_backend(group) == "gloo":
-        src = src.cpu()
-    out = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(out, src, group=group)
-    return torch.stack(out).to(t.device)
+    if not _gloo(group):
+        out = [torch.empty_like(t.contiguous()) for _ in range(n)]
+        dist.all_gather(out, t.contiguous(), group=group)
+        return torch.stack(out)
+    send = _host_buffer(t, (n,) + t.shape)
+    send[0].copy_(t)
+    send[1:].copy_(send[0].expand((n - 1,) + t.shape))
+    out = _host_buffer(t, send.shape)
+    dist.all_to_all_single(out, send, group=group)
+    return out.to(t.device)
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Split ``t`` along dim 0 into the group's n equal parts, send part p
+    to group rank p, and return the n parts received, stacked along dim 0
+    in group rank order (``all_to_all_single``). Under gloo a CUDA tensor
+    is staged through pinned host memory, as in ``all_gather``."""
+    if group is None:
+        return t
+    if not _gloo(group):
+        out = torch.empty_like(t.contiguous())
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+    send = _host_buffer(t, t.shape)
+    send.copy_(t)
+    out = _host_buffer(t, t.shape)
+    dist.all_to_all_single(out, send, group=group)
+    return out.to(t.device)

@@ -32,10 +32,21 @@ The collectives run on the mesh's 'seq' group (``Mesh.group('seq')``):
   * ``halo_exchange``: ``width`` rows of each neighbour on either side of
     this rank's rows (zeros beyond the window's ends); its backward sends
     each halo's gradient back to its owner, who adds it.
+  * ``column_view``: this rank's rows of a square tensor's transpose, from
+    every rank's rows of the tensor (an all-to-all); its backward is the
+    column view of the gradient. OmegaFold's GeometricAttention (its
+    column branch's output, [rows, L, .] by the rows of the column view,
+    back to the rows of the edge).
+  * ``rank0``: rank 0's copy of a value every rank computed identically
+    (an all-gather of it), so that a choice made on it (OmegaFold's best
+    cycle) cannot differ between ranks.
 
 Every rank of a 'seq' group calls them in the same order: each runs the
 same model code on rows of the same shape. A collective that fails raises;
 nothing falls back to one process.
+
+OmegaFold (``models/omegafold/``) runs under ``torch.inference_mode``, so
+only the forwards of its collectives run there.
 
 ``timed(True)`` makes each collective synchronise the device before and
 after itself and add its seconds to ``seconds``, so a caller can read the
@@ -323,3 +334,51 @@ def halo_exchange(x: torch.Tensor, width: int, dim: int = 1) -> torch.Tensor:
         raise ValueError(f"halo_exchange: {x.shape[dim]} rows a rank, fewer "
                          f"than the halo's {width}; use fewer 'seq' ranks")
     return _HaloExchange.apply(x, width, dim)
+
+
+class _ColumnView(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n_res):
+        ctx.n_res, ctx.mesh = n_res, _MESH
+        return _column_view(x, n_res, _MESH)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y[i, k] = x[k, i] over the whole tensor: the adjoint of a
+        # transpose is the transpose
+        return _column_view(g.contiguous(), ctx.n_res, ctx.mesh), None
+
+
+def _column_view(x, n_res: int, mesh) -> torch.Tensor:
+    """x [rows, n_res, ...] (rows of a square tensor) -> [rows, n_res, ...],
+    out[i, k] = whole[k, start + i]. Rank t gets the block x[:, its
+    columns] of every rank: one all-to-all (``mesh.all_to_all``; gloo has
+    one, with CUDA tensors staged through host memory)."""
+    S, rows = size(mesh), x.shape[0]
+    rest = x.shape[2:]
+    cols = torch.cat([x, x.new_zeros((rows, S * rows - n_res) + rest)], 1)
+    # [S * rows columns, rows, ...]: part t is the block rank t receives
+    send = cols.transpose(0, 1)
+    with _collective(x.device):
+        got = mesh_lib.all_to_all(send, mesh.group("seq"))
+    # part s is whole[s's rows, my columns], indexed [my column, s's row]
+    got = got.reshape((S, rows, rows) + rest).transpose(0, 1)
+    return got.reshape((rows, S * rows) + rest)[:, :n_res]
+
+
+def column_view(x: torch.Tensor, n_res: int) -> torch.Tensor:
+    """This rank's rows of the transpose of a square [n_res, n_res, ...]
+    tensor of which every rank holds its rows: x [rows, n_res, ...], out
+    [rows, n_res, ...] with out[i, k] = whole[k, start + i] (zeros in pad
+    rows). Inactive: ``x.transpose(0, 1)``."""
+    if _MESH is None:
+        return x.transpose(0, 1)
+    return _ColumnView.apply(x, n_res)
+
+
+def rank0(x: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank of the 'seq' group, for a value each
+    rank computed identically from the same inputs (forward only)."""
+    if _MESH is None:
+        return x
+    return _gather(x.detach(), _MESH)[0]

@@ -2,7 +2,8 @@
 float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_geom.py [--package DIR] \
-        [--rounds 3] [--reps 20] [--precision]
+        [--rounds 3] [--reps 20] [--precision] \
+        [--save-outputs FILE | --compare-outputs FILE]
 
 Times both kernels (``csrc/geom_attention.cu``) at their release shapes in
 float32 and bfloat16, alone (operands prepared once by the wrapper's
@@ -15,6 +16,14 @@ and prints one JSON line per kernel and dtype. The inputs and the timer are
 instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one session: run this script (as a script, not with
 ``-m``) once against each, e.g. parent, change, change, parent.
+
+``--save-outputs FILE`` writes both kernels' outputs at phase 2b's square
+cases of ``chip_smoke.py`` (``GEOM_CASES``: release, ragged and long
+ragged L, float32 and bfloat16) to FILE; ``--compare-outputs FILE``
+computes them again and prints, per output, whether it equals FILE's bit
+for bit and its largest difference: run another checkout's package with
+the first and this one with the second to show that a change left the
+square calls' arithmetic as it was.
 
 ``--precision`` runs each kernel in float32 at its release widths with two
 batch rows, and holds it, the float32 plain version and two emulations of
@@ -140,6 +149,22 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
             for (kind, name), t in times.items()]
 
 
+def kernel_outputs(smoke, mod, device) -> dict:
+    """{"kind label dtype": output} at phase 2b's square cases."""
+    out = {}
+    for kind in smoke.GEOM_SHAPES:
+        for label, L, pad, B, prefix in smoke.GEOM_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                inp = smoke.geom_inputs(
+                    torch, device, kind, L, dtype,
+                    seed=L + (dtype == torch.bfloat16), pad=pad,
+                    B=B if kind == "geom_attention" else None,
+                    masked_prefix=prefix)
+                out[f"{kind} {label} {str(dtype)[6:]}"] = smoke.geom_call(
+                    mod, kind, inp, plain=False).cpu()
+    return out
+
+
 def precision(smoke, mod, device) -> list[dict]:
     out = []
     c, scale = smoke.GEOM_C, smoke.GEOM_C ** -0.5
@@ -183,6 +208,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--precision", action="store_true")
+    ap.add_argument("--save-outputs", metavar="FILE")
+    ap.add_argument("--compare-outputs", metavar="FILE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_geom: torch sees no CUDA device", file=sys.stderr)
@@ -196,6 +223,18 @@ def main(argv=None) -> int:
     label = os.path.relpath(os.path.abspath(args.package), ROOT)
     for row in timings(smoke, mod, device, args.rounds, args.reps):
         print(json.dumps({"package": label, "card": card, **row}))
+    if args.save_outputs:
+        torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
+    if args.compare_outputs:
+        got = kernel_outputs(smoke, mod, device)
+        want = torch.load(args.compare_outputs, weights_only=True)
+        print(json.dumps({"package": label, "card": card,
+                          "against": args.compare_outputs,
+                          "bit_identical": {k: bool(torch.equal(got[k], w))
+                                            for k, w in want.items()},
+                          "max_abs_diff": {k: float((got[k].float()
+                                                     - w.float()).abs().max())
+                                           for k, w in want.items()}}))
     if args.precision:
         for row in precision(smoke, mod, device):
             print(json.dumps({"package": label, "card": card, **row}))

@@ -302,6 +302,32 @@ def test_geom_kernels_match_plain(cuda, kind, L, pad, B, prefix, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.GEOM_RECT_CASES,
+                         ids=[c[0].replace(" ", "-")
+                              for c in chip_smoke.GEOM_RECT_CASES])
+def test_geom_kernels_rectangular_calls_match_plain(cuda, case, dtype):
+    """Sequence parallelism's calls (chip_smoke.GEOM_RECT_CASES):
+    node_attention on a block of query rows against every key (a pad row
+    past L in the ragged block), geom_attention on a rank's batch rows;
+    one launch each against the plain version, at the square calls'
+    tolerances."""
+    label, kind, L, rows, B = case
+    dtype = getattr(torch, dtype)
+    inp = chip_smoke.geom_inputs(torch, cuda, kind, L, dtype, seed=13, B=B,
+                                 rows=rows,
+                                 masked_suffix=chip_smoke.GEOM_RECT_MASKED)
+    before = getattr(geom_mod, GEOM_COUNTERS[kind])
+    got = chip_smoke.geom_call(geom_mod, kind, inp, plain=False)
+    torch.cuda.synchronize()
+    assert getattr(geom_mod, GEOM_COUNTERS[kind]) == before + 1
+    want = chip_smoke.geom_call(geom_mod, kind, inp, plain=True)
+    assert got.dtype == dtype and got.shape == want.shape
+    err, over = chip_smoke.geom_error(got, want)
+    assert over <= 0, err
+
+
+@pytest.mark.cuda
 def test_geom_kernels_reject_what_they_cannot_take(cuda):
     inp = chip_smoke.geom_inputs(torch, cuda, "geom_attention", 16,
                                  torch.float32, seed=12)
