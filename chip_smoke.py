@@ -119,6 +119,28 @@ Phases, each printing its own lines:
      must read past the bound; 10b, one cycle at 512 residues, one
      process then a 'seq' rank with its collectives timed: each one's
      peak memory (a rank's below one process's), seconds and collectives.
+  11. ingest -> train -> export -> score (run after phase 10, in phase 5's
+     directory, on its checkpoint): 11a, a synthetic dynamicPDB release
+     directory of one protein (96 residues, 16 frames: segment pickles
+     wrapped by one box length, a gzipped State XML, an _npt_sim.dat)
+     through tools/ingest_release.py with --unwrap and --weights: one
+     manifest row, the unwrapped frames, node and edge reprs equal to a
+     direct omegafold_embed, the GeoFormer launches of 10 cycles, the
+     energy table's summary; 11b, train_cli at configs/release.yaml with
+     model.embed.use_aatype_embedding=true for 3 steps at B 8 on that
+     manifest (phase 4's checks: finite losses, the batches received, the
+     IPA launches; the embedding must move) and serve_cli answering one
+     request from its checkpoint; 11c, the embedding at the small width
+     with randomised weights, forward and every gradient on the card
+     against the CPU at phase 4's grad-flow bar, and zeroing it must move
+     the outputs; 11d, train/export_torch.py's CLI on phase 4's checkpoint
+     (run beside phase 4, whose directory closes before phase 11) read
+     back by train/import_torch.py, one forward bit-equal to the original
+     network's, and the strict export of 11b's checkpoint refused,
+     --no-strict written without the embedding; 11e, phase 3's served
+     frames (256 and 97 residues) scored by analysis/violations.py,
+     analysis/structure_checks.py and analysis/contact_order.py (on the
+     card), every metric finite, the key sets JAX's.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
@@ -134,7 +156,9 @@ IPA kernels' from the release training run, the wide ones' from the wide
 training run, the GeoFormer kernels' from the extraction run; the IPA
 forward's report adds those of serving, batched rollout, Picard and eval,
 the GeoFormer kernels' those of fold_cli, the tensor-core IPA kernels'
-a 'seq' rank's in 9c's step and the forward's in 9b's rollout; errors
+a 'seq' rank's in 9c's step and the forward's in 9b's rollout, and
+phase 11b's and 11a's launches as launches_pipeline_train and
+launches_ingest; errors
 and times at the same shapes; each IPA kernel's "rectangular" entry its
 rectangular call's errors, times and bounds; the GeoFormer kernels'
 rectangular calls as two reports of their own, their launches a 'seq'
@@ -1329,7 +1353,8 @@ def serve_phase(device: str, overrides: list[str], *, lengths, pad_to: int,
             check(launched == expect, f"request {i}: {launched} kernel "
                   f"launches, expected {expect}")
             results.append(dict(n=n, fast_x0=fast, seconds=dt,
-                                launches=launched, out=out))
+                                launches=launched, out=out,
+                                aatype=window["aatype"]))
             print(f"{label}: request {i} n_res={n} pad_to={pad_to} "
                   f"n_steps={n_steps} num_t={num_t} fast_x0={fast}: "
                   f"{dt:.3f} s, {n_steps / dt:.2f} frames/s, "
@@ -1709,8 +1734,10 @@ def write_manifest(tmp: str, lengths, n_frames: int, seed: int = 0,
 
 
 def train_phase(device: str, config: str, extra: list[str], *, lengths,
-                n_frames: int, max_steps: int, tmp: str, tag: str = "") -> dict:
-    """train_cli.main on a manifest of synthetic bundles: checks the loss
+                n_frames: int, max_steps: int, tmp: str, tag: str = "",
+                csv: str | None = None) -> dict:
+    """train_cli.main on a manifest of synthetic bundles (of ``lengths``
+    residues, ``n_frames`` frames; or ``csv``'s): checks the loss
     and grad_norm of every step are finite, that the parameters moved
     (the IPA projections and the zero-initialised out-projections
     included), and on the card that every kernel launched exactly as the
@@ -1725,7 +1752,7 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     from dynamicpdb_tpu_torch.train.experiment import Trainer
     from dynamicpdb_tpu_torch.weights import init_like_jax_
 
-    csv = write_manifest(tmp, lengths, n_frames)
+    csv = csv or write_manifest(tmp, lengths, n_frames)
     argv = ["--config", config, "--max-steps", str(max_steps), "--device",
             device, f"data.csv_path={csv}",
             f"experiment.ckpt_dir={os.path.join(tmp, 'ckpt')}",
@@ -1807,7 +1834,7 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
     return dict(ckpt=ckpt, launched=launched, route=route,
                 steps=exp.step_metrics, peak_bytes=peak, wall=wall, batch=B,
-                csv=csv)
+                csv=csv, moved=moved)
 
 
 class BatchRecorder:
@@ -3656,6 +3683,335 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: ingest -> train with the aatype embedding -> export -> score
+# ---------------------------------------------------------------------------
+AATYPE_ON = "model.embed.use_aatype_embedding=true"
+AATYPE_KEY = "score_model.aatype_embed.weight"
+# 11a's synthetic release protein: a small domain's length, 16 frames
+RELEASE_PROTEIN = dict(pid="1syn_A", n_res=96, n_frames=16)
+# the key sets of the JAX package's analysis functions (tests hold the
+# port's to them on the CPU): compute_violation_metrics, protein_metrics
+VIOLATION_KEYS = {
+    "violations_extreme_ca_ca_distance", "violations_between_residue_bond",
+    "violations_between_residue_clash", "violations_within_residue",
+    "violations_per_residue", "residue_violations", "num_residue_violations",
+    "structural_violations"}
+PROTEIN_METRIC_KEYS = {
+    "ca_ca_bond_dev", "ca_ca_valid_percent", "num_ca_steric_clashes",
+    "ca_steric_clash_percent", "radius_of_gyration", "helix_percent",
+    "strand_percent", "coil_percent", "tm_score",
+    *(VIOLATION_KEYS - {"residue_violations", "structural_violations"})}
+
+
+def ingest_phase(torch, tmp: str, weights: str, of_cfg, *,
+                 tag: str = "", device: str = "cuda") -> dict:
+    """11a: a synthetic dynamicPDB release directory of one protein
+    (``data/synthetic.write_release_protein``: segment pickles wrapped by
+    one box length, a gzipped State XML, an ``_npt_sim.dat``) through
+    ``tools/ingest_release`` with ``--unwrap`` and ``--weights``: one
+    manifest row, the unwrapped frames, node and edge reprs equal to a
+    direct ``omegafold_embed`` of the sequence, every GeoFormer launch of
+    its 10 cycles; then the state table through ``preprocess/energies``."""
+    from dynamicpdb_tpu_torch.data.synthetic import write_release_protein
+    from dynamicpdb_tpu_torch.models.omegafold.model import omegafold_embed
+    from dynamicpdb_tpu_torch.models.omegafold.pipeline import fasta2inputs
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.preprocess import energies
+    from dynamicpdb_tpu_torch.preprocess.extract_embeddings import (
+        load_release_weights,
+    )
+    from dynamicpdb_tpu_torch.tools import ingest_release
+
+    pid, n_res = RELEASE_PROTEIN["pid"], RELEASE_PROTEIN["n_res"]
+    root = os.path.join(tmp, "release")
+    prot = write_release_protein(root, pid, n_res=n_res,
+                                 n_frames=RELEASE_PROTEIN["n_frames"], seed=11)
+    out_dir = os.path.join(tmp, "ingested")
+    geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    t0 = time.perf_counter()
+    rc = ingest_release.main(["--data-root", root, "--out-dir", out_dir,
+                              "--unwrap", "--weights", weights, "--device",
+                              device])
+    wall = time.perf_counter() - t0
+    launched = {"geom_attention": geom_mod.geom_launches,
+                "node_attention": geom_mod.node_launches}
+    check(rc == 0, f"ingest: exit code {rc}")
+    manifest = os.path.join(out_dir, "manifest.csv")
+    with open(manifest) as f:
+        rows = f.read().splitlines()
+    check(len(rows) == 2 and rows[1].startswith(f"{pid},")
+          and rows[1].endswith(f",{n_res}"),
+          f"ingest: manifest rows {rows[1:]}, expected one for {pid}")
+    bundle = os.path.join(out_dir, f"{pid}.npz")
+    cycles_run = 10  # extract_embeddings' default, as the JAX tool runs it
+    on_card = device == "cuda"
+    per_cycle = of_cfg.geo_num_blocks if on_card else 0
+    expect = {"geom_attention": cycles_run * per_cycle * of_cfg.geom_count,
+              "node_attention": cycles_run * per_cycle}
+    check(launched == expect, f"ingest: GeoFormer launches {launched}, "
+          f"expected {expect}")
+
+    model = load_release_weights(weights, device=device)
+    seq = ingest_release.pdb_sequence(pid, prot["dir"])
+    (_, cycles), = fasta2inputs([f">{pid}", seq])
+    emb = omegafold_embed(model, cycles)
+    del model
+    with np.load(bundle) as z:
+        node, edge = z["node_repr"], z["edge_repr"]
+        pos = z["all_atom_positions"]
+    direct = (emb.node.cpu().numpy(), emb.edge.cpu().numpy())
+    node_err = float(np.abs(node - direct[0]).max())
+    edge_err = float(np.abs(edge - direct[1]).max())
+    check(node.shape == (n_res, 256) and edge.shape == (n_res, n_res, 128),
+          f"ingest: reprs {node.shape} {edge.shape}")
+    check(node_err == 0.0 and edge_err == 0.0, "ingest: the bundle's reprs "
+          f"differ from a direct omegafold_embed by {node_err}, {edge_err}")
+    unwrap_err = float(np.abs(pos - prot["atom37"]).max())
+    check(unwrap_err < 1e-3, f"ingest: unwrapped frames {unwrap_err} A from "
+          "the written ones")
+    table = energies.read_statedata(os.path.join(prot["dir"],
+                                                 f"{pid}_npt_sim.dat"))
+    summary = energies.energy_summary(table)
+    check(len(table["potential_kj_mol"]) == RELEASE_PROTEIN["n_frames"]
+          and all(math.isfinite(v) for v in summary.values()),
+          f"energies: {len(table['potential_kj_mol'])} rows")
+    print(f"ingest: {pid} {n_res} residues x {RELEASE_PROTEIN['n_frames']} "
+          f"frames, --unwrap --weights (release OmegaFold, {cycles_run} "
+          f"cycles): 1 manifest row, frames within {unwrap_err:.2e} A of the "
+          f"unwrapped ones, reprs equal to a direct omegafold_embed (max "
+          f"diff {node_err}, {edge_err}), GeoFormer launches {launched}; "
+          f"{wall:.2f} s of the CLI (weights loaded included){tag}")
+    print("energies: " + ", ".join(
+        f"{k} {summary[k]:.4f}" for k in (
+            "potential_kj_mol_mean", "potential_kj_mol_std",
+            "total_kj_mol_mean", "temperature_k_mean", "temperature_k_std",
+            "box_volume_nm3_mean")))
+    return dict(csv=manifest, launches=launched, wall=wall)
+
+
+def aatype_card_vs_cpu(seed: int = 0, n_res: int = 12, pad_to: int = 16):
+    """11c: the aatype embedding at the small width, randomised weights:
+    the forward and every gradient (the embedding's among them) of the sum
+    of the outputs times seeded cotangents on the card against the CPU,
+    at phase 4's grad-flow bar; zeroing the embedding on the card must move
+    the outputs past that bar."""
+    import torch
+
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch.data.dataset import pad_window
+    from dynamicpdb_tpu_torch.data.featurize import featurize_window
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+    from dynamicpdb_tpu_torch.train.experiment import RAW_KEYS
+    from dynamicpdb_tpu_torch.weights import randomize_
+
+    cfg = config_lib.apply_overrides(config_lib.Config(),
+                                     SMALL_OVERRIDES + [AATYPE_ON])
+    w = pad_window(make_window(n_res=n_res, frame_time=2,
+                               node_dim=cfg.model.node_repr_dim,
+                               edge_dim=cfg.model.edge_repr_dim, seed=seed,
+                               rot_wiggle=0.1), pad_to)
+    feats = featurize_window({k: torch.as_tensor(np.asarray(w[k]))
+                              for k in RAW_KEYS})
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = randomize_(DFoldScoreNetwork(cfg.model, device=dev), seed)
+        f = _to(feats, dev)
+        reset_ipa_counts(ipa_mod)
+        out = model(f)
+        g = torch.Generator().manual_seed(seed)
+        cots = {k: torch.randn(v.shape, generator=g).to(dev)
+                for k, v in sorted(out.items())}
+        sum(torch.sum(out[k] * c) for k, c in cots.items()).backward()
+        runs[dev] = ({k: v.detach().cpu() for k, v in out.items()},
+                     {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = ipa_counts(ipa_mod)
+            with torch.no_grad():
+                model.score_model.aatype_embed.weight.zero_()
+                zeroed = {k: v.cpu() for k, v in model(f).items()}
+    (out_cpu, g_cpu), (out_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    worst_out = 0.0
+    for k, want in out_cpu.items():
+        tol = GRAD_FLOW_RTOL * max(float(want.abs().max()), 1.0)
+        err = float((out_gpu[k] - want).abs().max())
+        check(err <= tol, f"aatype: output {k} card vs CPU {err} > {tol}")
+        worst_out = max(worst_out, err / tol)
+    check(sorted(g_cpu) == sorted(g_gpu) and AATYPE_KEY in g_cpu,
+          "aatype: different parameters received gradients")
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
+    worst = 0.0
+    for name, want in g_cpu.items():
+        tol = GRAD_FLOW_RTOL * max(float(want.abs().max()),
+                                   floor / GRAD_FLOW_RTOL)
+        err = float((g_gpu[name] - want).abs().max())
+        check(err <= tol, f"aatype: {name} gradient card vs CPU {err} > {tol}")
+        worst = max(worst, err / tol)
+    emb_err = float((g_gpu[AATYPE_KEY] - g_cpu[AATYPE_KEY]).abs().max())
+    moved = max(float((zeroed[k] - out_gpu[k]).abs().max())
+                / (GRAD_FLOW_RTOL * max(float(out_cpu[k].abs().max()), 1.0))
+                for k in out_cpu)
+    check(moved > 10.0, f"aatype: zeroing the embedding moved the outputs "
+          f"by only {moved:.2f} x the bar")
+    check(launched["ipa_attention_fwd"][0] == cfg.model.ipa.num_blocks,
+          f"aatype: IPA launches {launched}")
+    print(f"aatype (11c): small width, randomised weights, card vs CPU: "
+          f"outputs within {worst_out:.3f} of the bar, {len(g_cpu)} "
+          f"gradients within {worst:.3f} (the embedding's max diff "
+          f"{emb_err:.3e}, max |g| {float(g_cpu[AATYPE_KEY].abs().max()):.3e}"
+          f"); the embedding zeroed moves the outputs {moved:.1f} x the bar")
+
+
+def export_phase(torch, ckpt: str, tmp: str, *, n_res: int = 200,
+                 pad_to: int = 256, device: str = "cuda", tag: str = ""):
+    """11d: ``train/export_torch``'s CLI on a train_cli checkpoint (phase
+    4's), ``train/import_torch`` reading the pickle back into a fresh
+    network, and one forward of each on the card, bit-equal."""
+    from dynamicpdb_tpu_torch import config as config_lib
+    from dynamicpdb_tpu_torch.data.dataset import pad_window
+    from dynamicpdb_tpu_torch.data.featurize import featurize_window
+    from dynamicpdb_tpu_torch.data.synthetic import make_window
+    from dynamicpdb_tpu_torch.eval_cli import _model_overrides
+    from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
+    from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
+    from dynamicpdb_tpu_torch.train import export_torch, import_torch
+    from dynamicpdb_tpu_torch.train.experiment import RAW_KEYS
+
+    t0 = time.perf_counter()
+    out = export_torch.main(["--ckpt", ckpt, "--out",
+                             os.path.join(tmp, "reference.pth")])
+    saved = ckpt_lib.load(ckpt)
+    cfg = config_lib.apply_overrides(config_lib.Config(), _model_overrides(
+        saved["config"]["model"]))
+    original = DFoldScoreNetwork(cfg.model, device=device)
+    original.load_state_dict(saved["model"], strict=True)
+    imported = DFoldScoreNetwork(cfg.model, device=device)
+    extras = import_torch.import_reference_checkpoint(out, imported)
+    check(extras["step"] == saved["step"], f"export: step {extras['step']}")
+    w = pad_window(make_window(n_res=n_res, frame_time=cfg.data.frame_time,
+                               node_dim=cfg.model.node_repr_dim,
+                               edge_dim=cfg.model.edge_repr_dim, seed=3,
+                               rot_wiggle=0.1), pad_to)
+    feats = _to(featurize_window({k: torch.as_tensor(np.asarray(w[k]))
+                                  for k in RAW_KEYS}), device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            a, b = original(feats), imported(feats)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k in a:
+        check(torch.equal(a[k], b[k]), f"export: the imported network's {k} "
+              "differs from the original's")
+    print(f"export (11d): {os.path.basename(ckpt)} (step {saved['step']}) -> "
+          f"{os.path.getsize(out) / 1e6:.1f} MB reference pickle, read back "
+          f"by import_torch, one forward at n_res={n_res} bit-equal "
+          f"({len(a)} outputs) in {time.perf_counter() - t0:.2f} s{tag}")
+
+
+def export_refusal(ckpt: str, tmp: str):
+    """11d: the strict export of a checkpoint with the aatype embedding
+    raises; ``--no-strict`` writes the file without it."""
+    import torch
+
+    from dynamicpdb_tpu_torch.train import export_torch
+
+    out = os.path.join(tmp, "aatype_reference.pth")
+    try:
+        export_torch.main(["--ckpt", ckpt, "--out", out])
+        check(False, "export: a strict export of the aatype embedding passed")
+    except ValueError as e:
+        check("aatype_embed" in str(e), f"export: refused with {e}")
+    export_torch.main(["--ckpt", ckpt, "--out", out, "--no-strict"])
+    keys = torch.load(out, map_location="cpu", weights_only=False)["model"]
+    check(AATYPE_KEY not in keys and "expand_node.weight" in keys,
+          "export: --no-strict kept the embedding or lost the network")
+    print(f"export (11d): strict export of {os.path.basename(ckpt)} refused "
+          f"the aatype embedding; --no-strict wrote {len(keys)} keys without "
+          "it")
+
+
+def score_phase(torch, results: list, device: str = "cuda", tag: str = "",
+                lengths=(256, 97)):
+    """11e: phase 3's served release frames (the full sampler's requests
+    of ``lengths`` residues) scored by ``analysis/violations``,
+    ``analysis/structure_checks`` (the first served frame as the reference
+    of the TM-score) and ``analysis/contact_order`` on the card."""
+    from dynamicpdb_tpu_torch.analysis.contact_order import contact_order
+    from dynamicpdb_tpu_torch.analysis.structure_checks import protein_metrics
+    from dynamicpdb_tpu_torch.analysis.violations import (
+        compute_violation_metrics,
+    )
+    from dynamicpdb_tpu_torch.chem import constants as chem
+
+    t0 = time.perf_counter()
+    for res in results:
+        if res["fast_x0"] or res["n"] not in lengths:
+            continue
+        traj, aatype = res["out"]["atom_traj"], np.asarray(res["aatype"])
+        n = len(aatype)
+        mask = np.asarray(chem.restype_atom37_mask, np.float32)[aatype]
+        ridx = np.arange(n)
+        atom37 = traj[-1] * mask[..., None]
+        vm = compute_violation_metrics(atom37, mask, aatype, ridx)
+        pm = protein_metrics(atom37, mask, traj[0] * mask[..., None], aatype,
+                             ridx)
+        ca = torch.as_tensor(traj[:, :, 1], device=device)
+        co = contact_order(ca)
+        check(co.device.type == torch.device(device).type
+              and co.shape == (len(traj),), f"score: contact order {co}")
+        co = co.cpu().numpy()
+        check(set(vm) == VIOLATION_KEYS and set(pm) == PROTEIN_METRIC_KEYS,
+              f"score: keys {sorted(vm)} {sorted(pm)}")
+        scalars = {**{k: v for k, v in vm.items()
+                      if isinstance(v, (int, float))}, **pm}
+        check(all(math.isfinite(float(v)) for v in scalars.values())
+              and np.isfinite(co).all(), f"score: non-finite {scalars} {co}")
+        print(f"score (11e): n_res={n} last served frame: " + ", ".join(
+            f"{k} {float(v):.4f}" for k, v in sorted(scalars.items()))
+            + f"; contact order per frame {[round(float(c), 4) for c in co]}"
+            f"{tag}")
+    print(f"score (11e): in {time.perf_counter() - t0:.2f} s")
+
+
+def pipeline_phase(torch, tmp: str, card: str, weights: str, of_cfg, serve,
+                   release: str, export_seconds: float) -> dict:
+    """Phase 11 (inside phase 5's directory, on its OmegaFold checkpoint):
+    11a ingest, 11b train_cli with the aatype embedding on the ingested
+    manifest and serve_cli from its checkpoint, 11c the embedding card vs
+    CPU, 11d the strict refusal (11d's export of phase 4's checkpoint ran
+    beside phase 4), 11e scoring phase 3's frames. Returns 11a's and
+    11b's launch counts."""
+    t0 = time.perf_counter()
+    ing = ingest_phase(torch, tmp, weights, of_cfg, tag=f" [{card}]")
+    extra = [AATYPE_ON]
+    # 3 steps, as phase 4: from the JAX init (zero out-projections and
+    # backbone updates) block b's q/k/v first move at step 3, which
+    # train_phase checks
+    train = train_phase("cuda", release, extra, lengths=None, n_frames=None,
+                        max_steps=3, tmp=tmp, csv=ing["csv"],
+                        tag=f" [aatype, {card}]")
+    check(AATYPE_KEY in train["moved"], f"train: {AATYPE_KEY} did not move")
+    for m in train["steps"]:
+        check(math.isfinite(m["total_loss"]), f"train: loss {m}")
+    serve_checkpoint("cuda", release, train["ckpt"], extra,
+                     n_res=RELEASE_PROTEIN["n_res"], pad_to=256,
+                     tag=f" [aatype, {card}]")
+    aatype_card_vs_cpu()
+    export_refusal(train["ckpt"], tmp)
+    score_phase(torch, serve["results"], tag=f" [{card}]")
+    seconds = time.perf_counter() - t0
+    print(f"pipeline: phase 11 in {seconds:.2f} s, {seconds + export_seconds:.2f}"
+          f" s with 11d's export beside phase 4 [{card}]")
+    return dict(ingest=ing["launches"], train=train["launched"])
+
+
 def dp_cards_main() -> int:
     """``--dp-cards``: only the data-parallel check across every card."""
     import torch
@@ -3819,6 +4175,11 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s [{card}]")
         check(train["route"] == "tc", "train: the release widths left the "
               "tensor-core kernels")
+        # phase 11d's export of this checkpoint (its directory closes
+        # before phase 11 runs)
+        t0 = time.perf_counter()
+        export_phase(torch, train["ckpt"], tmp, tag=f" [{card}]")
+        export_seconds = time.perf_counter() - t0
         launched = train["launched"]
         fwd_report["launches"] = launched["fwd"]
         for rep, key in zip(bwd_reports[:3], ("dq", "dkv", "pair")):
@@ -3906,11 +4267,21 @@ def main() -> int:
             rep["launches_per_cycle"] = sp_of["per_cycle"][key]
         print(f"sp omegafold: phase in {time.perf_counter() - t0:.2f} s "
               f"[{card}]")
+
+        # phase 11: ingest -> train with the aatype embedding -> export ->
+        # score, on the same checkpoint
+        pipe = pipeline_phase(torch, tmp, card, ext["ckpt"],
+                              OmegaFoldConfig(), serve, release,
+                              export_seconds)
+        for rep, key in zip([fwd_report] + bwd_reports[:3],
+                            ("fwd", "dq", "dkv", "pair")):
+            rep["launches_pipeline_train"] = pipe["train"][key]
     check(ext["params"] == 795_074_210, f"extract: the release model has "
           f"{ext['params']:,} parameters, not 795,074,210")
     for rep in geom_reports:
         rep["launches"] = ext["launches"][rep["name"]]
         rep["launches_fold"] = fold["launches"][rep["name"]]
+        rep["launches_ingest"] = pipe["ingest"][rep["name"]]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         extract_card_vs_cpu(tmp)

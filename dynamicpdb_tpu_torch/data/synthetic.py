@@ -6,6 +6,10 @@ alpha-helix backbone that wiggles smoothly over time, random
 force/velocity channels and fake OmegaFold embeddings, in the raw window
 layout of ``data/featurize.py``. The same seed gives the same arrays
 as the JAX package's function.
+
+``write_release_protein`` (the port's own) writes one protein of the
+dynamicPDB release layout from such a trajectory, for the ingestion path
+(``tools/ingest_release.py``) to read.
 """
 from __future__ import annotations
 
@@ -127,3 +131,67 @@ def make_trajectory_npz(path, n_res=32, n_frames=64, seed=0, rot_wiggle=0.0):
         edge_repr=w["edge_repr"],
     )
     return path
+
+
+STATEDATA_HEADER = ('#"Step","Potential Energy (kJ/mole)",'
+                    '"Kinetic Energy (kJ/mole)","Total Energy (kJ/mole)",'
+                    '"Temperature (K)","Box Volume (nm^3)","Density (g/mL)"')
+
+
+def write_release_protein(root: str, pid: str, *, n_res: int, n_frames: int,
+                          seed: int = 0, box: float = 60.0,
+                          n_segments: int = 4) -> dict:
+    """One protein in the dynamicPDB release layout under ``root``:
+    ``{pid}_npt100000.0_ts0.001/`` holding ``{pid}.pdb`` (the first frame's
+    atoms), the full-atom coordinates, forces and velocities as segment
+    pickles ``{pid}_{T,F,V}/{pid}_{T,F,V}_{i}.pkl`` (the coordinates
+    wrapped by one box length along x from the middle frame on), a
+    gzip-compressed OpenMM State XML with a cubic box of ``box`` A, and an
+    ``{pid}_npt_sim.dat`` StateDataReporter table of one row a frame.
+    Returns the directory, the unwrapped [F, N, 37, 3] frames, the atom
+    mask, aatype and the atom count."""
+    import gzip
+    import os
+    import pickle
+
+    from dynamicpdb_tpu_torch.analysis.pdb_io import write_pdb
+
+    rng = np.random.default_rng(seed + 1)
+    w = make_window(n_res=n_res, frame_time=n_frames, node_dim=1, edge_dim=1,
+                    seed=seed)
+    d = os.path.join(root, f"{pid}_npt100000.0_ts0.001")
+    os.makedirs(d, exist_ok=True)
+    write_pdb(os.path.join(d, f"{pid}.pdb"), w["atom37"][0], w["aatype"],
+              w["atom37_mask"])
+    res, atom = np.nonzero(w["atom37_mask"] > 0.5)  # the PDB's atom order
+    traj = w["atom37"][:, res, atom].astype(np.float32)  # [F, A, 3]
+    wrapped = traj.copy()
+    wrapped[n_frames // 2:, :, 0] += box
+    arrays = {"T": wrapped,
+              "F": rng.normal(size=traj.shape).astype(np.float32),
+              "V": rng.normal(size=traj.shape).astype(np.float32)}
+    bounds = np.linspace(0, n_frames, n_segments + 1).astype(int)
+    for kind, arr in arrays.items():
+        seg_dir = os.path.join(d, f"{pid}_{kind}")
+        os.makedirs(seg_dir, exist_ok=True)
+        for i in range(n_segments):
+            with open(os.path.join(seg_dir, f"{pid}_{kind}_{i}.pkl"),
+                      "wb") as f:
+                pickle.dump(arr[bounds[i]:bounds[i + 1]], f)
+    nm = box / 10.0
+    xml = ('<?xml version="1.0" ?>\n<State>\n<PeriodicBoxVectors>\n'
+           f' <A x="{nm}" y="0" z="0"/>\n <B x="0" y="{nm}" z="0"/>\n'
+           f' <C x="0" y="0" z="{nm}"/>\n</PeriodicBoxVectors>\n</State>\n')
+    with open(os.path.join(d, f"{pid}_state_npt100000.0.xml.gz"), "wb") as f:
+        f.write(gzip.compress(xml.encode()))
+    pot = -5e4 + 100 * rng.normal(size=n_frames)
+    kin = 1.2e4 + 50 * rng.normal(size=n_frames)
+    temp = 300 + rng.normal(size=n_frames)
+    vol = nm ** 3 * (1 + 1e-3 * rng.normal(size=n_frames))
+    rows = [f"{(i + 1) * 1000},{pot[i]:.4f},{kin[i]:.4f},"
+            f"{pot[i] + kin[i]:.4f},{temp[i]:.4f},{vol[i]:.4f},1.0120"
+            for i in range(n_frames)]
+    with open(os.path.join(d, f"{pid}_npt_sim.dat"), "w") as f:
+        f.write(STATEDATA_HEADER + "\n" + "\n".join(rows) + "\n")
+    return dict(dir=d, atom37=w["atom37"], mask=w["atom37_mask"],
+                aatype=w["aatype"], n_atoms=int(traj.shape[1]))

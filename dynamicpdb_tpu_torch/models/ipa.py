@@ -19,6 +19,10 @@ rows; k, v, their points and the key mask are then gathered over the
 ranks (``sp.gather_rows``, one collective a call), and the kernel takes
 this rank's query rows against all N keys. b and pair_z come from z's rows
 as they are.
+
+The JAX module's ``dense_ipa_attention`` (the attention core without a
+kernel) is ``ops/ipa_attention.py``'s plain version here, which the CPU
+runs.
 """
 from __future__ import annotations
 

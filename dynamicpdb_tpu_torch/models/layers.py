@@ -10,6 +10,9 @@ torch's default init.
 Under sequence parallelism (``parallel/sp.py``) x holds this rank's rows of
 the window: ``global_stat_norm`` sums its statistics over the ranks and
 ``ConvNet`` takes two rows of each neighbour before every convolution.
+
+The JAX module's ``GlobalStatNorm`` flax module holds no parameters; it
+is the function ``global_stat_norm`` here.
 """
 from __future__ import annotations
 

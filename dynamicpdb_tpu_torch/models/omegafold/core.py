@@ -10,6 +10,10 @@ Under sequence parallelism (``parallel/sp.py``) the GAU takes this rank's
 residues as its queries and gathers every rank's keys and values
 (``sp.gather_rows``): RoPE and the relative positions read the rows'
 global positions (``offset``, ``q0``).
+
+The JAX module's ``GAUParams`` pytree is the parameters of the
+``GatedAttentionUnit`` module here, and its function
+``gated_attention_unit`` that module's forward.
 """
 from __future__ import annotations
 

@@ -9,6 +9,11 @@ Under sequence parallelism (``parallel/sp.py``) the edge tensors hold this
 rank's query rows, [Lr, L, .], and the node this rank's residues: both
 embedders add the rows' terms (relative positions from q0, the pseudo-beta
 distances of the rows against all L, from the whole previous atoms).
+
+The JAX module's ``EdgeEmbedderParams`` and ``RecycleEmbedderParams``
+pytrees, their functions and their ``*_from_torch`` converters are the
+``EdgeEmbedder`` and ``RecycleEmbedder`` modules here, which load the
+reference state dict as it is.
 """
 from __future__ import annotations
 

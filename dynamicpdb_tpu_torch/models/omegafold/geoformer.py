@@ -34,6 +34,11 @@ node holds this rank's residues [M, Lr, d], edge its query rows
   * column attention and the transitions are local.
 Outside a 'seq' mesh every collective is the identity and every rank view
 the whole, and the code computes what one process computed before.
+
+The JAX module's flax-free ``*Params`` pytrees and their ``*_from_torch``
+converters are the modules' own parameters here (the reference state
+dict loads as it is); its ``geoformer`` function is ``GeoFormer``'s
+forward.
 """
 from __future__ import annotations
 

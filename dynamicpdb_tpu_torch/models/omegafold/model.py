@@ -26,6 +26,12 @@ a real one and are cut by every gather.
 ``OmegaFold``'s state-dict keys are the reference OmegaFold's, the keys
 the JAX package's ``params_from_state_dict`` reads, so a released
 checkpoint loads strictly (``omegafold_from_state_dict``).
+
+The JAX module's ``OmegaFoldParams`` pytree and its converters
+(``params_from_state_dict``, ``params_from_torch``) are ``OmegaFold``'s own
+parameters and ``omegafold_from_state_dict`` here; ``omegafold_embed_scan``
+(the cycles under ``lax.scan``) is ``omegafold_embed``, which keeps the
+best cycle on the device without a scan.
 """
 from __future__ import annotations
 

@@ -11,6 +11,10 @@ Under sequence parallelism (``parallel/sp.py``; JAX ``plm.py:74-84``)
 the node is cut to this rank's residues and each layer's edge map is kept
 as this rank's query rows, [layers, Lr, L]; the scalings count every
 residue of the whole mask.
+
+The JAX module's ``PLMParams`` pytree and ``params_from_torch`` are
+``OmegaPLM``'s own parameters here, and its ``omega_plm`` function the
+module's forward.
 """
 from __future__ import annotations
 

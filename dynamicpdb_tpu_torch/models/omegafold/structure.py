@@ -6,6 +6,13 @@ black-hole-initialised frames, per-cycle 6-vector frame updates, the
 torsion head and the pLDDT head. Frames stay float32 (rots [L, 3, 3],
 trans [L, 3]); cycles run in nanometres and the returned translation is in
 Angstrom. Parameter names are the reference's.
+
+The JAX module's ``*Params`` pytrees (``LinearParams`` among them) and
+their ``*_from_torch`` converters are the modules' own parameters here;
+its functions ``decode_ipa``, ``structure_cycle``, ``structure_module``,
+``torsion_head`` and ``confidence_head`` are the forwards of
+``DecodeIPA``, ``StructureCycle``, ``StructureModule``,
+``TorsionAngleHead`` and ``ConfidenceHead``.
 """
 from __future__ import annotations
 

@@ -14,7 +14,13 @@ window of F frames x N residues:
 Parameter names are the reference torch layout of
 ``dynamicpdb_tpu/train/export_torch.py`` without its dead
 ``embedding_layer.*`` entries; ``weights.state_dict_from_jax`` maps JAX
-params onto it.
+params onto it. ``embed.use_aatype_embedding`` adds one parameter the
+reference layout has no key for, ``score_model.aatype_embed.weight``
+[21, D] (JAX's ``nn.Embed``, ``score_network.py:127-130``): a
+frame-shared embedding of ``aatype[0]`` added to the node features before
+the node mask, in float32 as flax's embedding returns it. It is
+registered only when the option is on, so checkpoints without it load
+strictly; ``train/export_torch.py`` refuses it in a strict export.
 
 ``drop_ref`` makes classifier-free guidance work as the JAX package's does
 (``score_network.py:95-104``): 1 replaces the reference-frame conditioning
@@ -124,14 +130,13 @@ class _ScoreModel(nn.Module):
             cfg.ipa.c_s * 5, no_blocks=2, no_angles=7, eps=1e-12,
             compute_dtype=dtype,
         )
+        if cfg.embed.use_aatype_embedding:
+            self.aatype_embed = nn.Embedding(21, D)
 
 
 class DFoldScoreNetwork(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.embed.use_aatype_embedding:
-            raise ValueError("use_aatype_embedding has no reference-layout "
-                             "parameters and is not ported")
         self.cfg = cfg
         # bf16 projections / embedders / ConvNet / angle head; geometry,
         # IPA logits and block outputs stay float32
@@ -196,6 +201,9 @@ class DFoldScoreNetwork(nn.Module):
         seq_idx = feats["seq_idx"][0:1, :, None].float()  # [1, N, 1]
         node_embed = sm.index_embeder(seq_idx, mask=node_mask[0:1])
         node_embed = node_embed.expand(F, N, D) + expand_node[None]
+        if cfg.embed.use_aatype_embedding:  # frame-shared, float32
+            node_embed = node_embed + sm.aatype_embed(
+                feats["aatype"][0].long())[None]
         node_embed = node_embed * node_mask[..., None]
 
         trunk = sm.trunk

@@ -106,6 +106,29 @@ def quat_to_rotvec(q: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return scale[..., None] * q[..., 1:]
 
 
+def rotvec_to_rotmat(v: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotmat(rotvec_to_quat(v))
+
+
+def rotmat_to_rotvec(m: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotvec(rotmat_to_quat(m))
+
+
 def compose_rotvec(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """rotvec of R(r1) @ R(r2) (right-multiplied composition)."""
     return quat_to_rotvec(quat_multiply(rotvec_to_quat(r1), rotvec_to_quat(r2)))
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """rotvec -> skew-symmetric matrix."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def rotation_geodesic_distance(q1: torch.Tensor,
+                               q2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle (radians) between two unit quaternions."""
+    dot = torch.abs(torch.sum(quat_normalize(q1) * quat_normalize(q2), -1))
+    return 2 * torch.arccos(torch.clamp(dot, 0.0, 1.0))

@@ -16,7 +16,8 @@ calls the collectives itself:
   * ``batch_axes``, ``data_size`` and ``data_index`` say which rows of the
     global batch a rank trains on (the sampler hands each process its own
     rows, as in the JAX multi-host path, so ``shard_batch`` has no
-    counterpart);
+    counterpart, nor have ``batch_sharding`` and ``replicated``, the
+    ``NamedSharding`` it places with);
   * ``all_reduce_``, ``all_gather``, ``reduce_scatter`` and ``all_to_all``
     run on a mesh group, or do nothing when there is no process group (one process, no
     launcher).

@@ -4,8 +4,12 @@ Port of ``dynamicpdb_tpu/parallel/sharding.py`` for the port's parameter
 layout (the reference torch layout): the trailing output axis of a flax
 kernel is axis 0 of a torch ``Linear`` or ``Conv2d`` weight, and a vector
 keeps its one axis, so the rules below read axis 0 where the JAX rules
-read axis -1. A spec is a tuple with one entry per axis: the mesh axis the
-tensor is split over, or None.
+read axis -1. One parameter differs in storage only: the aatype
+embedding [21, D] (``embed.use_aatype_embedding``) has its 21 rows on
+axis 0, too few to split, so 'model' replicates it where JAX splits D;
+ZeRO splits its moments over 'data' along D like any other leaf. A spec
+is a tuple with one entry per axis: the mesh axis the tensor is split
+over, or None.
 
   * ``param_spec``: a parameter whose output axis divides the 'model' size
     and holds at least 128 entries is split over 'model' along it;
@@ -23,6 +27,10 @@ every rank computes in full on the same rows. The optimizer updates only
 ``region(p, t)`` of each parameter, the slice of this rank on 'model' and,
 with ZeRO, on 'data'; its state has the region's shape, and
 ``gather_updates`` puts the updated regions back together over 'data'.
+
+The JAX module's ``tree_shardings``, ``shard_params`` and
+``opt_state_shardings`` place pytrees with ``NamedSharding``, which torch
+has no counterpart of: ``ParamLayout`` holds each rank's slices itself.
 """
 from __future__ import annotations
 

@@ -52,6 +52,10 @@ only the forwards of its collectives run there.
 after itself and add its seconds to ``seconds``, so a caller can read the
 time a step spent in them (the synchronisations are then part of the
 step; ``tools/dp_step.py --time-sp``).
+
+The JAX module's ``shard`` is a sharding constraint for XLA's
+partitioner; here each rank holds its rows itself, and the collectives
+above move them.
 """
 from __future__ import annotations
 

@@ -1,9 +1,16 @@
 """DCD trajectory I/O (CHARMM/X-PLOR binary format; numpy only).
 
-Port of ``read_dcd`` and ``write_dcd`` from
-``dynamicpdb_tpu/preprocess/dcd.py``, byte for byte in what it writes:
-``eval_cli --extension N --save-dcd`` hands a rollout to VMD, PyMOL or
-mdtraj through ``write_dcd``, and ``read_dcd`` reads such files back.
+Port of ``dynamicpdb_tpu/preprocess/dcd.py``, byte for byte in what it
+writes: ``eval_cli --extension N --save-dcd`` hands a rollout to VMD,
+PyMOL or mdtraj through ``write_dcd``; ``read_dcd`` reads such files and
+the release's ``{pid}_T.dcd``, ``read_dcd_segments`` its
+tenth-of-trajectory segments ``{pid}_dcd/{pid}_dcd_{i}.dcd``, and the CLI
+inspects a DCD or converts between DCD and npz:
+
+    python -m dynamicpdb_tpu_torch.preprocess.dcd traj.dcd [--out traj.npz]
+    python -m dynamicpdb_tpu_torch.preprocess.dcd 1a62_A_dcd --prefix 1a62_A_dcd
+    python -m dynamicpdb_tpu_torch.preprocess.dcd rollout.npz --out traj.dcd \
+        --key atom_traj
 
 Format (the classic VMD dcdplugin layout, which OpenMM writes):
 
@@ -22,11 +29,13 @@ frames are read until EOF rather than trusting the header's frame count.
 """
 from __future__ import annotations
 
+import os
+import re
 import struct
 
 import numpy as np
 
-__all__ = ["read_dcd", "write_dcd"]
+__all__ = ["read_dcd", "read_dcd_segments", "write_dcd"]
 
 _HDR84 = 84
 _MAGIC = b"CORD"
@@ -151,6 +160,26 @@ def read_dcd(path: str) -> dict[str, np.ndarray]:
     return out
 
 
+def read_dcd_segments(seg_dir: str, prefix: str) -> dict[str, np.ndarray]:
+    """Concatenate the release's segmented DCDs ``{prefix}_{i}.dcd`` from
+    ``seg_dir`` in numeric order (README.md:120-140)."""
+    pat = re.compile(re.escape(prefix) + r"_(\d+)\.dcd$")
+    found = sorted(
+        (int(m.group(1)), name)
+        for name in os.listdir(seg_dir)
+        if (m := pat.fullmatch(name))
+    )
+    if not found:
+        raise FileNotFoundError(f"no {prefix}_<i>.dcd segments in {seg_dir}")
+    parts = [read_dcd(os.path.join(seg_dir, name)) for _, name in found]
+    keys = set(parts[0])
+    for (_, name), p in zip(found, parts):
+        if set(p) != keys or p["xyz"].shape[1] != parts[0]["xyz"].shape[1]:
+            raise ValueError(f"{name}: atom count or box presence differs "
+                             "from the first segment")
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
 def write_dcd(
     path: str,
     xyz: np.ndarray,  # [F, A, 3] Angstroms
@@ -205,3 +234,55 @@ def write_dcd(
                 f.write(col.tobytes())
                 f.write(struct.pack("<i", 4 * natoms))
     return path
+
+
+def main(argv=None):
+    """CLI: inspect a DCD (or segment dir), optionally convert to npz, or
+    convert a rollout/extension npz to DCD.
+
+    python -m dynamicpdb_tpu_torch.preprocess.dcd traj.dcd [--out traj.npz]
+    python -m dynamicpdb_tpu_torch.preprocess.dcd 1a62_A_dcd --prefix 1a62_A_dcd
+    python -m dynamicpdb_tpu_torch.preprocess.dcd rollout.npz --out traj.dcd \
+        --key atom_traj
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("path", help=".dcd file, segment dir, or .npz to convert")
+    ap.add_argument("--prefix", default=None,
+                    help="segment prefix when path is a directory "
+                         "(default: the directory's own name)")
+    ap.add_argument("--out", default=None, help=".npz or .dcd output")
+    ap.add_argument("--key", default="atom_traj",
+                    help="npz key holding [F, ..., 3] coords for npz->dcd")
+    args = ap.parse_args(argv)
+
+    if args.path.endswith(".npz"):
+        with np.load(args.path) as z:
+            coords = np.asarray(z[args.key])
+        coords = coords.reshape(coords.shape[0], -1, 3)
+        if not args.out:
+            raise SystemExit("npz->dcd conversion needs --out traj.dcd")
+        write_dcd(args.out, coords)
+        print(f"wrote {args.out}: {coords.shape[0]} frames x "
+              f"{coords.shape[1]} atoms")
+        return 0
+
+    if os.path.isdir(args.path):
+        prefix = args.prefix or os.path.basename(os.path.normpath(args.path))
+        traj = read_dcd_segments(args.path, prefix)
+    else:
+        traj = read_dcd(args.path)
+    msg = f"{args.path}: {traj['xyz'].shape[0]} frames x " \
+          f"{traj['xyz'].shape[1]} atoms"
+    if "box_lengths" in traj and len(traj["box_lengths"]):
+        msg += f", box {traj['box_lengths'][0].round(3).tolist()} A"
+    print(msg)
+    if args.out:
+        np.savez(args.out, **traj)
+        print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -16,6 +16,9 @@ dimensions come from the tensors' shapes. ``--flash`` and ``--no-scan`` are
 accepted for the JAX CLI's command lines and select nothing: the fused
 attention kernels always run on the card, and the best cycle is always
 selected on the device.
+
+The JAX module's ``resolve_dtype_flash`` picks the Pallas kernel by
+backend; here the fused CUDA kernels always run on the card.
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 their float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_ipa.py [--package DIR] \
-        [--rounds 3] [--reps 50] [--precision] [--ablate [KERNEL]]
+        [--rounds 3] [--reps 50] [--library] [--precision] \
+        [--ablate [KERNEL]]
 
 Times the forward (``csrc/ipa_attention_fwd.cu``) and the three kernels of
 the backward (``csrc/ipa_attention_bwd.cu``: dq, dk/dv, pair) at the
@@ -38,6 +39,15 @@ them again and prints, per output, whether it equals FILE's bit for bit
 and its largest difference: run the parent with the first and this
 checkout with the second to show that a change left the kernels'
 arithmetic as it was.
+
+``--library`` times the library call beside the kernels at the same
+inputs: torch's ``scaled_dot_product_attention`` on the same logits
+(``sdpa_operands``: the points folded into the dot product, q|qp . k|kp,
+the pair bias and the two norm terms with the mask as a float
+``attn_mask``, v|vp as the values), its forward for the forward kernel's
+o and o_pt (o_pair has no library call) and its one backward call (dq, dk,
+dv of those operands) for the dq and dk/dv kernels (the pair kernel has
+none). Its outputs are held against the plain version's o and o_pt first.
 
 ``--precision`` runs the four kernels in float32 at the release widths with
 one frame and two heads, and holds them, the float32 plain versions and the
@@ -245,6 +255,68 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
     return [{"kernel": k, **t} for k, t in times.items()]
 
 
+def sdpa_operands(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
+                  head_weights, c_qk, c_b=C_B, inf=INF):
+    """The forward's logits as one scaled dot product: q' = [sqrt(c_qk) q |
+    sqrt(w_h) qp], k' likewise (q'.k' = c_qk q.k + w_h qp.kp), the float
+    mask c_b bias - w_h (|qp|^2 + |kp|^2) / 2 + inf (m_i m_j - 1), values
+    [v | vp]; each [F, H, N, .] (the mask [F, H, N, N]), with scale 1."""
+    F, N, H, C = q.shape
+    sw = head_weights.sqrt()[None, None, :, None]
+    qp, kp = q_pts.flatten(-2), k_pts.flatten(-2)
+    q2 = torch.cat([q * math.sqrt(c_qk), qp * sw], -1).transpose(1, 2)
+    k2 = torch.cat([k * math.sqrt(c_qk), kp * sw], -1).transpose(1, 2)
+    v2 = torch.cat([v, v_pts.flatten(-2)], -1).transpose(1, 2)
+    hw = head_weights[None, :, None]
+    qn = (-0.5 * hw * qp.pow(2).sum(-1).transpose(1, 2))[..., :, None]
+    kn = (-0.5 * hw * kp.pow(2).sum(-1).transpose(1, 2))[..., None, :]
+    m = inf * (mask[:, :, None] * mask[:, None, :] - 1.0)
+    attn = c_b * bias.permute(2, 0, 1)[None] + qn + kn + m[:, None]
+    return (q2.contiguous(), k2.contiguous(), v2.contiguous(),
+            attn.contiguous())
+
+
+def sdpa_outputs(operands, C: int):
+    """(o [F, N, H, C], o_pt [F, N, H, Pv, 3]) of the library call."""
+    q2, k2, v2, attn = operands
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q2, k2, v2, attn_mask=attn, scale=1.0).transpose(1, 2)
+    return out[..., :C], out[..., C:].unflatten(-1, (-1, 3))
+
+
+def library_timings(smoke, device, rounds: int, reps: int) -> list[dict]:
+    """The SDPA call's forward and its one backward at ``timings``'
+    inputs, after holding its o and o_pt against the plain version's."""
+    args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+    C = args[0].shape[-1]
+    from dynamicpdb_tpu_torch.ops.ipa_attention import ipa_attention_plain
+
+    operands = sdpa_operands(*args, c_qk)
+    o, o_pt = sdpa_outputs(operands, C)
+    want = ipa_attention_plain(*args, c_qk)
+    real = args[8].bool()  # the real query rows
+    errs = [float((got - w)[real].abs().max())
+            for got, w in ((o, want[0]), (o_pt, want[1]))]
+    leaves = [t.detach().requires_grad_(True) for t in operands[:3]]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=operands[3], scale=1.0)
+    g = torch.randn(out.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+
+    def backward():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    fwd = [smoke.time_ms(torch, lambda: sdpa_outputs(operands, C), reps)
+           for _ in range(rounds)]
+    bwd = [smoke.time_ms(torch, backward, reps) for _ in range(rounds)]
+    return [{"library": "scaled_dot_product_attention forward (o, o_pt)",
+             "for": ["ipa_attention_fwd"], "ms": fwd,
+             "max_abs_err_vs_plain": errs},
+            {"library": "scaled_dot_product_attention backward (dq, dk, dv)",
+             "for": ["ipa_attention_bwd_dq", "ipa_attention_bwd_dkv"],
+             "ms": bwd}]
+
+
 def kernel_outputs(smoke, mod, device) -> dict:
     """The four kernels' outputs at ``timings``' inputs, on the host."""
     args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
@@ -412,6 +484,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--precision", action="store_true")
+    ap.add_argument("--library", action="store_true")
     ap.add_argument("--save-outputs", metavar="FILE")
     ap.add_argument("--compare-outputs", metavar="FILE")
     ap.add_argument("--ablate", nargs="?", const="ipa_attention_fwd",
@@ -426,6 +499,9 @@ def main(argv=None) -> int:
     label = os.path.relpath(os.path.abspath(args.package), bench_geom.ROOT)
     for row in timings(smoke, mod, device, args.rounds, args.reps):
         print(json.dumps({"package": label, "card": card, **row}))
+    if args.library:
+        for row in library_timings(smoke, device, args.rounds, args.reps):
+            print(json.dumps({"package": label, "card": card, **row}))
     if args.save_outputs:
         torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
     if args.compare_outputs:

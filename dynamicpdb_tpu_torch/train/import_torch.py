@@ -10,6 +10,9 @@ outputs the reference computes and overwrites
 already use the reference layout, so a reference state dict loads
 strictly once the prefix is stripped and the dead entries are dropped;
 no mapping like the JAX package's flax conversion is needed.
+
+The JAX module's ``flax_from_reference_state_dict`` maps onto flax's
+parameter tree; the port's parameters already have the reference keys.
 """
 from __future__ import annotations
 

@@ -23,6 +23,11 @@ runs the same sequence in the same order:
     (ZeRO-1, 'model'); ``state_dict`` gathers the moments to the whole
     parameters' shapes (a collective) and ``load_state_dict`` takes this
     rank's regions of whole moments, so a checkpoint moves between meshes.
+
+The JAX module's optax pieces (``AmsgradState``, ``scale_by_amsgrad``,
+``amsgrad``, ``EmaState``, ``track_ema``, ``ema_params``) are one
+``torch.optim.Optimizer`` here: ``AMSGrad`` holds the moments and the EMA
+in its state, and ``ema_state_dict`` reads the EMA weights.
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
-"""Metrics: an append-only JSON-lines stream and a steps/sec timer.
+"""Metrics: an append-only JSON-lines stream, a steps/sec timer and a
+profiler trace.
 
-Port of ``MetricsWriter`` and ``StepTimer`` from
-``dynamicpdb_tpu/utils/logging.py``. Records go to
+Port of ``dynamicpdb_tpu/utils/logging.py``. Records go to
 ``<log_dir>/metrics.jsonl``, one JSON object per line with ``step``,
-``time`` and the metrics as floats; there is no TensorBoard mirror.
+``time`` and the metrics as floats, and ``read_metrics`` reads them back;
+there is no TensorBoard mirror. ``profile_trace`` runs ``torch.profiler``
+where the JAX package runs ``jax.profiler`` and writes a Chrome trace
+(chrome://tracing, Perfetto) instead of an xprof one.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -26,6 +30,31 @@ class MetricsWriter:
 
     def close(self):
         self._f.close()
+
+
+def read_metrics(log_dir: str) -> list[dict]:
+    path = os.path.join(log_dir, "metrics.jsonl")
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """Profile the block (CPU, and CUDA when a card is present) and write
+    ``<log_dir>/trace.json`` at its end; nothing when ``log_dir`` is
+    empty."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StepTimer:

@@ -1,4 +1,10 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points.
+
+``honor_cpu_request`` and ``raise_cpu_collective_timeouts`` of the JAX
+module set JAX's platform and XLA's CPU collective timeouts; torch takes
+its device per call (``resolve_device``), and a process group its timeout
+where ``init_process_group`` makes it.
+"""
 from __future__ import annotations
 
 import os

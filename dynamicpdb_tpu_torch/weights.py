@@ -4,7 +4,11 @@
 ``dynamicpdb_tpu/train/export_torch.py:77 reference_state_dict_from_flax``
 (the reference torch layout, with xyz-major point projections), minus the
 dead ``embedding_layer.*`` entries, so the result loads into
-``DFoldScoreNetwork`` with ``strict=True``.
+``DFoldScoreNetwork`` with ``strict=True``. With
+``embed.use_aatype_embedding`` on it also carries JAX's
+``aatype_embed/embedding`` [21, D] to the port-only key
+``score_model.aatype_embed.weight``; with the option off that entry is
+refused like any other the layout cannot hold.
 """
 from __future__ import annotations
 
@@ -105,6 +109,8 @@ def state_dict_from_jax(params: Mapping, model_cfg: ModelConfig
         lin(f"angle_resnet/AngleResnetBlock_{i}/Dense_1",
             f"score_model.angle_resnet.layers.{i}.linear_2")
     lin("angle_resnet/Dense_2", "score_model.angle_resnet.linear_out")
+    if model_cfg.embed.use_aatype_embedding:
+        sd["score_model.aatype_embed.weight"] = take("aatype_embed/embedding")
 
     unmapped = sorted(set(flat) - used)
     if unmapped:
@@ -130,7 +136,10 @@ def randomize_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 # parameter's name in the reference layout: "torch" = U(+-1/sqrt(fan_in)),
 # "default"/"relu" = fan-in truncated normal of variance 1 / 2 (AF2),
 # "final" = zeros. Biases are zeros; head_weights start at softplus^-1(1).
+# "embed" = flax's default embed init, variance-scaling fan-in normal (not
+# truncated) of variance 1 / D: the aatype embedding [21, D].
 _JAX_INIT_RULES = (  # the first key contained in the name decides
+    ("aatype_embed.", "embed"),
     ("angle_resnet.linear_initial.", "default"),
     ("angle_resnet.linear_in.", "default"),
     ("angle_resnet.linear_out.", "default"),
@@ -165,6 +174,8 @@ def init_like_jax_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
         elif rule == "torch":
             limit = 1.0 / math.sqrt(fan_in)
             p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * limit)
+        elif rule == "embed":
+            p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(fan_in))
         else:
             std = math.sqrt((2.0 if rule == "relu" else 1.0) / fan_in) \
                 / _TRUNC_CORR

@@ -167,6 +167,32 @@ def test_parallel_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+@pytest.mark.parametrize("module", [
+    "analysis.contact_order", "analysis.plotting", "analysis.structure_checks",
+    "analysis.violations", "preprocess.energies", "preprocess.pack",
+    "preprocess.pbc", "train.export_torch", "utils.compile_cache",
+    "tools.ingest_release"])
+def test_last_slice_modules_load_without_jax(module):
+    """Each module of the last slice, imported alone and then driven as far
+    as its import reaches (the violation tables, the export's reference
+    shapes), with nothing of JAX or the JAX package loaded."""
+    code = (
+        "import sys\n"
+        f"import dynamicpdb_tpu_torch.{module} as m\n"
+        "from dynamicpdb_tpu_torch.analysis import violations\n"
+        "violations._tables()\n"
+        "from dynamicpdb_tpu_torch.train import export_torch\n"
+        "from dynamicpdb_tpu_torch.config import ModelConfig\n"
+        "export_torch.reference_shapes(ModelConfig())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib', 'matplotlib')!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 @pytest.mark.parametrize("name", ["tables.npz", "omegafold_tables.npz"])
 def test_chem_tables_copy_is_byte_identical(name):
     a = open(os.path.join(ROOT, "dynamicpdb_tpu", "chem", name), "rb")

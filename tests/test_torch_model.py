@@ -10,7 +10,13 @@ padded.
 Tolerance: float32 on both sides, but four IPA blocks of softmax,
 normalisation and 5x5 convolutions compound the summation-order
 differences; the comparison is 2e-4 relative to each output's largest
-magnitude (a few hundred float32 ulps), checked elementwise."""
+magnitude (a few hundred float32 ulps), checked elementwise.
+
+``embed.use_aatype_embedding`` (JAX's ``nn.Embed(21, D)``, the port's
+``score_model.aatype_embed.weight``): the same forward with the option on,
+and one train step's loss and gradients against JAX's at
+``test_torch_train``'s bars (loss 1e-4 relative, gradients 1e-3 of each
+gradient's largest magnitude)."""
 import dataclasses
 
 import flax
@@ -124,6 +130,84 @@ def test_score_forward_matches_jax(setup, frame_time, n_real):
     with torch.no_grad():
         got = t_score_forward(net, tdiff, tfeats)
     assert_outputs_close(got, want)
+
+
+AATYPE_MODEL = dataclasses.replace(TINY_MODEL, embed=dataclasses.replace(
+    TINY_MODEL.embed, use_aatype_embedding=True))
+
+
+@pytest.fixture(scope="module")
+def aatype_setup():
+    diffuser = SE3Diffuser(TINY_SE3)
+    model = DFoldScoreNetwork(AATYPE_MODEL)
+    feats = diffuse_training_window(
+        jax.random.PRNGKey(1), window_feats(10, 3, 10, 0), diffuser, 0.01)
+    params = live_params(jax.jit(model.init)(jax.random.PRNGKey(0), feats), 7)
+    jfwd = jax.jit(lambda p, f: score_forward(model, p, diffuser, f))
+    mcfg = port_cfg(port_config.ModelConfig, AATYPE_MODEL)
+    net = TNet(mcfg, device="cpu")
+    net.load_state_dict(state_dict_from_jax(to_numpy_tree(params), mcfg),
+                        strict=True)
+    tdiff = TSE3(port_cfg(port_config.SE3Config, TINY_SE3), device="cpu")
+    return params, jfwd, diffuser, net, tdiff
+
+
+@pytest.mark.parametrize("n_real", [10, 7], ids=["unpadded", "padded"])
+def test_score_forward_matches_jax_with_aatype_embedding(aatype_setup, n_real):
+    params, jfwd, diffuser, net, tdiff = aatype_setup
+    emb = params["params"]["aatype_embed"]["embedding"]
+    assert emb.shape == (21, AATYPE_MODEL.node_embed_size)
+    np.testing.assert_array_equal(
+        net.score_model.aatype_embed.weight.detach().numpy(), emb)
+    feats = diffuse_training_window(
+        jax.random.PRNGKey(2), window_feats(n_real, 2, 10, 5), diffuser, 0.01)
+    want = jfwd(params, feats)
+    tfeats = {k: torch.as_tensor(np.array(v)) for k, v in feats.items()}
+    with torch.no_grad():
+        got = t_score_forward(net, tdiff, tfeats)
+        assert_outputs_close(got, want)
+        # the embedding reaches the output: zeroed, the forward moves
+        net.score_model.aatype_embed.weight.zero_()
+        zeroed = t_score_forward(net, tdiff, tfeats)
+        net.score_model.aatype_embed.weight.copy_(torch.as_tensor(
+            np.asarray(emb)))
+    assert not torch.allclose(zeroed["rigids"], got["rigids"])
+
+
+def test_aatype_embedding_loss_and_gradients_match_jax():
+    from tests.test_torch_train import (
+        assert_grads_close,
+        jax_batch_noise,
+        jax_config,
+        make_pair,
+        raw_batch,
+    )
+
+    cfg = dataclasses.replace(jax_config(), model=AATYPE_MODEL)
+    jt, params, _, pt = make_pair(cfg)
+    assert "score_model.aatype_embed.weight" in dict(
+        pt.model.named_parameters())
+    batch = raw_batch(2, 8, 10, 2, seed=11)
+    key = jax.random.PRNGKey(12)
+    (loss, aux), grads = jax.jit(jax.value_and_grad(jt.loss_fn, has_aux=True))(
+        params, key, jax.tree_util.tree_map(jnp.asarray, batch))
+    got_loss, _ = pt.loss_and_grads(batch, jax_batch_noise(key, 2, 2, 10, cfg))
+    np.testing.assert_allclose(float(got_loss), float(loss), rtol=1e-4)
+    assert_grads_close(pt, grads)
+    g = pt.model.score_model.aatype_embed.weight.grad
+    assert float(g.abs().max()) > 0
+
+
+def test_aatype_embedding_init_like_jax():
+    """flax's default embed init: fan-in normal of variance 1 / D."""
+    from dynamicpdb_tpu_torch.weights import init_like_jax_
+
+    mcfg = port_cfg(port_config.ModelConfig, dataclasses.replace(
+        AATYPE_MODEL, node_embed_size=256))
+    w = init_like_jax_(TNet(mcfg, device="cpu"), 0).score_model.aatype_embed
+    std = float(w.weight.detach().std())
+    assert abs(std - 1 / 16) < 0.004, std
+    assert float(w.weight.detach().abs().max()) > 2.5 / 16  # not truncated
 
 
 def test_randomize_reaches_every_parameter():

@@ -9,7 +9,9 @@
     ``python -m torch.distributed.run``) against the JAX data-parallel step
     on its 8 virtual CPU devices, on the same parameters and JAX's noise;
   * ``grad_accum`` under DP, a ('data', 'model') mesh, ZeRO and
-    ``multi_train_step``, each against its plain counterpart in the port.
+    ``multi_train_step``, each against its plain counterpart in the port;
+    ZeRO and a ('data', 'model') mesh with ``embed.use_aatype_embedding``
+    on against one process.
 
 Tolerances, float32: the loss to 1e-4 relative, the parameters to the bar
 of ``tests/test_torch_train.py::test_five_train_steps_match_jax`` (each
@@ -423,6 +425,41 @@ def test_dp_equals_one_process_at_the_global_batch(manifest, plain_dp,
         for k, v in st.items():
             got = plain_dp[0]["optimizer"]["state"][i][k]
             assert got.shape == v.shape, (i, k)  # gathered whole
+
+
+def test_aatype_embedding_under_zero_and_model_matches_one_process(
+        manifest, tmp_path):
+    """``embed.use_aatype_embedding`` on: 2 ranks with ZeRO-1 (the
+    embedding's moments split over 'data' along D) against one process at
+    the global batch, within the bars above; a 4-rank ('data', 'model')
+    mesh of (2, 2) (the embedding replicated over 'model') bit-equal to the
+    2 ranks."""
+    # D = 64: the embedding [21, 64] is past ZERO_MIN elements
+    on = ("model.embed.use_aatype_embedding=true", "model.node_embed_size=64",
+          "model.ipa.c_s=64")
+    key = "score_model.aatype_embed.weight"
+    data = mesh_lib.Mesh((2,), ("data",), groups=False)
+    assert sharding.zero_spec(key, (21, 64), data) == (None, "data")
+    assert sharding.param_spec(key, (21, 64), 2) == (None, None)
+    (one,) = dp_step(0, tmp_path / "one", csv_args(
+        manifest, *on, "experiment.batch_size=4"))
+    zero = dp_step(2, tmp_path / "zero", csv_args(
+        manifest, *on, "experiment.batch_size=2"))
+    cfg = pcfg.load_yaml(os.path.join(ROOT, "configs", "tiny.yaml"), list(on))
+    start = Trainer(cfg, device="cpu").model.state_dict()
+    assert start[key].shape == (21, 64)
+    assert not torch.equal(zero[0]["params"][key], start[key])  # it trains
+    assert_params_close(zero[0]["params"], one["params"], start, 1e-4, 3)
+    np.testing.assert_allclose([a["total_loss"] for a in zero[0]["aux"]],
+                               [a["total_loss"] for a in one["aux"]],
+                               rtol=1e-5)
+    assert_results_equal(zero[0], zero[1])
+    tp = dp_step(4, tmp_path / "model", csv_args(
+        manifest, *on, "experiment.batch_size=2", "experiment.mesh_shape=(2,2)",
+        "experiment.mesh_axes=(data,model)"))
+    assert tp[0]["mesh"] == {"data": 2, "model": 2}
+    for r in range(4):
+        assert_results_equal(tp[r], zero[0])
 
 
 def test_multi_train_step_equals_k_train_steps():

@@ -9,7 +9,8 @@ one process and against the JAX package, on the CPU.
     their one-process definitions;
   * the model's forward and gradients, and the rollout (full sampler and
     fast_x0), under a ('seq',) = 2 mesh (``tools/sp_run.py``) against one
-    process, at N = 9, which 2 does not divide, with remat on;
+    process, at N = 9, which 2 does not divide, with remat on; the forward
+    and gradients again with ``embed.use_aatype_embedding`` on;
   * a train step on a ('data', 'seq') = (1, 2) and a (2, 2) mesh
     (``tools/dp_step.py``) against the JAX Trainer's step on its
     ('data', 'seq') 2x4 mesh (tests/test_parallel.py:184), on the same
@@ -278,6 +279,45 @@ def test_model_gradients_under_seq_match_one_process(sp_runs):
             np.testing.assert_allclose(got[name].numpy(), w.numpy(),
                                        atol=1e-3 * scale, rtol=0,
                                        err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def sp_aatype_runs(tmp_path_factory):
+    """The forward part alone, with ``embed.use_aatype_embedding`` on: one
+    launch of 2 ranks and the one-process outputs and gradients. The
+    embedding is added on a rank's rows, before the node mask."""
+    tmp = tmp_path_factory.mktemp("sp_aatype")
+    overrides = SP_OVERRIDES + ["model.embed.use_aatype_embedding=true"]
+    cfg = load_yaml(TINY, overrides)
+    model = randomize_(DFoldScoreNetwork(cfg.model, device="cpu"), 8)
+    feats = _window()
+    out = model(feats)
+    g = torch.Generator().manual_seed(9)
+    cots = {k: torch.randn(v.shape, generator=g) for k, v in out.items()}
+    sum(torch.sum(out[k] * c) for k, c in cots.items()).backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    assert float(grads["score_model.aatype_embed.weight"].abs().max()) > 0
+    payload = tmp / "payload.pt"
+    torch.save(dict(state_dict=model.state_dict(),
+                    forward=dict(feats=feats, cotangents=cots)), payload)
+    launch(2, "dynamicpdb_tpu_torch.tools.sp_run",
+           ["--device", "cpu", "--config", TINY, "--payload", str(payload),
+            "--out", str(tmp / "out"), *overrides])
+    ranks = [torch.load(tmp / "out" / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    return dict(ranks=ranks, outputs=out, grads=grads)
+
+
+def test_aatype_embedding_forward_under_seq_matches_one_process(
+        sp_aatype_runs):
+    test_model_forward_under_seq_matches_one_process(sp_aatype_runs)
+
+
+def test_aatype_embedding_gradients_under_seq_match_one_process(
+        sp_aatype_runs):
+    assert "score_model.aatype_embed.weight" in sp_aatype_runs["grads"]
+    test_model_gradients_under_seq_match_one_process(sp_aatype_runs)
 
 
 @pytest.mark.parametrize("mode", ["full", "fast_x0"])
