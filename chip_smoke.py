@@ -9,8 +9,8 @@ Phases, each printing its own lines:
   1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
      each, all started together, with ptxas's registers and spills; the
      machine code of the GeoFormer kernels, the IPA forward and the three
-     IPA backward kernels must hold tensor-core instructions (cuobjdump
-     -sass);
+     IPA backward kernels, and the wide route's tensor-core forward and
+     pair kernels must hold tensor-core instructions (cuobjdump -sass);
   2. kernels: the IPA forward and its three backward kernels against their
      plain PyTorch versions on the card, at the release widths and N = 5,
      16, 203, 256 and 611, at the tiny width, and with the first key tile
@@ -19,12 +19,16 @@ Phases, each printing its own lines:
      with errors, tolerances and times; then the same at three cases past
      the tensor-core kernels' widths ("wide": C 384, Pq 12, Pv 18, Dz 64,
      4 heads; "wide-dz": Dz 64; "wide-model": phase 4b's widths and
-     window, C 384, Pq 12, Dz 64, N 256), which must run the wide route's
-     CUDA-core kernels (their launch counters move, the tensor-core ones do
-     not); then the rectangular calls of sequence parallelism on each
-     route: rows 128-255 (the 56 pad rows among them) of the release and
-     wide-model windows against all 256 keys, every kernel against its
-     plain version, timed;
+     window, C 384, Pq 12, Dz 64, N 256), which must run the wide route:
+     the forward and the pair kernel on the wide tensor-core kernels, dq
+     and dk/dv on the CUDA-core ones (each wrapper's counter of its route
+     moves, no other), and at one past the wide tensor-core kernels'
+     widths ("past-wide-tc": C 392, Pq 14, Pv 20, Dz 72, N 37), where all
+     four run on the CUDA cores; then the rectangular calls of sequence
+     parallelism on each route: rows 128-255 (the 56 pad rows among them)
+     of the release and wide-model windows against all 256 keys, every
+     kernel against its plain version and against the square call's rows
+     (bit for bit), timed;
   3. serve: the release-width model with seeded random weights is saved,
      loaded by serve_cli and driven over HTTP (healthz + 4 rollouts), with
      the kernel launch counts of that run checked against the model's
@@ -52,7 +56,8 @@ Phases, each printing its own lines:
   4b. wide: one IPA block at c_z 256, c_hidden 384, no_qk_points 12 with
      randomised weights, gradients on the card against the CPU; then that
      model at release depth trained 3 steps (B = 2) by train_cli and served
-     by serve_cli, every IPA launch on the wide route;
+     by serve_cli, every IPA launch on the wide route (the forward and the
+     pair kernel on the tensor cores, dq and dk/dv on the CUDA cores);
   6. eval (run after phase 4, on its checkpoint): eval_cli over the two
      proteins (every metric finite, the IPA launches per protein checked),
      eval_cli --extension 4 --save-dcd (the DCD read back), and evaluate
@@ -92,7 +97,9 @@ Phases, each printing its own lines:
      ranks on a (1, 2) ('data', 'model') mesh at B = 8, bit-equal to phase
      4 and within the bounds of 8a; each rank's step and all-reduce
      seconds, peak memory and the memory its parameters and optimizer
-     state hold between steps printed.
+     state hold between steps printed. Phase 8's runs start at once, as
+     do phase 9's and phase 10's (most of a run's time is its processes'
+     start-up); their printed seconds are taken under that load.
   9. sequence parallelism (two gloo ranks sharing cuda:0 on a ('data',
      'seq') = (1, 2) mesh: each window's residues split over them): 9a,
      train_cli at phase 4's config, batch, manifest and steps in float32
@@ -104,20 +111,20 @@ Phases, each printing its own lines:
      same weights and generator seed) against one process's, in float32
      and in bfloat16, each rank's IPA launches; 9c, one train step of a
      1024-residue window at release widths (B 1, remat, bfloat16) through
-     tools/dp_step.py, one process and then two 'seq' ranks with their
+     tools/dp_step.py, one process and two 'seq' ranks with their
      collectives timed: the loss within bfloat16's precision of one
      process's, each rank's peak memory printed beside (and below) the
      one process's, each rank's IPA launches.
   10. OmegaFold under sequence parallelism (run after phase 7, on phase
      5's checkpoint; two gloo ranks sharing cuda:0 on a ('data', 'seq') =
      (1, 2) mesh, tools/sp_run.py): 10a, phase 5's sequences (256, and 203
-     padded to 224), 3 cycles with the structure, against one process:
+     padded to 224), 2 cycles with the structure, against one process:
      every cycle's node, edge and confidence, the selected cycle (equal),
      its pos14 and pLDDT within SP_OF_RTOL of their scale, every rank's
      result equal to rank 0's, each rank's GeoFormer kernel launches; a
      run with a planted fault (the column view from the rank's own rows)
      must read past the bound; 10b, one cycle at 512 residues, one
-     process then a 'seq' rank with its collectives timed: each one's
+     process and a 'seq' rank with its collectives timed: each one's
      peak memory (a rank's below one process's), seconds and collectives.
   11. ingest -> train -> export -> score (run after phase 10, in phase 5's
      directory, on its checkpoint): 11a, a synthetic dynamicPDB release
@@ -182,6 +189,8 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections.abc import Callable, Generator
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -450,9 +459,9 @@ IPA_BWD_OUT_SHAPES = {
 
 def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
                   reps: int, key_mask=None) -> float:
-    """The time of IPA kernel ``kind`` (``ipa_attention_fwd`` or
-    ``ipa_attention_wide_fwd`` on the forward's 10 inputs, or a backward
-    launcher of either library on the 15 backward inputs) alone: outputs
+    """The time of IPA launcher ``kind`` (a forward's, ``*_fwd``, on the
+    forward's 10 inputs, or a backward one, ``*_bwd_{dq,dkv,pair}``, on the
+    15 backward inputs, of any route's library) alone: outputs
     allocated once, then ``reps`` launches straight through the library of
     ``mod`` (no checks, no counter moves). A package whose launchers take
     a key mask and Nk (``input_shapes`` marks it) gets the query mask twice
@@ -465,13 +474,13 @@ def ipa_kernel_ms(torch, mod, kind: str, operands, c_qk: float,
     rect = hasattr(mod, "input_shapes")
     check(rect or (key_mask is None and Nk == N), f"{kind}: this package's "
           "launchers take square calls only")
-    base = kind.replace("_wide", "")
-    if base == "ipa_attention_fwd":
+    if kind.endswith("_fwd"):
         Pq, Pv = operands[3].shape[-2], operands[5].shape[-2]
         shapes = ((F, N, H, C), (F, N, H, Pv, 3), (F, N, H, Dz), (F, H, N))
         lib = mod._lib(kind)
     else:
         Pq, Pv = operands[3].shape[-1] // 3, operands[5].shape[-1] // 3
+        base = "ipa_attention_bwd_" + kind.rsplit("_", 1)[1]
         shapes = IPA_BWD_OUT_SHAPES[base](F, N, Nk, H, C, 3 * Pq, 3 * Pv, Dz)
         lib = mod._lib(kind[:kind.rindex("_")])
     outs = [torch.empty(s, dtype=torch.float32, device=q.device)
@@ -539,16 +548,19 @@ def ipa_errors(got, want, args) -> dict:
 # end in ragged ones; "tiny" is a small width (C = 8: one 8-channel tile a
 # warp); "first-tile-pad" masks the first 40 residues, so that every row's
 # first key steps are all pad and its running max starts near -1e5 before
-# the online softmax rescales it away. The last three are past the
+# the online softmax rescales it away. The last four are past the
 # tensor-core kernels' widths (ipa_attention.TILE_LIMITS) and run the wide
-# route's CUDA-core kernels: "wide" at every width past its limit at once
-# (C = 384, Pq*3 = 36, Pv*3 = 54, Dz = 64; 4 heads, 203 residues ending in
-# a ragged tile), "wide-dz" at the release widths with Dz = 64, and
+# route (the forward and the pair kernel on the wide tensor-core kernels,
+# dq and dk/dv on the CUDA-core ones): "wide" at every width past its limit
+# at once (C = 384, Pq*3 = 36, Pv*3 = 54, Dz = 64; 4 heads, 203 residues
+# ending in a ragged tile), "wide-dz" at the release widths with Dz = 64,
 # "wide-model" at the widths and window of phase 4b's model (WIDE_MODEL:
 # the release model with c_z 256, c_hidden 384, no_qk_points 12, so 8
 # heads, Pv 12, Dz 64, on a 256-residue window with 56 pad rows), whose
 # errors and times go into the wide kernels' reports beside the launches
-# of that phase
+# of that phase; and "past-wide-tc", past the wide tensor-core kernels'
+# widths too (ipa_attention.WIDE_TC_LIMITS), where all four run on the CUDA
+# cores
 WIDE_CASE = dict(N=203, H=4, C=384, Pq=12, Pv=18, Dz=64, masked=11)
 WIDE_MODEL_CASE = dict(N=256, masked=56, C=384, Pq=12, Dz=64)
 IPA_CASES = (("release", dict(N=256, masked=56)),
@@ -560,74 +572,86 @@ IPA_CASES = (("release", dict(N=256, masked=56)),
              ("first-tile-pad", dict(N=203, masked=5, lead_masked=40)),
              ("wide", WIDE_CASE),
              ("wide-dz", dict(N=256, masked=56, Dz=64)),
-             ("wide-model", WIDE_MODEL_CASE))
+             ("wide-model", WIDE_MODEL_CASE),
+             ("past-wide-tc", dict(N=37, H=2, C=392, Pq=14, Pv=20, Dz=72,
+                                   masked=5)))
 # the cases each IPA kernel is also timed at. The kernels line reports the
 # tensor-core kernels at "release" and the wide ones at "wide-model" (the
 # shapes phases 4 and 4b launch them at); the times at "wide" are printed
 TIMED_CASES = (("release", {}), ("wide-model", WIDE_MODEL_CASE),
                ("wide", WIDE_CASE))
 REPORTED_CASES = ("release", "wide-model")
-# the IPA wrappers' launch counters: kernel -> (tensor-core route, wide)
-IPA_COUNTERS = {
-    "ipa_attention_fwd": ("launches", "wide_launches"),
-    "ipa_attention_bwd_dq": ("bwd_dq_launches", "wide_bwd_dq_launches"),
-    "ipa_attention_bwd_dkv": ("bwd_dkv_launches", "wide_bwd_dkv_launches"),
-    "ipa_attention_bwd_pair": ("bwd_pair_launches", "wide_bwd_pair_launches"),
-}
+# the IPA kernels' routes (ops/ipa_attention.kernel_route): the tensor-core
+# kernels, the wide tensor-core kernels (forward and pair only) and the wide
+# route's CUDA-core kernels
+IPA_ROUTES = ("tc", "wide_tc", "wide")
 
 
 def ipa_counts(ipa_mod) -> dict:
-    """{kernel: (tensor-core launches, wide launches)} of this process."""
-    return {k: tuple(getattr(ipa_mod, n) for n in names)
-            for k, names in IPA_COUNTERS.items()}
+    """{wrapper: its launches on each of IPA_ROUTES} of this process (0 on
+    a route the wrapper does not have)."""
+    return {k: tuple(getattr(ipa_mod, ipa_mod.COUNTERS[(k, r)])
+                     if (k, r) in ipa_mod.COUNTERS else 0
+                     for r in IPA_ROUTES)
+            for k in ipa_mod.WRAPPERS}
 
 
 def reset_ipa_counts(ipa_mod):
-    for names in IPA_COUNTERS.values():
-        for n in names:
-            setattr(ipa_mod, n, 0)
+    for name in ipa_mod.COUNTERS.values():
+        setattr(ipa_mod, name, 0)
 
 
-def ipa_route(ipa_mod, shape: dict) -> str:
-    """The route (tc or wide) of ``shape``'s widths (release unless
-    stated); the four kernels share it at every case here."""
+def ipa_routes(ipa_mod, shape: dict) -> dict:
+    """{wrapper: the route ``shape``'s widths (release unless stated) select
+    for it}."""
     w = dict(dict(C=256, Pq=8, Pv=12, Dz=32), **shape)
-    routes = {ipa_mod.kernel_route(k, w["C"], 3 * w["Pq"], 3 * w["Pv"],
-                                   w["Dz"]) for k in IPA_COUNTERS}
-    check(len(routes) == 1, f"IPA kernels on several routes at {w}: {routes}")
-    return routes.pop()
+    return {k: ipa_mod.kernel_route(k, w["C"], 3 * w["Pq"], 3 * w["Pv"],
+                                    w["Dz"]) for k in ipa_mod.WRAPPERS}
 
 
-def check_launched(ipa_mod, before: dict, kernels, route: str, label: str):
-    """Each of ``kernels`` launched once since ``before`` on ``route``, and
-    never on the other."""
+def on_routes(counts: dict, routes: dict) -> tuple[dict, int]:
+    """({wrapper: its launches in ``counts`` on its route in ``routes``},
+    the launches of every wrapper off its route)."""
+    on = {k: counts[k][IPA_ROUTES.index(r)] for k, r in routes.items()}
+    return on, sum(sum(c) for c in counts.values()) - sum(on.values())
+
+
+def ipa_kernel_name(ipa_mod, fn: str, routes: dict) -> tuple[str, str]:
+    """(launcher, library source under csrc/) of wrapper ``fn``'s kernel on
+    its route."""
+    lib, name = ipa_mod.launcher(fn, routes[fn])
+    return name, f"dynamicpdb_tpu_torch/csrc/{lib}.cu"
+
+
+def check_launched(ipa_mod, before: dict, kernels, routes: dict, label: str):
+    """Each of ``kernels`` launched once since ``before`` on its route in
+    ``routes``, and never on another."""
     after = ipa_counts(ipa_mod)
     for k in kernels:
-        tc, wide = (a - b for a, b in zip(after[k], before[k]))
-        want = (1, 0) if route == "tc" else (0, 1)
-        check((tc, wide) == want, f"{k} {label}: {tc} tensor-core and {wide} "
-              f"wide launches, expected {want}")
+        got = tuple(a - b for a, b in zip(after[k], before[k]))
+        want = tuple(int(r == routes[k]) for r in IPA_ROUTES)
+        check(got == want, f"{k} {label}: launches {got} on the routes "
+              f"{IPA_ROUTES}, expected {want}")
 
 
 def kernel_phase(torch, device, card: str) -> list[dict]:
     """The forward kernel against its plain version at every case of
     IPA_CASES, on the route its widths select; the reports of the
-    tensor-core kernel (release case) and the wide kernel (wide-model
-    case), after timing it at every case of TIMED_CASES."""
+    tensor-core kernel (release case) and the wide tensor-core kernel
+    (wide-model case), after timing it at every case of TIMED_CASES."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     reports = {}
     for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=len(label), **shape)
-        route = ipa_route(ipa_mod, shape)
+        routes = ipa_routes(ipa_mod, shape)
         before = ipa_counts(ipa_mod)
         got = ipa_mod.ipa_attention_fwd(*args, c_qk)
         torch.cuda.synchronize()
-        check_launched(ipa_mod, before, ("ipa_attention_fwd",), route, label)
+        check_launched(ipa_mod, before, ("ipa_attention_fwd",), routes, label)
         want = ipa_mod.ipa_attention_plain(*args, c_qk)
         errs = ipa_errors(got, want, args)
-        kname = ("ipa_attention_fwd" if route == "tc"
-                 else "ipa_attention_wide_fwd")
+        kname, source = ipa_kernel_name(ipa_mod, "ipa_attention_fwd", routes)
         for name in ("o", "o_pt", "o_pair"):
             e = errs[name]
             print(f"kernel {kname} {label}: {name} max_abs_err "
@@ -640,13 +664,13 @@ def kernel_phase(torch, device, card: str) -> list[dict]:
               f"{IPA_LSE_RTOL:.0e}*|lse|)")
         check(errs["lse"]["ok"], f"{kname} {label} lse out of tolerance")
         if label in dict(TIMED_CASES):
-            reports[label] = fwd_report(torch, ipa_mod, kname, label, args,
-                                        c_qk, errs, card)
+            reports[label] = fwd_report(torch, ipa_mod, kname, source, label,
+                                        args, c_qk, errs, card)
     return [reports[label] for label in REPORTED_CASES]
 
 
-def fwd_report(torch, ipa_mod, kname: str, label: str, args, c_qk, errs,
-               card: str) -> dict:
+def fwd_report(torch, ipa_mod, kname: str, source: str, label: str, args,
+               c_qk, errs, card: str) -> dict:
     """``kname``'s report at ``label``'s inputs: times through the wrapper
     and alone, the plain version's time, the bounds."""
     F, N, H, C = args[0].shape
@@ -660,7 +684,7 @@ def fwd_report(torch, ipa_mod, kname: str, label: str, args, c_qk, errs,
     report = {
         "name": kname,
         "route": "cuda",
-        "source": f"dynamicpdb_tpu_torch/csrc/{kname}.cu",
+        "source": source,
         "replaces": "dynamicpdb_tpu/ops/pallas/ipa_attention.py:39",
         "case": f"{label}: F={F} N={N} H={H} C={C} Pq={Pq} Pv={Pv} Dz={Dz}",
         "launches": None,  # filled from a run of the path
@@ -701,13 +725,15 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
     the card; then each kernel's time (through its wrapper and alone)
     against its plain version at every case of TIMED_CASES. Returns the
     reports of the tensor-core kernels (release case), then of the wide
-    ones (wide-model case)."""
+    route's (wide-model case: dq and dk/dv on the CUDA cores, the pair
+    kernel on the tensor cores)."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     reports = {}
     for label, shape in IPA_CASES:
         args, c_qk = ipa_inputs(torch, device, seed=10 + len(label), **shape)
-        route = ipa_route(ipa_mod, shape)
+        routes = ipa_routes(ipa_mod, shape)
+        route = "/".join(routes[k] for k in BWD_KERNELS)
         for zero_pad in (True, False):
             case = "pad cotangents 0" if zero_pad else "pad cotangents random"
             inputs, cots = ipa_bwd_inputs(torch, args, c_qk,
@@ -715,7 +741,7 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
             before = ipa_counts(ipa_mod)
             got = ipa_bwd_grads(torch, inputs, c_qk, plain=False)
             torch.cuda.synchronize()
-            check_launched(ipa_mod, before, BWD_KERNELS, route,
+            check_launched(ipa_mod, before, BWD_KERNELS, routes,
                            f"{label}, {case}")
             want = ipa_bwd_grads(torch, inputs, c_qk, plain=True)
             pad_scale = None if zero_pad else ipa_bwd_pad_scale(torch, inputs,
@@ -759,15 +785,14 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
     kw = dict(c_b=math.sqrt(1.0 / 3), inf=1e5)
     out = []
     for label, shape in TIMED_CASES:
-        prefix = ("ipa_attention_" if ipa_route(ipa_mod, shape) == "tc"
-                  else "ipa_attention_wide_")
+        routes = ipa_routes(ipa_mod, shape)
         args, c_qk = ipa_inputs(torch, device, seed=20, **shape)
         inputs, _ = ipa_bwd_inputs(torch, args, c_qk, zero_pad=False, seed=4)
         F, N, H, C = args[0].shape
         Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
         costs = ipa_bwd_cost(F, N, H, C, Pq, Pv, Dz)
         for kname, (replaces, _) in BWD_KERNELS.items():
-            name = kname.replace("ipa_attention_", prefix)
+            name, source = ipa_kernel_name(ipa_mod, kname, routes)
             kernel = getattr(ipa_mod, kname)
             plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
                                                    "ipa_bwd") + "_plain")
@@ -777,8 +802,7 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
                                20)
             ops, nbytes, ew_ops = costs[kname]
             rep = {
-                "name": name, "route": "cuda",
-                "source": f"dynamicpdb_tpu_torch/csrc/{prefix}bwd.cu",
+                "name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "case": f"{label}: F={F} N={N} H={H} C={C} Pq={Pq} Pv={Pv} "
                         f"Dz={Dz}",
@@ -821,12 +845,58 @@ def rect_block(args, rows):
     return block, mask
 
 
+# the query-row axis of each query-side input of the backward kernels
+BWD_ROW_AXIS = {"q": 1, "q_pts": 1, "bias": 0, "pair_z": 0, "mask": 1,
+                "lse": 2, "dvec": 2, "g_o": 1, "g_opt": 1, "g_pair": 1}
+
+
+def rect_bwd_block(ipa_mod, inputs, rows):
+    """The query side of the 15 backward inputs cut to ``rows``
+    (BWD_ROW_AXIS), the keys whole."""
+    q0, q1 = rows
+    return tuple(
+        t.narrow(BWD_ROW_AXIS[n], q0, q1 - q0).contiguous()
+        if n in BWD_ROW_AXIS else t
+        for n, t in zip(ipa_mod.BWD_INPUT_NAMES, inputs))
+
+
+def rect_rows_equal(torch, ipa_mod, full, c_qk, rows, label: str):
+    """Each IPA kernel's outputs on the query rows ``rows`` of the window
+    ``full`` (a rectangular call against every key) equal the square
+    call's rows bit for bit: the forward's four outputs, dq, dqp and the
+    dhw rows, dbias and dpz (dk, dv and their points are sums over the
+    rows, not rows)."""
+    q0, q1 = rows
+    block, key_mask = rect_block(full, rows)
+    sq = ipa_mod.ipa_attention_fwd(*full, c_qk)
+    rect = ipa_mod.ipa_attention_fwd(*block, c_qk, key_mask=key_mask)
+    pairs = {n: (a[:, :, q0:q1] if n == "lse" else a[:, q0:q1], b)
+             for n, a, b in zip(("o", "o_pt", "o_pair", "lse"), sq, rect)}
+    inputs, _ = ipa_bwd_inputs(torch, full, c_qk, zero_pad=False, seed=6)
+    kw = dict(c_qk=c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5)
+    cut = rect_bwd_block(ipa_mod, inputs, rows)
+    for fn, names in (("ipa_attention_bwd_dq", ("dq", "dqp", "dhw_rows")),
+                      ("ipa_attention_bwd_pair", ("dbias", "dpz"))):
+        sq = getattr(ipa_mod, fn)(*inputs, **kw)
+        rect = getattr(ipa_mod, fn)(*cut, key_mask=key_mask, **kw)
+        for n, a, b in zip(names, sq, rect):
+            pairs[n] = (a[:, :, q0:q1] if n == "dhw_rows"
+                        else a[q0:q1] if n in ("dbias", "dpz")
+                        else a[:, q0:q1], b)
+    same = {n: bool(torch.equal(a, b)) for n, (a, b) in pairs.items()}
+    print(f"kernel rectangular {label} rows {q0}-{q1 - 1}: equal to the "
+          f"square call's rows bit for bit: {same}")
+    check(all(same.values()), f"rectangular {label}: rows differ from the "
+          f"square call's: {same}")
+
+
 def rect_kernel_phase(torch, device, card: str, reports: dict):
     """The four IPA kernels on rows ``RECT_ROWS`` of each ``RECT_CASES``
     window against their plain versions (the backward with cotangents zero
-    on pad rows and everywhere), each timed through its wrapper, alone and
-    plain; each result goes into ``reports[kernel name]["rectangular"]``
-    (the tensor-core kernels' reports at "release", the wide ones' at
+    on pad rows and everywhere) and against the square call's rows
+    (rect_rows_equal), each timed through its wrapper, alone and plain;
+    each result goes into ``reports[kernel name]["rectangular"]`` (the
+    tensor-core kernels' reports at "release", the wide route's at
     "wide-model")."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
@@ -834,8 +904,8 @@ def rect_kernel_phase(torch, device, card: str, reports: dict):
     for label, shape in RECT_CASES:
         full, c_qk = ipa_inputs(torch, device, seed=30 + len(label), **shape)
         args, key_mask = rect_block(full, RECT_ROWS)
-        route = ipa_route(ipa_mod, shape)
-        prefix = "ipa_attention_" if route == "tc" else "ipa_attention_wide_"
+        routes = ipa_routes(ipa_mod, shape)
+        fwd_name, _ = ipa_kernel_name(ipa_mod, "ipa_attention_fwd", routes)
         F, Nq, H, C = args[0].shape
         Nk = args[1].shape[1]
         Pq, Pv, Dz = args[3].shape[-2], args[5].shape[-2], args[7].shape[-1]
@@ -845,18 +915,18 @@ def rect_kernel_phase(torch, device, card: str, reports: dict):
         before = ipa_counts(ipa_mod)
         got = ipa_mod.ipa_attention_fwd(*args, c_qk, key_mask=key_mask)
         torch.cuda.synchronize()
-        check_launched(ipa_mod, before, ("ipa_attention_fwd",), route,
+        check_launched(ipa_mod, before, ("ipa_attention_fwd",), routes,
                        f"rectangular {label}")
         want = ipa_mod.ipa_attention_plain(*args, c_qk, key_mask=key_mask)
         errs = ipa_errors(got, want, args)
         for name in ("o", "o_pt", "o_pair"):
             e = errs[name]
-            print(f"kernel {prefix}fwd rectangular {case}: {name} max_abs_err "
+            print(f"kernel {fwd_name} rectangular {case}: {name} max_abs_err "
                   f"real rows {e['real']:.3e} (tol {e['tol_real']:.0e}), pad "
                   f"rows {e['pad']:.3e} (tol {e['tol_pad']:.3e})")
             check(e["real"] <= e["tol_real"] and e["pad"] <= e["tol_pad"],
-                  f"{prefix}fwd rectangular {label} {name}: {e}")
-        check(errs["lse"]["ok"], f"{prefix}fwd rectangular {label}: lse "
+                  f"{fwd_name} rectangular {label} {name}: {e}")
+        check(errs["lse"]["ok"], f"{fwd_name} rectangular {label}: lse "
               f"{errs['lse']['max']}")
         streams = [errs[n] for n in ("o", "o_pt", "o_pair")]
         ops, nbytes, ew_ops = ipa_cost(F, Nq, H, C, Pq, Pv, Dz, Nk=Nk)
@@ -865,14 +935,14 @@ def rect_kernel_phase(torch, device, card: str, reports: dict):
             "max_abs_err": max(max(e["real"], e["pad"]) for e in streams),
             "ms": time_ms(torch, lambda: ipa_mod.ipa_attention_fwd(
                 *args, c_qk, key_mask=key_mask), 50),
-            "ms_kernel": ipa_kernel_ms(torch, ipa_mod, f"{prefix}fwd", args,
+            "ms_kernel": ipa_kernel_ms(torch, ipa_mod, fwd_name, args,
                                        c_qk, 50, key_mask=key_mask),
             "plain_ms": time_ms(torch, lambda: ipa_mod.ipa_attention_plain(
                 *args, c_qk, key_mask=key_mask), 20),
             **bounds(ops, ew_ops, nbytes),
         }
-        reports[f"{prefix}fwd"]["rectangular"] = rect
-        print(f"kernel {prefix}fwd rectangular {case}: {rect['ms']:.4f} ms "
+        reports[fwd_name]["rectangular"] = rect
+        print(f"kernel {fwd_name} rectangular {case}: {rect['ms']:.4f} ms "
               f"through the wrapper, {rect['ms_kernel']:.4f} ms alone, plain "
               f"{rect['plain_ms']:.4f} ms, bound {rect['bound_ms']:.4f} ms, "
               f"tensor-core bound {rect['tc_bound_ms']:.4f} ms [{card}]")
@@ -885,7 +955,7 @@ def rect_kernel_phase(torch, device, card: str, reports: dict):
             got = ipa_bwd_grads(torch, inputs, c_qk, plain=False,
                                 key_mask=key_mask)
             torch.cuda.synchronize()
-            check_launched(ipa_mod, before, BWD_KERNELS, route,
+            check_launched(ipa_mod, before, BWD_KERNELS, routes,
                            f"rectangular {label}")
             want = ipa_bwd_grads(torch, inputs, c_qk, plain=True,
                                  key_mask=key_mask)
@@ -899,9 +969,10 @@ def rect_kernel_phase(torch, device, card: str, reports: dict):
                 check(err <= tol, f"backward rectangular {label} {cots}: "
                       f"{name} {err} > {tol}")
                 errs_by[(zero_pad, name)] = err
+        rect_rows_equal(torch, ipa_mod, full, c_qk, RECT_ROWS, label)
         costs = ipa_bwd_cost(F, Nq, H, C, Pq, Pv, Dz, Nk=Nk)
         for kname, (_, grads) in BWD_KERNELS.items():
-            name = kname.replace("ipa_attention_", prefix)
+            name, _ = ipa_kernel_name(ipa_mod, kname, routes)
             kernel = getattr(ipa_mod, kname)
             plain = getattr(ipa_mod, kname.replace("ipa_attention_bwd",
                                                    "ipa_bwd") + "_plain")
@@ -1485,8 +1556,8 @@ def batched_rollout_phase(device: str, overrides: list[str], *, lengths,
         dt = time.perf_counter() - t0
         launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
         expect = B * n_steps * (1 if fast else num_t) * per_forward
-        check(launched == (expect, 0), f"batched rollout fast_x0={fast}: IPA "
-              f"forward launches {launched}, expected ({expect}, 0)")
+        check(launched == (expect, 0, 0), f"batched rollout fast_x0={fast}: "
+              f"IPA forward launches {launched}, expected ({expect}, 0, 0)")
         check(atoms.shape == (B, n_steps, pad_to, 37, 3)
               and rigids.shape == (B, n_steps, pad_to, 7),
               f"batched rollout: shapes {tuple(atoms.shape)} "
@@ -1589,8 +1660,8 @@ def picard_phase(device: str, overrides: list[str], *, n_res: int,
         diffuser.reverse = reverse
     per_forward = cfg.model.ipa.num_blocks if device == "cuda" else 0
     expect = ((num_t - 1) ** 2 + 1) * per_forward
-    check(launched == (expect, 0), f"picard: IPA forward launches "
-          f"{launched}, expected ({expect}, 0)")
+    check(launched == (expect, 0, 0), f"picard: IPA forward launches "
+          f"{launched}, expected ({expect}, 0, 0)")
     check(par["n_sweeps"] == num_t - 1, f"picard: {par['n_sweeps']} sweeps, "
           f"expected {num_t - 1}")
     last_sweep = chains["picard"][-(num_t - 1):]
@@ -1659,8 +1730,9 @@ def grad_flow_phase(seed: int = 0, overrides=tuple(SMALL_OVERRIDES),
 
     cfg = config_lib.apply_overrides(config_lib.Config(), list(overrides))
     ipa = cfg.model.ipa
-    route = ipa_route(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
-                                    Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
+    routes = ipa_routes(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
+                                      Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
+    bwd_routes = {k: routes[k] for k in BWD_KERNELS}
     ws = [pad_window(make_window(n_res=n, frame_time=cfg.data.frame_time,
                                  node_dim=cfg.model.node_repr_dim,
                                  edge_dim=cfg.model.edge_repr_dim,
@@ -1679,15 +1751,16 @@ def grad_flow_phase(seed: int = 0, overrides=tuple(SMALL_OVERRIDES),
         if dev == "cuda":
             torch.cuda.synchronize()
         counts = ipa_counts(ipa_mod)
-        launched = tuple(counts[k][route == "wide"] for k in BWD_KERNELS)
-        other = sum(counts[k][route == "tc"] for k in BWD_KERNELS)
+        on, _ = on_routes(counts, bwd_routes)
+        launched = tuple(on.values())
+        other = sum(sum(counts[k]) for k in BWD_KERNELS) - sum(launched)
         grads[dev] = (float(loss), {n: p.grad.detach().cpu()
                                     for n, p in t.model.named_parameters()
                                     if p.grad is not None})
     expect = cfg.model.ipa.num_blocks * len(ws)
     check(launched == (expect,) * 3 and other == 0, f"{label}: backward "
-          f"kernel launches {launched} on the {route} route ({other} on the "
-          f"other), expected {expect} each")
+          f"kernel launches {launched} on the routes {bwd_routes} ({other} "
+          f"on others), expected {expect} each")
     (loss_cpu, g_cpu), (loss_gpu, g_gpu) = grads["cpu"], grads["cuda"]
     check(sorted(g_cpu) == sorted(g_gpu), "grad flow: different parameters "
           "received gradients on the card and on the CPU")
@@ -1712,8 +1785,8 @@ def grad_flow_phase(seed: int = 0, overrides=tuple(SMALL_OVERRIDES),
           f"(worst {worst[1]} at {worst[0]:.3f} of its tol "
           f"{GRAD_FLOW_RTOL:.0e} x max|g|); every IPA projection gradient "
           f"nonzero on the card; backward kernel launches {launched} on the "
-          f"{route} route")
-    return dict(loss_cuda=loss_gpu, loss_cpu=loss_cpu, route=route)
+          f"routes {bwd_routes}")
+    return dict(loss_cuda=loss_gpu, loss_cpu=loss_cpu, routes=routes)
 
 
 def write_manifest(tmp: str, lengths, n_frames: int, seed: int = 0,
@@ -1782,14 +1855,12 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
           "train_cli returned")
     check_received_batches(torch, recorder, cfg, device)
     ipa = cfg.model.ipa
-    route = (ipa_route(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
-                                     Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
-             if on_card else "tc")
-    counts = ipa_counts(ipa_mod)
-    launched = {k: counts[name][route == "wide"] for k, name in
-                zip(("fwd", "dq", "dkv", "pair"), IPA_COUNTERS)}
-    other = sum(c[route == "tc"] for c in counts.values())
-    check(other == 0, f"train: {other} launches off the {route} route")
+    routes = (ipa_routes(ipa_mod, dict(C=ipa.c_hidden, Pq=ipa.no_qk_points,
+                                       Pv=ipa.no_v_points, Dz=ipa.c_z // 4))
+              if on_card else {k: "tc" for k in ipa_mod.WRAPPERS})
+    on, other = on_routes(ipa_counts(ipa_mod), routes)
+    launched = dict(zip(("fwd", "dq", "dkv", "pair"), on.values()))
+    check(other == 0, f"train: {other} launches off the routes {routes}")
     check(trainer.diffuser.so3d.tables.cache_hit, "IGSO3 table "
           f"{trainer.diffuser.so3d.tables.cache_file} was rebuilt, not read "
           "from the cache")
@@ -1828,11 +1899,11 @@ def train_phase(device: str, config: str, extra: list[str], *, lengths,
     print(f"train: {max_steps} steps in {wall:.2f} s of train_cli; steady "
           f"steps (step 1 apart) {steady}; peak "
           f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; kernel "
-          f"launches {launched} on the {route} route ({len(moved)} of "
+          f"launches {launched} on the routes {routes} ({len(moved)} of "
           f"{len(now)} tensors moved){tag}")
     ckpt = os.path.join(cfg.experiment.ckpt_dir, f"step_{exp.step}.ckpt")
     check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
-    return dict(ckpt=ckpt, launched=launched, route=route,
+    return dict(ckpt=ckpt, launched=launched, routes=routes,
                 steps=exp.step_metrics, peak_bytes=peak, wall=wall, batch=B,
                 csv=csv, moved=moved)
 
@@ -1983,41 +2054,63 @@ DP_LOSS_RTOL = 1e-3
 DP_GAP_BOUNDS = {"update": 2e-2, "mu": 5e-3, "nu": 1e-3, "nu_max": 1e-3}
 
 
-def run_commands(cmds: list[tuple[list[str], str]],
-                 timeout: float = 900) -> list[str]:
-    """Each (cmd, label) of ``cmds`` started at once from the repo root,
-    without any launcher variables of this process, each in a session of
-    its own; every one must exit 0 within ``timeout`` s. On a failure or a
-    timeout every one still running is killed whole. Returns their
-    outputs, in order."""
+class Job(NamedTuple):
+    """A command run from the repo root, its label, and what reads its
+    result: ``finish(output, seconds)`` (by default the output)."""
+    cmd: list[str]
+    label: str
+    finish: Callable[[str, float], Any] = lambda out, seconds: out
+
+
+def run_jobs(jobs: list[Job], timeout: float = 900) -> list:
+    """Every job of ``jobs`` started at once from the repo root, without
+    any launcher variables of this process, each in a session of its own;
+    every one must exit 0 within ``timeout`` s. The first failure, or the
+    deadline, kills every one still running, whole. Then each job's
+    ``finish(output, its seconds from the start)``, in order; returns what
+    they return."""
     env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
     env["PYTHONPATH"] = ROOT
-    deadline = time.monotonic() + timeout
-    procs = []
+    t0 = time.monotonic()
+    procs, seconds = [], [None] * len(jobs)
     try:
-        for cmd, label in cmds:
+        for job in jobs:
             log = tempfile.TemporaryFile(mode="w+")
             procs.append((subprocess.Popen(
-                cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
-                text=True, start_new_session=True), label, log))
+                job.cmd, cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True),
+                log))
+        while None in seconds:
+            for i, (proc, log) in enumerate(procs):
+                if seconds[i] is not None or proc.poll() is None:
+                    continue
+                seconds[i] = time.monotonic() - t0
+                if proc.returncode != 0:
+                    log.seek(0)
+                    check(False, f"{jobs[i].label}: exit {proc.returncode}\n"
+                          f"{log.read()[-6000:]}")
+            late = [j.label for j, s in zip(jobs, seconds) if s is None]
+            if late and time.monotonic() - t0 > timeout:
+                raise CheckFailed(f"{late}: no end within {timeout} s")
+            time.sleep(0.2)
         outs = []
-        for proc, label, log in procs:
-            try:
-                proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise CheckFailed(f"{label}: no end within {timeout} s")
+        for _, log in procs:
             log.seek(0)
-            out = log.read()
-            check(proc.returncode == 0, f"{label}: exit {proc.returncode}\n"
-                  f"{out[-6000:]}")
-            outs.append(out)
-        return outs
+            outs.append(log.read())
     finally:
-        for proc, _, log in procs:
+        for proc, log in procs:
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
             log.close()
+    return [job.finish(out, s) for job, out, s in zip(jobs, outs, seconds)]
+
+
+def run_commands(cmds: list[tuple[list[str], str]],
+                 timeout: float = 900) -> list[str]:
+    """``run_jobs`` of each (cmd, label) of ``cmds``; returns their
+    outputs, in order."""
+    return run_jobs([Job(cmd, label) for cmd, label in cmds], timeout)
 
 
 def run_command(cmd: list[str], label: str, timeout: float = 900) -> str:
@@ -2025,76 +2118,111 @@ def run_command(cmd: list[str], label: str, timeout: float = 900) -> str:
     return run_commands([(cmd, label)], timeout)[0]
 
 
-def dp_run(torch, label: str, nproc: int, tmp: str, csv: str, config: str,
-           overrides: list[str], steps: int, card: str, device: str,
-           backend: str = "gloo") -> list[dict]:
+def run_phases(*phases: Generator, timeout: float = 900) -> list:
+    """Phases side by side, each a generator that yields one list of Jobs
+    and takes back their results: every phase's part before its yield,
+    then all their jobs at once (``run_jobs``: most of a job's time is its
+    processes' start-up, which the host's cores take in parallel), then
+    each phase's rest, in order. Returns what each phase returns."""
+    wave = [next(p) for p in phases]
+    results = iter(run_jobs([job for jobs in wave for job in jobs], timeout))
+    out = []
+    for phase, jobs in zip(phases, wave):
+        try:
+            phase.send([next(results) for _ in jobs])
+        except StopIteration as stop:
+            out.append(stop.value)
+        else:
+            raise RuntimeError("a phase yielded more than one list of jobs")
+    return out
+
+
+def dp_run_job(torch, label: str, nproc: int, tmp: str, csv: str,
+               config: str, overrides: list[str], steps: int, card: str,
+               device: str, backend: str = "gloo") -> Job:
     """tools/dp_step.py on ``nproc`` ranks (gloo ranks sharing cuda:0 on
-    one card), over the manifest's batches; prints each rank's step and
-    all-reduce seconds, its peak memory and the memory its parameters and
-    optimizer state hold between steps; returns every rank's result (the
-    whole state rank 0's alone, every rank's digest of it)."""
+    one card), over the manifest's batches. Its finish prints each rank's
+    step and all-reduce seconds, its peak memory and the memory its
+    parameters and optimizer state hold between steps, and returns every
+    rank's result (the whole state rank 0's alone, every rank's digest of
+    it)."""
     out = os.path.join(tmp, label)
     cmd = LAUNCHER + [f"--nproc_per_node={nproc}", "-m",
                       "dynamicpdb_tpu_torch.tools.dp_step", "--config", config,
                       "--device", device, "--backend", backend, "--steps",
                       str(steps), "--csv", csv, "--out", out, "--rank0-state",
                       *overrides]
-    t0 = time.perf_counter()
-    run_command(cmd, f"dp {label}")
-    wall = time.perf_counter() - t0
-    results = [torch.load(os.path.join(out, f"rank{r}.pt"),
-                          weights_only=True) for r in range(nproc)]
-    for res in results:
-        print(f"dp {label}: rank {res['rank']} of {nproc} ({res['mesh']}): "
-              f"step seconds {[round(s, 4) for s in res['seconds']]}, "
-              f"all-reduce seconds {[round(s, 4) for s in res['comm_seconds']]}"
-              f", peak {res['peak_bytes'] / 2**30:.3f} GiB, parameters and "
-              f"optimizer state between steps {res['state_bytes'] / 2**30:.3f}"
-              f" GiB, IPA launches {res['launches']} [{card}]")
-    print(f"dp {label}: {nproc} ranks, {steps} steps in {wall:.2f} s of "
-          f"launcher wall [{card}]")
-    return results
+
+    def finish(_, wall: float) -> list[dict]:
+        results = load_ranks(torch, out, nproc)
+        for res in results:
+            print(f"dp {label}: rank {res['rank']} of {nproc} ({res['mesh']})"
+                  f": step seconds {[round(s, 4) for s in res['seconds']]}, "
+                  f"all-reduce seconds "
+                  f"{[round(s, 4) for s in res['comm_seconds']]}, peak "
+                  f"{res['peak_bytes'] / 2**30:.3f} GiB, parameters and "
+                  f"optimizer state between steps "
+                  f"{res['state_bytes'] / 2**30:.3f} GiB, IPA launches "
+                  f"{res['launches']} [{card}]")
+        print(f"dp {label}: {nproc} ranks, {steps} steps in {wall:.2f} s of "
+              f"launcher wall [{card}]")
+        return results
+
+    return Job(cmd, f"dp {label}", finish)
 
 
-def dp_train_cli(torch, label: str, nproc: int, tmp: str, csv: str,
-                 config: str, overrides: list[str], steps: int, card: str,
-                 device: str, backend: str, data_ranks: int | None = None
-                 ) -> dict:
+def dp_run(*args, **kwargs) -> list[dict]:
+    """``dp_run_job``'s run, alone; every rank's result."""
+    return run_jobs([dp_run_job(*args, **kwargs)])[0]
+
+
+def dp_train_cli_job(torch, label: str, nproc: int, tmp: str, csv: str,
+                     config: str, overrides: list[str], steps: int, card: str,
+                     device: str, backend: str, data_ranks: int | None = None
+                     ) -> Job:
     """train_cli on ``nproc`` ranks under the launcher, with ``--backend``
     and ``--device`` given (gloo ranks sharing cuda:0 on one card), a
-    metrics line a step; returns rank 0's checkpoint (params, optimizer
-    with the moments gathered whole, rng) and its metrics lines (aux).
-    ``data_ranks``: how many ways the global batch splits (default every
-    rank; 1 for a ('data', 'seq') = (1, n) mesh)."""
+    metrics line a step. Its finish returns rank 0's checkpoint (params,
+    optimizer with the moments gathered whole, rng) and its metrics lines
+    (aux). ``data_ranks``: how many ways the global batch splits (default
+    every rank; 1 for a ('data', 'seq') = (1, n) mesh)."""
     data_ranks = nproc if data_ranks is None else data_ranks
     from dynamicpdb_tpu_torch.config import load_yaml
     from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
 
     run_dir = os.path.join(tmp, f"{label}-cli")
     local = load_yaml(config, overrides).experiment.batch_size
-    t0 = time.perf_counter()
-    out = run_command(LAUNCHER + [
+    cmd = LAUNCHER + [
         f"--nproc_per_node={nproc}", "-m", "dynamicpdb_tpu_torch.train_cli",
         "--config", config, "--max-steps", str(steps), "--device", device,
         "--backend", backend, *overrides, f"data.csv_path={csv}",
         f"experiment.ckpt_dir={run_dir}/ckpt",
-        f"experiment.eval_dir={run_dir}/eval", "experiment.log_freq=1"],
-        f"dp {label} train_cli")
-    wall = time.perf_counter() - t0
-    check(f"global_batch={local * data_ranks} ({local} a rank)" in out,
-          f"dp {label}: train_cli did not train on {data_ranks} data ranks")
-    saved = ckpt_lib.load(os.path.join(run_dir, "ckpt", f"step_{steps}.ckpt"))
-    with open(os.path.join(run_dir, "eval", "logs", "metrics.jsonl")) as f:
-        aux = [json.loads(line) for line in f]
-    check(saved["step"] == steps
-          and [a["step"] for a in aux] == list(range(1, steps + 1)),
-          f"dp {label} train_cli: step {saved['step']}, metric lines of "
-          f"steps {[a['step'] for a in aux]}")
-    print(f"dp {label}: train_cli on {nproc} ranks ({backend}, {device}), "
-          f"{steps} steps in {wall:.2f} s of launcher wall: rank 0 wrote "
-          f"step_{steps}.ckpt and {len(aux)} metric lines [{card}]")
-    return dict(params=saved["model"], optimizer=saved["optimizer"],
-                rng=saved["rng"], aux=aux)
+        f"experiment.eval_dir={run_dir}/eval", "experiment.log_freq=1"]
+
+    def finish(out: str, wall: float) -> dict:
+        check(f"global_batch={local * data_ranks} ({local} a rank)" in out,
+              f"dp {label}: train_cli did not train on {data_ranks} data "
+              "ranks")
+        saved = ckpt_lib.load(os.path.join(run_dir, "ckpt",
+                                           f"step_{steps}.ckpt"))
+        with open(os.path.join(run_dir, "eval", "logs", "metrics.jsonl")) as f:
+            aux = [json.loads(line) for line in f]
+        check(saved["step"] == steps
+              and [a["step"] for a in aux] == list(range(1, steps + 1)),
+              f"dp {label} train_cli: step {saved['step']}, metric lines of "
+              f"steps {[a['step'] for a in aux]}")
+        print(f"dp {label}: train_cli on {nproc} ranks ({backend}, {device}),"
+              f" {steps} steps in {wall:.2f} s of launcher wall: rank 0 wrote"
+              f" step_{steps}.ckpt and {len(aux)} metric lines [{card}]")
+        return dict(params=saved["model"], optimizer=saved["optimizer"],
+                    rng=saved["rng"], aux=aux)
+
+    return Job(cmd, f"dp {label} train_cli", finish)
+
+
+def dp_train_cli(*args, **kwargs) -> dict:
+    """``dp_train_cli_job``'s run, alone; rank 0's checkpoint and metrics."""
+    return run_jobs([dp_train_cli_job(*args, **kwargs)])[0]
 
 
 def dp_launches_ok(results: list[dict], cfg, steps: int, label: str,
@@ -2104,11 +2232,13 @@ def dp_launches_ok(results: list[dict], cfg, steps: int, label: str,
     off the card)."""
     B, blocks = cfg.experiment.batch_size, cfg.model.ipa.num_blocks
     per_step = B * blocks if on_card else 0
-    want = dict(launches=2 * per_step * steps, bwd_dq_launches=per_step * steps,
+    from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
+
+    want = dict.fromkeys(ipa_mod.COUNTERS.values(), 0)
+    want.update(launches=2 * per_step * steps,
+                bwd_dq_launches=per_step * steps,
                 bwd_dkv_launches=per_step * steps,
-                bwd_pair_launches=per_step * steps, wide_launches=0,
-                wide_bwd_dq_launches=0, wide_bwd_dkv_launches=0,
-                wide_bwd_pair_launches=0)
+                bwd_pair_launches=per_step * steps)
     for res in results:
         check(res["launches"] == want, f"dp {label}: rank {res['rank']} "
               f"launched {res['launches']}, expected {want}")
@@ -2202,8 +2332,9 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
     must equal, bit for bit, a run without a launcher or mesh; 8d: two
     ranks on a (1, 2) ('data', 'model') mesh at B = 8 each, whose ranks run
     one process's rows and sums: bit-equal to phase 4, and within the
-    bounds of 8a. ``extra``: phase 4's config overrides (a CPU rehearsal
-    runs a small width)."""
+    bounds of 8a. Every run starts at once (``run_jobs``), and the checks
+    follow in that order. ``extra``: phase 4's config overrides (a CPU
+    rehearsal runs a small width)."""
     from dynamicpdb_tpu_torch.config import load_yaml
     from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
     from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
@@ -2221,21 +2352,48 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
                            cfg.experiment.seed).state_dict()
     half = extra + [f"experiment.batch_size={cfg.experiment.batch_size // 2}"]
 
-    # 8a: the real entry point on two ranks, against one process
-    cli = dp_train_cli(torch, "8a", 2, tmp, train["csv"], config, half,
-                       steps, card, rank_device, "gloo")
+    # every run at once; then 8a-8d's checks in order
+    control_out = os.path.join(tmp, "8a-control")
+    base = ["--config", config, "--max-steps", "2", "--device", device,
+            *extra, f"data.csv_path={train['csv']}"]
+    # 8c's two runs: only their checkpoints are compared
+    runs_8c = {"launcher": (LAUNCHER + ["--nproc_per_node=1", "-m"],
+                            ["experiment.mesh_shape=(1,)"]),
+               "plain": ([sys.executable, "-m"], [])}
+    jobs = [
+        # 8a: the real entry point on two ranks, against one process
+        dp_train_cli_job(torch, "8a", 2, tmp, train["csv"], config, half,
+                         steps, card, rank_device, "gloo"),
+        Job([sys.executable, "-m", "dynamicpdb_tpu_torch.tools.dp_step",
+             "--config", config, "--device", rank_device, "--steps",
+             str(steps), "--csv", train["csv"], "--out", control_out, *half],
+            "dp 8a control", lambda _, s: torch.load(
+                os.path.join(control_out, "rank0.pt"), weights_only=True)),
+        # the same steps through dp_step: each rank's launches and memory
+        dp_run_job(torch, "8a", 2, tmp, train["csv"], config, half, steps,
+                   card, rank_device),
+        dp_run_job(torch, "8b", 2, tmp, train["csv"], config,
+                   half + ["experiment.zero_opt_state=false"], steps, card,
+                   rank_device),
+        *[Job(cmd + ["dynamicpdb_tpu_torch.train_cli", *base,
+                     f"experiment.ckpt_dir={tmp}/8c-{name}/ckpt",
+                     f"experiment.eval_dir={tmp}/8c-{name}/eval", *mesh_args],
+              f"dp 8c {name}", lambda out, s: (out, s))
+          for name, (cmd, mesh_args) in runs_8c.items()],
+        dp_run_job(torch, "8d", 2, tmp, train["csv"], config,
+                   extra + ["experiment.mesh_shape=(1,2)",
+                            "experiment.mesh_axes=(data,model)"], steps, card,
+                   rank_device),
+    ]
+    t0 = time.perf_counter()
+    cli, control, a, b, launcher_8c, plain_8c, d = run_jobs(jobs)
+    print(f"dp: {len(jobs)} runs (8a-8d) side by side in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    # 8a
     check(torch.equal(cli["rng"], one["rng"]), "dp 8a: the ranks' noise "
           "generator left one process's")
-    out = os.path.join(tmp, "8a-control")
-    run_command([sys.executable, "-m", "dynamicpdb_tpu_torch.tools.dp_step",
-                 "--config", config, "--device", rank_device, "--steps",
-                 str(steps), "--csv", train["csv"], "--out", out, *half],
-                "dp 8a control")
-    control = torch.load(os.path.join(out, "rank0.pt"), weights_only=True)
     dp_against_one_process(torch, "8a", cli, want, start, control)
-    # the same steps through dp_step: each rank's launches and memory
-    a = dp_run(torch, "8a", 2, tmp, train["csv"], config, half, steps, card,
-               rank_device)
     dp_launches_ok(a, load_yaml(config, half), steps, "8a", on_card)
     check(a[0]["digest"] == a[1]["digest"], "dp 8a: the two ranks' "
           "parameters or moments differ")
@@ -2249,9 +2407,6 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
     print("dp 8a: dp_step's ranks equal train_cli's checkpoint bit for bit")
 
     # 8b
-    b = dp_run(torch, "8b", 2, tmp, train["csv"], config,
-               half + ["experiment.zero_opt_state=false"], steps, card,
-               rank_device)
     diff = max_param_diff(a[0]["params"], b[0]["params"])
     print(f"dp 8b: ZeRO off against on: parameters differ by at most "
           f"{diff:.3e} (bound 0: the AMSGrad update is elementwise)")
@@ -2259,25 +2414,13 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
                                      optimizer=a[0]["optimizer"]))
 
     # 8c
-    base = ["--config", config, "--max-steps", "2", "--device", device,
-            *extra, f"data.csv_path={train['csv']}"]
-    # the two runs side by side: only their checkpoints are compared
-    runs = {"launcher": (LAUNCHER + ["--nproc_per_node=1", "-m"],
-                         ["experiment.mesh_shape=(1,)"]),
-            "plain": ([sys.executable, "-m"], [])}
-    t0 = time.perf_counter()
-    outs = run_commands([(cmd + [
-        "dynamicpdb_tpu_torch.train_cli", *base,
-        f"experiment.ckpt_dir={tmp}/8c-{name}/ckpt",
-        f"experiment.eval_dir={tmp}/8c-{name}/eval", *mesh_args],
-        f"dp 8c {name}") for name, (cmd, mesh_args) in runs.items()])
     print(f"dp 8c: train_cli under the launcher and without, 2 steps each, "
-          f"side by side in {time.perf_counter() - t0:.2f} s [{card}]")
-    check("mesh=Mesh({'data': 1}" in outs[0], "dp 8c: train_cli under the "
-          "launcher did not build the (1,) mesh")
+          f"in {launcher_8c[1]:.2f} and {plain_8c[1]:.2f} s [{card}]")
+    check("mesh=Mesh({'data': 1}" in launcher_8c[0], "dp 8c: train_cli under "
+          "the launcher did not build the (1,) mesh")
     ckpts = {name: ckpt_lib.load(os.path.join(tmp, f"8c-{name}", "ckpt",
                                               "step_2.ckpt"))
-             for name in runs}
+             for name in runs_8c}
     got, ref = ckpts["launcher"], ckpts["plain"]
     for k, v in ref["model"].items():
         check(torch.equal(got["model"][k], v), f"dp 8c: {k} differs between "
@@ -2291,10 +2434,6 @@ def dp_phase(torch, config: str, train: dict, tmp: str, card: str,
           "the run without a launcher, bit for bit")
 
     # 8d
-    d = dp_run(torch, "8d", 2, tmp, train["csv"], config,
-               extra + ["experiment.mesh_shape=(1,2)",
-                        "experiment.mesh_axes=(data,model)"], steps, card,
-               rank_device)
     dp_launches_ok(d, cfg, steps, "8d", on_card)
     check(d[0]["digest"] == d[1]["digest"], "dp 8d: the 'model' ranks' "
           "parameters or moments differ")
@@ -2626,26 +2765,34 @@ def load_ranks(torch, out: str, nproc: int) -> list[dict]:
             for r in range(nproc)]
 
 
-def sp_dp_step(torch, label: str, nproc: int, tmp: str, args: list[str]
-               ) -> list[dict]:
-    """``dp_step_command``'s run; every rank's result."""
-    cmd, out = dp_step_command(tmp, label, nproc, args)
-    t0 = time.perf_counter()
-    run_command(cmd, f"sp {label}")
-    print(f"sp {label}: {nproc} rank(s) in {time.perf_counter() - t0:.2f} s "
-          "of wall")
-    return load_ranks(torch, out, nproc)
+def sp_dp_step_job(torch, label: str, nproc: int, tmp: str,
+                   args: list[str], fault: str | None = None) -> Job:
+    """``dp_step_command``'s run; its finish returns every rank's
+    result."""
+    cmd, out = dp_step_command(tmp, label, nproc, args, fault)
+
+    def finish(_, wall: float) -> list[dict]:
+        print(f"sp {label}: {nproc} rank(s) in {wall:.2f} s of wall")
+        return load_ranks(torch, out, nproc)
+
+    return Job(cmd, f"sp {label}", finish)
+
+
+def sp_dp_step(*args, **kwargs) -> list[dict]:
+    """``sp_dp_step_job``'s run, alone; every rank's result."""
+    return run_jobs([sp_dp_step_job(*args, **kwargs)])[0]
 
 
 def sp_train_phase(torch, config: str, train: dict, tmp: str, card: str,
-                   device: str = "cuda", extra: tuple = ()) -> dict:
+                   device: str = "cuda", extra: tuple = ()) -> Generator:
     """9a, in float32 compute and moments: train_cli on two gloo ranks
     sharing cuda:0 on a ('data', 'seq') = (1, 2) mesh, on phase 4's
     manifest, batch (each rank its rows of every window), seed and steps,
     against one process through tools/dp_step.py (whose steps equal
-    train_cli's bit for bit, phase 8a); then the same split steps through
+    train_cli's bit for bit, phase 8a); and the same split steps through
     dp_step with each planted fault of SP_FAULTS. The ranks' generator
-    must be phase 4's."""
+    must be phase 4's. A phase of ``run_phases``: the runs side by side;
+    returns train_cli's result."""
     from dynamicpdb_tpu_torch.config import load_yaml
     from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
     from dynamicpdb_tpu_torch.train import checkpoint as ckpt_lib
@@ -2659,36 +2806,31 @@ def sp_train_phase(torch, config: str, train: dict, tmp: str, card: str,
     names = [n for n, _ in model.named_parameters()]
     start = init_like_jax_(model, cfg.experiment.seed).state_dict()
     del model
-    cli = dp_train_cli(torch, "9a", 2, tmp, train["csv"], config,
-                       extra + SP_MESH, steps, card, rank_device, "gloo",
-                       data_ranks=1)
+    args = ["--config", config, "--device", rank_device, "--steps",
+            str(steps), "--csv", train["csv"], *extra]
+    # train_cli, the reference and the planted faults side by side: only
+    # the last two's states are read
+    cli, (one,), *faults = yield [
+        dp_train_cli_job(torch, "9a", 2, tmp, train["csv"], config,
+                         extra + SP_MESH, steps, card, rank_device, "gloo",
+                         data_ranks=1),
+        sp_dp_step_job(torch, "9a one process", 1, tmp, args),
+        *[sp_dp_step_job(torch, f"9a fault {f}", 2, tmp, args + SP_MESH,
+                         fault=f) for f in SP_FAULTS]]
+    controls = {f: ranks[0] for f, ranks in zip(SP_FAULTS, faults)}
     check(torch.equal(cli["rng"], ckpt_lib.load(train["ckpt"])["rng"]),
           "sp 9a: the ranks' noise generator left one process's")
     rates = [round(a["steps_per_sec"], 4) for a in cli["aux"]]
     print(f"sp 9a: rank 0's steps at {rates} steps/s (train_cli's log; "
           f"phase 4: {[round(a['seconds'], 4) for a in train['steps']]} s a "
           f"step) [float32, {card}]")
-    args = ["--config", config, "--device", rank_device, "--steps",
-            str(steps), "--csv", train["csv"], *extra]
-    # the reference and the planted faults side by side: only their states
-    # are read
-    jobs = {None: dp_step_command(tmp, "9a one process", 1, args)}
-    jobs.update({f: dp_step_command(tmp, f"9a fault {f}", 2, args + SP_MESH,
-                                    fault=f) for f in SP_FAULTS})
-    t0 = time.perf_counter()
-    run_commands([(cmd, f"sp 9a {'one process' if f is None else f}")
-                  for f, (cmd, _) in jobs.items()])
-    print(f"sp 9a: one process and the planted fault runs side by side in "
-          f"{time.perf_counter() - t0:.2f} s of wall")
-    one = load_ranks(torch, jobs[None][1], 1)[0]
-    controls = {f: load_ranks(torch, jobs[f][1], 1)[0] for f in SP_FAULTS}
     sp_against_one_process(torch, "9a (1, 2) data x seq", cli, one, start,
                            names, controls)
     return cli
 
 
 def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
-                     overrides: list[str], device: str = "cuda") -> dict:
+                     overrides: list[str], device: str = "cuda") -> Generator:
     """9b: tools/sp_run.py's rollout on two gloo ranks sharing cuda:0,
     ('seq',) = 2, of phase 3c's first window (256 residues) with its
     weights, full sampler and fast_x0. In float32, from phase 3c's
@@ -2699,7 +2841,8 @@ def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
     float32 frames, averaged over the windows, within SP_BF16_FACTOR times
     that of one process's bfloat16 frames (phase 3c's for the first).
     Each rank's IPA launches (blocks x forwards a frame x frames, at Nq =
-    128 of Nk = 256)."""
+    128 of Nk = 256). A phase of ``run_phases``: one run, and one process's
+    rollouts once it has ended; returns a rank's launches."""
     from dynamicpdb_tpu_torch import config as config_lib
     from dynamicpdb_tpu_torch.diffusion.se3_diffuser import SE3Diffuser
     from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
@@ -2731,16 +2874,6 @@ def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
                            generator=torch.Generator(device=device)
                            .manual_seed(spec_i["seed"]))
 
-    names = ("atom37", "rigids")
-    one32 = [one_process("float32", x) for x in specs]
-    one16 = [(first["atoms"], first["rigids"])] + [
-        one_process("bfloat16", x) for x in specs[1:]]
-
-    def dist_(a, b):
-        return float((a.float().cpu() - b.float().cpu()).abs().max())
-
-    floor = [{n: dist_(a, b) for n, a, b in zip(names, o16, o32)}
-             for o16, o32 in zip(one16, one32)]
     per_rank = (spec["n_steps"] * (spec["num_t"] + 1) * batched["blocks"]
                 if device == "cuda" else 0)
     rank_device = "cuda:0" if device == "cuda" else device
@@ -2752,12 +2885,20 @@ def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
     torch.save(dict(state_dict=batched["state_dict"], rollout_float32=spec,
                     rollout=specs), payload)
     out = os.path.join(tmp, "sp_rollout")
-    t0 = time.perf_counter()
-    run_command(LAUNCHER + [
+    wall, = yield [Job(LAUNCHER + [
         "--nproc_per_node=2", "-m", "dynamicpdb_tpu_torch.tools.sp_run",
         "--device", rank_device, "--backend", "gloo", "--payload", payload,
-        "--out", out, *overrides], "sp 9b rollout")
-    wall = time.perf_counter() - t0
+        "--out", out, *overrides], "sp 9b rollout", lambda _, s: s)]
+    names = ("atom37", "rigids")
+    one32 = [one_process("float32", x) for x in specs]
+    one16 = [(first["atoms"], first["rigids"])] + [
+        one_process("bfloat16", x) for x in specs[1:]]
+
+    def dist_(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+    floor = [{n: dist_(a, b) for n, a, b in zip(names, o16, o32)}
+             for o16, o32 in zip(one16, one32)]
     for r in range(2):
         res = torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
         check(res["mesh"] == {"seq": 2}, f"sp 9b: mesh {res['mesh']}")
@@ -2792,7 +2933,8 @@ def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
             got = res["launches"][part]
             n = len(specs) if part == "rollout" else 1
             check(got["launches"] == n * per_rank
-                  and got["wide_launches"] == 0, f"sp 9b: rank {r} IPA "
+                  and got["wide_launches"] == got["wide_tc_launches"] == 0,
+                  f"sp 9b: rank {r} IPA "
                   f"forward launches {got}, expected {n * per_rank} on the "
                   "tensor-core route")
             print(f"sp 9b {dtype}: rank {r}: {n} x ({spec['n_steps']} frames "
@@ -2808,13 +2950,15 @@ def sp_rollout_phase(torch, batched: dict, tmp: str, card: str,
 
 def sp_long_phase(torch, config: str, tmp: str, card: str,
                   device: str = "cuda", extra: tuple = (),
-                  n_res: int = SP_LONG_N) -> dict:
+                  n_res: int = SP_LONG_N) -> Generator:
     """9c: one train step of an ``n_res``-residue window at release widths
-    (B = 1, remat, bfloat16) through tools/dp_step.py: one process, then two
+    (B = 1, remat, bfloat16) through tools/dp_step.py: one process, and two
     'seq' ranks sharing cuda:0 with the collectives timed; each rank's
     peak memory beside the one process's, the ranks' states equal, the
     step's loss against one process's within bfloat16's precision
-    (SP_BF16_LOSS_RTOL), each rank's IPA launches."""
+    (SP_BF16_LOSS_RTOL), each rank's IPA launches. A phase of
+    ``run_phases``: the two runs side by side (peak memory is each
+    process's own; the seconds are taken under the wave's load)."""
     from dynamicpdb_tpu_torch.config import load_yaml
     from dynamicpdb_tpu_torch.data.dataset import pad_window
     from dynamicpdb_tpu_torch.data.synthetic import make_window
@@ -2833,9 +2977,10 @@ def sp_long_phase(torch, config: str, tmp: str, card: str,
     rank_device = "cuda:0" if device == "cuda" else device
     args = ["--config", config, "--device", rank_device, "--steps", "1",
             "--payload", payload, *extra]
-    runs = {"one": sp_dp_step(torch, "9c one", 1, tmp, args),
-            "seq": sp_dp_step(torch, "9c seq", 2, tmp,
-                              args + ["--time-sp"] + SP_MESH)}
+    runs = dict(zip(("one", "seq"), (yield [
+        sp_dp_step_job(torch, "9c one", 1, tmp, args),
+        sp_dp_step_job(torch, "9c seq", 2, tmp,
+                       args + ["--time-sp"] + SP_MESH)])))
     for label, results in runs.items():
         for res in results:
             sp_s = res["sp_seconds"][0]
@@ -2936,8 +3081,8 @@ def eval_phase(device: str, config: str, ckpt: str, csv: str,
     cfg_gamma = cfg.model.cfg_gamma if cfg.model.cfg_drop_rate > 0.01 else None
     expect = n_prot * blocks * forwards_per_protein(num_t, cfg_gamma)
     check(n_prot == 2, f"eval: {n_prot} rows, not 2")
-    check(counts["ipa_attention_fwd"] == (expect, 0), f"eval: IPA forward "
-          f"launches {counts['ipa_attention_fwd']}, expected ({expect}, 0)")
+    check(counts["ipa_attention_fwd"] == (expect, 0, 0), f"eval: IPA forward "
+          f"launches {counts['ipa_attention_fwd']}, expected ({expect}, 0, 0)")
     for row in res["rows"]:
         bad = {k: v for k, v in row.items() if k != "name"
                and not math.isfinite(v)}
@@ -2958,7 +3103,7 @@ def eval_phase(device: str, config: str, ckpt: str, csv: str,
                                 "--save-dir", ext_dir])
     ext_wall = time.perf_counter() - t0
     launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
-    check(launched == (n_prot * 4 * num_t * blocks, 0), f"eval extension: "
+    check(launched == (n_prot * 4 * num_t * blocks, 0, 0), f"eval extension: "
           f"IPA forward launches {launched}")
     for path in out["extension"]:
         stem = path[:-len("_extension.npz")]
@@ -2997,8 +3142,8 @@ def eval_phase(device: str, config: str, ckpt: str, csv: str,
             seconds.append(time.perf_counter() - t0)  # rows are floats
             n_fwd = blocks * forwards_per_protein(num_t, gamma)
             launched = ipa_counts(ipa_mod)["ipa_attention_fwd"]
-            check(launched == (n_fwd, 0), f"evaluate {label}: IPA forward "
-                  f"launches {launched}, expected ({n_fwd}, 0)")
+            check(launched == (n_fwd, 0, 0), f"evaluate {label}: IPA forward "
+                  f"launches {launched}, expected ({n_fwd}, 0, 0)")
             if aux:
                 with np.load(os.path.join(tmp, label,
                                           f"{w['name']}_pred.npz")) as z:
@@ -3461,16 +3606,17 @@ def fold_card_vs_cpu(seed: int = 2, devices=("cuda", "cpu")) -> None:
 # holds its rows of every [L, L, .] tensor of the PLM, the embedders and
 # the GeoFormer (tools/sp_run.py's "omegafold" part). 10a: the release
 # OmegaFold on phase 5's sequences (256 and 203 residues, the second
-# padded to 224), 3 cycles each with the structure, against one process on
+# padded to 224), 2 cycles each with the structure (one recycle: the
+# depth the smoke's time limit leaves room for), against one process on
 # the same weights and inputs, beside a planted fault ('column'); 10b: one
 # cycle of a 512-residue sequence, one process and a 'seq' rank, each
 # one's peak memory, seconds and collectives.
 SP_OF_LENGTHS = (256, 203)
-SP_OF_CYCLES = 3
+SP_OF_CYCLES = 2
 SP_OF_LONG_N = 512
 # The split against one process, in float32: every residue's arithmetic is
 # one process's, in matmuls over a rank's rows instead of all L, so sums
-# run in another order; two recycles and the structure module then carry
+# run in another order; the recycle and the structure module then carry
 # the differences. Every output (each cycle's node and edge, the
 # confidences, the selected pos14 and pLDDT) is held to SP_OF_RTOL of its
 # scale (its largest magnitude, at least 1). On the CPU (the tiny
@@ -3592,22 +3738,32 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
     torch.save({"omegafold": dict(spec, sequences=seqs)}, main)
     fault = os.path.join(tmp, "sp_of_fault.pt")
     torch.save({"omegafold": dict(spec, sequences=[seqs[0][:1]])}, fault)
-    jobs = {"one": sp_run_command(tmp, "10a one", 1, main, device),
-            "seq": sp_run_command(tmp, "10a seq", 2, main, device),
-            "fault": sp_run_command(tmp, "10a fault", 2, fault, device,
-                                    fault="column")}
-    t0 = time.perf_counter()
-    run_commands([(cmd, f"sp 10a {k}") for k, (cmd, _) in jobs.items()])
-    print(f"sp 10a: one process, the split and the planted fault side by "
-          f"side in {time.perf_counter() - t0:.2f} s of wall [{card}]")
-    res = {k: load_ranks(torch, out, 1 if k == "one" else 2)
+    jobs = {"10a one": sp_run_command(tmp, "10a one", 1, main, device),
+            "10a seq": sp_run_command(tmp, "10a seq", 2, main, device),
+            "10a fault": sp_run_command(tmp, "10a fault", 2, fault, device,
+                                        fault="column")}
+    if long_n:  # 10b: one cycle at long_n, one process and a 'seq' rank
+        long = os.path.join(tmp, "sp_of_10b.pt")
+        torch.save({"omegafold": dict(
+            spec, time_sp=True, sequences=sp_of_inputs(
+                (long_n,), seed + 1, 1, num_pseudo_msa, 0))}, long)
+        jobs.update({f"10b {k}": sp_run_command(tmp, f"10b {k}", nproc, long,
+                                                device)
+                     for k, nproc in (("one", 1), ("seq", 2))})
+    # every run side by side (the seconds below are taken under the wave's
+    # load; peak memory is each process's own)
+    seconds = run_jobs([Job(cmd, f"sp {k}", lambda _, s: s)
+                        for k, (cmd, _) in jobs.items()])
+    for k, s in zip(jobs, seconds):
+        print(f"sp {k}: {s:.2f} s of wall [{card}]")
+    res = {k: load_ranks(torch, out, 1 if k.endswith("one") else 2)
            for k, (_, out) in jobs.items()}
     on_card = device == "cuda"
     blocks = cfg.geo_num_blocks if on_card else 0
     readings = []
-    for i, one in enumerate(res["one"][0]["omegafold"]):
+    for i, one in enumerate(res["10a one"][0]["omegafold"]):
         L = one["edge"].shape[0]
-        ranks = [r["omegafold"][i] for r in res["seq"]]
+        ranks = [r["omegafold"][i] for r in res["10a seq"]]
         readings.append(sp_of_compare(torch, f"10a L={L}", ranks, one,
                                       SP_OF_RTOL))
         for r, got in enumerate(ranks):
@@ -3626,10 +3782,10 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
                   f"{got['peak_bytes'] / 2**30:.3f} GiB (one process "
                   f"{one['peak_bytes'] / 2**30:.3f} GiB) [{card}]")
     # the planted fault: cycle 0's edge of the first sequence
-    one0 = res["one"][0]["omegafold"][0]
+    one0 = res["10a one"][0]["omegafold"][0]
     L = one0["edge"].shape[0]
     edge = torch.cat([r["omegafold"][0]["cycles"][0]["edge_rows"]
-                      for r in res["fault"]])[:L]
+                      for r in res["10a fault"]])[:L]
     err, scale = sp_of_gap(edge, one0["cycles"][0]["edge_rows"])
     print(f"sp 10a planted fault 'column' (the column view from the rank's "
           f"own rows): cycle 0 edge max_abs_err {err:.3e} = "
@@ -3639,32 +3795,18 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
     check(err / scale > SP_OF_FAULT_FACTOR * SP_OF_RTOL, "sp 10a: the "
           f"planted fault reads {err / scale:.3e}, within "
           f"{SP_OF_FAULT_FACTOR} x the bound: the check cannot see it")
-    first = res["seq"][0]["omegafold"][0]  # rank 0, the first sequence
-    out = dict(one=res["one"], seq=res["seq"], readings=readings,
+    first = res["10a seq"][0]["omegafold"][0]  # rank 0, the first sequence
+    out = dict(one=res["10a one"], seq=res["10a seq"], readings=readings,
                fault=err / scale,
                launches={k: sum(s["launches"][k] for s in
-                                res["seq"][0]["omegafold"])
+                                res["10a seq"][0]["omegafold"])
                          for k in ("geom_launches", "node_launches")},
                per_cycle={k: first["launches"][k] // len(first["cycles"])
                           for k in ("geom_launches", "node_launches")})
     if not long_n:
         return out
-    # 10b: one cycle at long_n, one process then a 'seq' rank, timed
-    long = os.path.join(tmp, "sp_of_10b.pt")
-    torch.save({"omegafold": dict(
-        spec, time_sp=True, sequences=sp_of_inputs(
-            (long_n,), seed + 1, 1, num_pseudo_msa, 0))}, long)
-    runs = {}
-    for label, nproc in (("one", 1), ("seq", 2)):
-        cmd, dirname = sp_run_command(tmp, f"10b {label}", nproc, long,
-                                      device)
-        t0 = time.perf_counter()
-        run_command(cmd, f"sp 10b {label}")
-        runs[label] = load_ranks(torch, dirname, nproc)
-        print(f"sp 10b: {label}: {nproc} process(es) in "
-              f"{time.perf_counter() - t0:.2f} s of wall")
-    one = runs["one"][0]["omegafold"][0]
-    ranks = [r["omegafold"][0] for r in runs["seq"]]
+    one = res["10b one"][0]["omegafold"][0]
+    ranks = [r["omegafold"][0] for r in res["10b seq"]]
     out["long"] = sp_of_compare(torch, f"10b L={long_n}", ranks, one,
                                 SP_OF_RTOL)
     for label, got in [("one process", one)] + [
@@ -4080,12 +4222,16 @@ def main() -> int:
         print(f"build: {kname}: {lib.ipa_attention_bwd_smem(which, 256, 8, 12, 32)}"
               " bytes of dynamic shared memory per block at the release shapes")
     w = WIDE_CASE
-    for kname in IPA_COUNTERS:
+    for kname in ipa_mod.WRAPPERS:
         need = ipa_mod.wide_smem(kname, w["C"], 3 * w["Pq"], 3 * w["Pv"],
                                  w["Dz"])
         print(f"build: {kname} wide route: {need} bytes of dynamic shared "
               f"memory per block at the wide case (limit "
               f"{ipa_mod.wide_smem_limit()})")
+    for lib_name, _ in ipa_mod.WIDE_TC_KERNELS.values():
+        query = getattr(ipa_mod._lib(lib_name), f"{lib_name}_smem")
+        print(f"build: {lib_name}: {query(w['C'], w['Pq'], w['Pv'], w['Dz'])}"
+              " bytes of dynamic shared memory per block at the wide case")
     for gname, shp in GEOM_SHAPES.items():
         print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
               f" bytes of dynamic shared memory per block at d={shp['d']}")
@@ -4095,12 +4241,15 @@ def main() -> int:
               f"in {fn}")
     check(len(mma) == 6 and all(mma.values()), "geom_attention.cu: a "
           f"kernel without tensor-core instructions: {mma}")
+    tc_kernels = (("ipa_attention_fwd", "ipa_attn_fwd_kernel"),
+                  ("ipa_attention_bwd", "ipa_bwd_dq_kernel"),
+                  ("ipa_attention_bwd", "ipa_bwd_dkv_kernel"),
+                  ("ipa_attention_bwd", "ipa_bwd_pair_kernel"),
+                  ("ipa_attention_wide_tc_fwd", "ipa_wtc_fwd_kernel"),
+                  ("ipa_attention_wide_tc_bwd", "ipa_wtc_bwd_pair_kernel"))
     ipa_sass = {src: sass_mma_counts(_build.nvcc(), built[src].path)
-                for src in ("ipa_attention_fwd", "ipa_attention_bwd")}
-    for src_name, kernel in (("ipa_attention_fwd", "ipa_attn_fwd_kernel"),
-                             ("ipa_attention_bwd", "ipa_bwd_dq_kernel"),
-                             ("ipa_attention_bwd", "ipa_bwd_dkv_kernel"),
-                             ("ipa_attention_bwd", "ipa_bwd_pair_kernel")):
+                for src in {src for src, _ in tc_kernels}}
+    for src_name, kernel in tc_kernels:
         mma = {fn: n for fn, n in ipa_sass[src_name].items() if kernel in fn}
         for fn, n in sorted(mma.items()):
             print(f"build: {src_name}.cu SASS: {n} tensor-core instructions "
@@ -4173,8 +4322,8 @@ def main() -> int:
                          pad_to=256, tag=f" [{card}]")
         print(f"train: release width through train_cli and serve_cli in "
               f"{time.perf_counter() - t0:.2f} s [{card}]")
-        check(train["route"] == "tc", "train: the release widths left the "
-              "tensor-core kernels")
+        check(set(train["routes"].values()) == {"tc"}, "train: the release "
+              f"widths left the tensor-core kernels: {train['routes']}")
         # phase 11d's export of this checkpoint (its directory closes
         # before phase 11 runs)
         t0 = time.perf_counter()
@@ -4196,16 +4345,18 @@ def main() -> int:
 
         # phase 8: data parallel, against phase 4's one process
         t0 = time.perf_counter()
+        torch.cuda.empty_cache()  # the card's memory for the ranks
         dp_phase(torch, release, train, tmp, card)
         print(f"dp: phase in {time.perf_counter() - t0:.2f} s [{card}]")
 
         # phase 9: sequence parallelism, against phase 4's one process, phase
         # 3c's rollout and one process at N = 1024
         t0 = time.perf_counter()
-        sp_train_phase(torch, release, train, tmp, card)
-        sp_roll = sp_rollout_phase(torch, batched, tmp, card,
-                                   RELEASE_OVERRIDES)
-        sp_long = sp_long_phase(torch, release, tmp, card)
+        torch.cuda.empty_cache()
+        _, sp_roll, sp_long = run_phases(
+            sp_train_phase(torch, release, train, tmp, card),
+            sp_rollout_phase(torch, batched, tmp, card, RELEASE_OVERRIDES),
+            sp_long_phase(torch, release, tmp, card))
         fwd_report["launches_sp_rollout_per_rank"] = sp_roll["launches"]
         for rep, key in zip([fwd_report] + bwd_reports[:3],
                             ("launches", "bwd_dq_launches",
@@ -4224,8 +4375,11 @@ def main() -> int:
             max_steps=3, tmp=tmp, tag=f" [wide, {card}]")
         serve_checkpoint("cuda", release, wide["ckpt"], WIDE_MODEL,
                          n_res=200, pad_to=256, tag=f" [wide, {card}]")
-    check(wide["route"] == "wide", f"train wide: ran the {wide['route']} "
-          "route")
+    want = {"ipa_attention_fwd": "wide_tc", "ipa_attention_bwd_dq": "wide",
+            "ipa_attention_bwd_dkv": "wide",
+            "ipa_attention_bwd_pair": "wide_tc"}
+    check(wide["routes"] == want, f"train wide: ran the routes "
+          f"{wide['routes']}, expected {want}")
     wide_fwd_report["launches"] = wide["launched"]["fwd"]
     for rep, key in zip(bwd_reports[3:], ("dq", "dkv", "pair")):
         rep["launches"] = wide["launched"][key]

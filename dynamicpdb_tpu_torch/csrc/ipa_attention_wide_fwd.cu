@@ -1,12 +1,14 @@
 // Invariant Point Attention forward on the CUDA cores, for sm_90a: the wide
-// route, for the widths past the tensor-core kernel's limits
-// (ipa_attention_fwd.cu: C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32).
+// route, for the widths past both tensor-core kernels' limits
+// (ipa_attention_fwd.cu: C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32;
+// ipa_attention_wide_tc_fwd.cu: C <= 384, Pq*3 <= 40, Pv*3 <= 56,
+// Dz <= 64).
 //
 // Replaces the Pallas TPU kernel dynamicpdb_tpu/ops/pallas/ipa_attention.py
-// _ipa_attn_kernel (:39), which names no width limit, wherever the
-// tensor-core kernel cannot take the widths (e.g. model.ipa.c_z = 256 gives
-// Dz = 64, model.ipa.c_hidden = 384 gives C = 384). For every frame f,
-// head h and query row i:
+// _ipa_attn_kernel (:39), which names no width limit, wherever neither
+// tensor-core kernel can take the widths (e.g. model.ipa.c_hidden = 512
+// gives C = 512, model.ipa.c_z = 512 Dz = 128). For every frame f, head h
+// and query row i:
 //
 //   logit_ij = c_qk q_i.k_j + c_b bias_ijh
 //              - 0.5 w_h (|qp_i|^2 + |kp_j|^2 - 2 qp_i.kp_j)

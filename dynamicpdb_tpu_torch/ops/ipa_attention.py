@@ -13,17 +13,26 @@ runs three kernels that replace the Pallas backward kernels:
   ``ipa_attention_bwd_pair`` <- ``_bwd_pair_kernel`` (:338): dbias, dpz
 
 For CUDA tensors each wrapper launches a hand-written kernel, built by
-``nvcc`` and loaded with ``ctypes``, on one of two routes that
-``kernel_route`` picks from the widths: within ``TILE_LIMITS`` the
-tensor-core kernels (``csrc/ipa_attention_fwd.cu``,
-``csrc/ipa_attention_bwd.cu``), past them the CUDA-core kernels of the
-wide route (``csrc/ipa_attention_wide_fwd.cu``,
-``csrc/ipa_attention_wide_bwd.cu``), which take any width whose tiles fit
-a block's shared memory. For CPU tensors a wrapper runs its plain
-version, the same function in plain PyTorch. Nothing falls back from one
-to the other: a CUDA call that no kernel can take raises. Because the CPU
-runs the same autograd function with the plain inner calls, the CPU tests
-reach all of the wiring the card runs (D, the layouts, the dhw reduction).
+``nvcc`` and loaded with ``ctypes``, on the route that ``kernel_route``
+picks for that wrapper from the widths:
+
+  ``"tc"``       within ``TILE_LIMITS``, all four wrappers: the tensor-core
+                 kernels (``csrc/ipa_attention_fwd.cu``,
+                 ``csrc/ipa_attention_bwd.cu``);
+  ``"wide_tc"``  past them and within ``WIDE_TC_LIMITS``, the forward and
+                 the pair wrapper only: the wide tensor-core kernels
+                 (``csrc/ipa_attention_wide_tc_fwd.cu``,
+                 ``csrc/ipa_attention_wide_tc_bwd.cu``);
+  ``"wide"``     every other width whose tiles fit a block's shared memory:
+                 the CUDA-core kernels (``csrc/ipa_attention_wide_fwd.cu``,
+                 ``csrc/ipa_attention_wide_bwd.cu``); dq and dk/dv take
+                 them at every width past ``TILE_LIMITS``.
+
+For CPU tensors a wrapper runs its plain version, the same function in
+plain PyTorch. Nothing falls back from one to the other: a CUDA call that
+no kernel can take raises. Because the CPU runs the same autograd
+function with the plain inner calls, the CPU tests reach all of the wiring
+the card runs (D, the layouts, the dhw reduction).
 
 Bounds on an H100 (float32 outside the tensor cores, 67 TFLOP/s): the
 forward does about 1.2 kFLOP per (frame, head, query, key), the three
@@ -35,7 +44,10 @@ every N x N quantity in shared memory and registers, so traffic stays near
 the compulsory bytes. All four tensor-core kernels run their products on
 the tensor cores (3xTF32, float32 accuracy), which bounds their widths:
 C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``). The wide
-kernels run every operation on the CUDA cores in float32.
+tensor-core forward and pair kernels split C over eight warps of one
+16-row tile and take C <= 384, Pq*3 <= 40, Pv*3 <= 56, Dz <= 64
+(``WIDE_TC_LIMITS``); the wide CUDA-core kernels run every operation in
+float32.
 
 Rectangular calls. Every function takes ``key_mask``: the queries are
 then Nq rows (q, q_pts, ``mask`` [F, Nq] and the cotangents) against Nk
@@ -46,12 +58,13 @@ calls them so with one rank's rows against every key. Without
 ``key_mask`` (None) the call is square: Nq = Nk = N, and the kernels take
 ``mask`` as both masks, which is the call they took before the split.
 
+Each (wrapper, route) has a launch counter of this process (``COUNTERS``):
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
-``bwd_pair_launches`` count the tensor-core kernels' launches of this
-process, ``wide_launches``, ``wide_bwd_dq_launches``,
-``wide_bwd_dkv_launches`` and ``wide_bwd_pair_launches`` the wide
-kernels'; a run that must show the kernels were on its path sets them to
-0 before and reads them after.
+``bwd_pair_launches`` for the tensor-core kernels, ``wide_tc_launches``
+and ``wide_tc_bwd_pair_launches`` for the wide tensor-core ones, and
+``wide_launches``, ``wide_bwd_dq_launches``, ``wide_bwd_dkv_launches`` and
+``wide_bwd_pair_launches`` for the CUDA-core ones; a run that must show the
+kernels were on its path sets them to 0 before and reads them after.
 """
 from __future__ import annotations
 
@@ -69,6 +82,8 @@ wide_launches = 0
 wide_bwd_dq_launches = 0
 wide_bwd_dkv_launches = 0
 wide_bwd_pair_launches = 0
+wide_tc_launches = 0
+wide_tc_bwd_pair_launches = 0
 
 INPUT_NAMES = ("q", "k", "v", "q_pts", "k_pts", "v_pts", "bias", "pair_z",
                "mask", "head_weights")
@@ -180,31 +195,50 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """``lib`` (built from ``csrc/<name>.cu``) with every argument of its
-    functions typed (pointers and the stream as c_void_p). The wide
-    libraries export the same functions as the tensor-core ones, under
-    names of their own."""
+    functions typed (pointers and the stream as c_void_p), as ``LIBRARIES``
+    lists them; its error-string function also as ``lib.error_string``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shapes = [i] * 8 + [f] * 3 + [i, p]  # F, Nq, Nk, H, C, Pq, Pv, Dz, ...
-    if name in ("ipa_attention_fwd", "ipa_attention_wide_fwd"):
-        getattr(lib, name).argtypes = [p] * 15 + shapes
-        getattr(lib, name).restype = i
-        err = name.removesuffix("_fwd") + "_error_string"
-        n_smem_args = 4
-        if name == "ipa_attention_wide_fwd":
-            lib.ipa_attention_wide_smem_limit.argtypes = []
-            lib.ipa_attention_wide_smem_limit.restype = ctypes.c_longlong
-    else:
-        for kind, n_out in (("dq", 3), ("dkv", 4), ("pair", 2)):
-            getattr(lib, f"{name}_{kind}").argtypes = [p] * (16 + n_out) + shapes
-            getattr(lib, f"{name}_{kind}").restype = i
-        err = f"{name}_error_string"
-        n_smem_args = 5
+    launchers, smem, n_smem_args, err = LIBRARIES[name]
+    for launcher, n_ptrs in launchers.items():
+        getattr(lib, launcher).argtypes = [p] * n_ptrs + shapes
+        getattr(lib, launcher).restype = i
+    if name == "ipa_attention_wide_fwd":
+        lib.ipa_attention_wide_smem_limit.argtypes = []
+        lib.ipa_attention_wide_smem_limit.restype = ctypes.c_longlong
     getattr(lib, err).argtypes = [i]
     getattr(lib, err).restype = ctypes.c_char_p
-    getattr(lib, f"{name}_smem").argtypes = [i] * n_smem_args
-    getattr(lib, f"{name}_smem").restype = ctypes.c_longlong
+    getattr(lib, smem).argtypes = [i] * n_smem_args
+    getattr(lib, smem).restype = ctypes.c_longlong
     lib.error_string = getattr(lib, err)
     return lib
+
+
+# each library: ({launcher: its pointer arguments (inputs with the key mask,
+# then outputs)}, its shared-memory query, that query's int arguments, its
+# error-string function)
+_BWD = {"dq": 19, "dkv": 20, "pair": 18}
+LIBRARIES = {
+    "ipa_attention_fwd": ({"ipa_attention_fwd": 15}, "ipa_attention_fwd_smem",
+                          4, "ipa_attention_error_string"),
+    "ipa_attention_bwd": ({f"ipa_attention_bwd_{k}": n
+                           for k, n in _BWD.items()},
+                          "ipa_attention_bwd_smem", 5,
+                          "ipa_attention_bwd_error_string"),
+    "ipa_attention_wide_tc_fwd": ({"ipa_attention_wide_tc_fwd": 15},
+                                  "ipa_attention_wide_tc_fwd_smem", 4,
+                                  "ipa_attention_wide_tc_error_string"),
+    "ipa_attention_wide_tc_bwd": ({"ipa_attention_wide_tc_bwd_pair": 18},
+                                  "ipa_attention_wide_tc_bwd_smem", 4,
+                                  "ipa_attention_wide_tc_bwd_error_string"),
+    "ipa_attention_wide_fwd": ({"ipa_attention_wide_fwd": 15},
+                               "ipa_attention_wide_fwd_smem", 4,
+                               "ipa_attention_wide_error_string"),
+    "ipa_attention_wide_bwd": ({f"ipa_attention_wide_bwd_{k}": n
+                                for k, n in _BWD.items()},
+                               "ipa_attention_wide_bwd_smem", 5,
+                               "ipa_attention_wide_bwd_error_string"),
+}
 
 
 def _device_of(fn: str, tensors) -> torch.device:
@@ -234,6 +268,17 @@ def _check_kernel_inputs(fn: str, named: dict, expected: dict, C: int):
 # the widest operands the tensor-core kernels (all four) take: C, Pq*3,
 # Pv*3 and Dz (csrc/ipa_tile.cuh kMaxC, kMaxP3q, kMaxP3v, kMaxDz)
 TILE_LIMITS = {"C": 256, "Pq*3": 32, "Pv*3": 48, "Dz": 32}
+# the widest the wide tensor-core kernels take (csrc/ipa_wide_tile.cuh)
+WIDE_TC_LIMITS = {"C": 384, "Pq*3": 40, "Pv*3": 56, "Dz": 64}
+WRAPPERS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
+            "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
+# each wrapper's kernel on the wide tensor-core route: (library, launcher)
+WIDE_TC_KERNELS = {
+    "ipa_attention_fwd": ("ipa_attention_wide_tc_fwd",
+                          "ipa_attention_wide_tc_fwd"),
+    "ipa_attention_bwd_pair": ("ipa_attention_wide_tc_bwd",
+                               "ipa_attention_wide_tc_bwd_pair"),
+}
 # each wrapper's kernel on the wide route: (library, launcher, shared-memory
 # query, its kernel index or None)
 WIDE_KERNELS = {
@@ -266,17 +311,24 @@ def wide_smem_limit() -> int:
     return int(_lib("ipa_attention_wide_fwd").ipa_attention_wide_smem_limit())
 
 
+def _within(widths: dict, limits: dict) -> bool:
+    return all(widths[k] <= limits[k] for k in limits)
+
+
 def kernel_route(fn: str, C: int, P3q: int, P3v: int, Dz: int,
                  smem=wide_smem, smem_limit=wide_smem_limit) -> str:
     """The kernel that wrapper ``fn`` launches on the card at these widths:
-    ``"tc"`` (the tensor-core kernel) within ``TILE_LIMITS``, else
-    ``"wide"`` (the CUDA-core kernel) when its tiles, as
-    ``smem(fn, C, P3q, P3v, Dz)`` counts them, fit the ``smem_limit()``
-    bytes of shared memory a block may use; past that, ValueError naming
-    the widths and the limit."""
+    ``"tc"`` (the tensor-core kernel) within ``TILE_LIMITS``; for the
+    forward and the pair wrapper ``"wide_tc"`` (the wide tensor-core
+    kernel, ``WIDE_TC_KERNELS``) within ``WIDE_TC_LIMITS``; else ``"wide"``
+    (the CUDA-core kernel) when its tiles, as ``smem(fn, C, P3q, P3v, Dz)``
+    counts them, fit the ``smem_limit()`` bytes of shared memory a block
+    may use; past that, ValueError naming the widths and the limit."""
     widths = dict(zip(TILE_LIMITS, (C, P3q, P3v, Dz)))
-    if all(widths[k] <= TILE_LIMITS[k] for k in TILE_LIMITS):
+    if _within(widths, TILE_LIMITS):
         return "tc"
+    if fn in WIDE_TC_KERNELS and _within(widths, WIDE_TC_LIMITS):
+        return "wide_tc"
     need, limit = smem(fn, C, P3q, P3v, Dz), smem_limit()
     if need > limit:
         shown = ", ".join(f"{k}={v}" for k, v in widths.items())
@@ -287,28 +339,50 @@ def kernel_route(fn: str, C: int, P3q: int, P3v: int, Dz: int,
     return "wide"
 
 
+# (wrapper, route) -> the module's launch counter of that kernel
+COUNTERS = {
+    ("ipa_attention_fwd", "tc"): "launches",
+    ("ipa_attention_bwd_dq", "tc"): "bwd_dq_launches",
+    ("ipa_attention_bwd_dkv", "tc"): "bwd_dkv_launches",
+    ("ipa_attention_bwd_pair", "tc"): "bwd_pair_launches",
+    ("ipa_attention_fwd", "wide_tc"): "wide_tc_launches",
+    ("ipa_attention_bwd_pair", "wide_tc"): "wide_tc_bwd_pair_launches",
+    ("ipa_attention_fwd", "wide"): "wide_launches",
+    ("ipa_attention_bwd_dq", "wide"): "wide_bwd_dq_launches",
+    ("ipa_attention_bwd_dkv", "wide"): "wide_bwd_dkv_launches",
+    ("ipa_attention_bwd_pair", "wide"): "wide_bwd_pair_launches",
+}
+
+
+def launcher(fn: str, route: str) -> tuple[str, str]:
+    """(library, launcher) of wrapper ``fn``'s kernel on ``route``."""
+    if route == "tc":
+        return ("ipa_attention_fwd" if fn == "ipa_attention_fwd"
+                else "ipa_attention_bwd"), fn
+    if route == "wide_tc":
+        return WIDE_TC_KERNELS[fn]
+    return WIDE_KERNELS[fn][:2]
+
+
 def _launch(fn: str, route: str, ptrs, F, Nq, Nk, H, C, Pq, Pv, Dz, c_qk,
             c_b, inf, device):
-    """Launch wrapper ``fn``'s kernel on ``route`` on the current stream;
-    ``ptrs``: the inputs with the key mask after the mask, then the
-    outputs."""
-    if route == "tc":
-        lib = _lib("ipa_attention_fwd" if fn == "ipa_attention_fwd"
-                   else "ipa_attention_bwd")
-        launcher = fn
-    else:
-        lib_name, launcher, _, _ = WIDE_KERNELS[fn]
-        lib = _lib(lib_name)
+    """Launch wrapper ``fn``'s kernel on ``route`` on the current stream and
+    count it; ``ptrs``: the inputs with the key mask after the mask, then
+    the outputs."""
+    lib_name, name = launcher(fn, route)
+    lib = _lib(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, launcher)(
+    rc = getattr(lib, name)(
         *ptrs, F, Nq, Nk, H, C, Pq, Pv, Dz, float(c_qk), float(c_b),
         float(inf),
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{launcher} launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(rc).decode()} (code {rc})")
+    counter = COUNTERS[(fn, route)]
+    globals()[counter] += 1
 
 
 def input_shapes(F, Nq, Nk, H, C, P3q, P3v, Dz, points) -> dict:
@@ -339,7 +413,6 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     (o [F, Nq, H, C], o_pt [F, Nq, H, Pv, 3], o_pair [F, Nq, H, Dz],
     lse [F, H, Nq]), all float32.
     """
-    global launches, wide_launches
     args = (q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask, head_weights)
     key_mask = mask if key_mask is None else key_mask
     device = _device_of("ipa_attention", args + (key_mask,))
@@ -365,10 +438,6 @@ def ipa_attention_fwd(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     operands = args[:9] + (key_mask,) + args[9:] + (o, o_pt, o_pair, lse)
     _launch("ipa_attention_fwd", route, [t.data_ptr() for t in operands],
             F, N, Nk, H, C, Pq, Pv, Dz, c_qk, c_b, inf, device)
-    if route == "tc":
-        launches += 1
-    else:
-        wide_launches += 1
     return o, o_pt, o_pair, lse
 
 
@@ -379,13 +448,12 @@ def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf, key_mask):
     """Run backward kernel ``fn`` (or ``plain`` on the CPU) on the 15
     backward inputs (points flattened to P*3) and the key mask (None: the
     square call); ``out_shapes(F, Nq, Nk, H, C, P3q, P3v, Dz)`` gives the
-    shapes of its outputs. Returns the outputs and the route that ran
-    (``kernel_route``; None on the CPU)."""
+    shapes of its outputs."""
     key_mask = inputs[8] if key_mask is None else key_mask
     device = _device_of(fn, tuple(inputs) + (key_mask,))
     if device.type == "cpu":
         return plain(*inputs, c_qk=c_qk, c_b=c_b, inf=inf,
-                     key_mask=key_mask), None
+                     key_mask=key_mask)
     q, k, q_pts, v_pts, pair_z = (inputs[0], inputs[1], inputs[3], inputs[5],
                                   inputs[7])
     F, N, H, C = q.shape
@@ -407,7 +475,7 @@ def _bwd_call(fn: str, plain, out_shapes, inputs, c_qk, c_b, inf, key_mask):
     operands = tuple(inputs[:9]) + (key_mask,) + tuple(inputs[9:]) + tuple(outs)
     _launch(fn, route, [t.data_ptr() for t in operands],
             F, N, Nk, H, C, P3q // 3, P3v // 3, Dz, c_qk, c_b, inf, device)
-    return tuple(outs), route
+    return tuple(outs)
 
 
 def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
@@ -415,52 +483,34 @@ def ipa_attention_bwd_dq(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
     """Kernel A on the backward inputs (``BWD_INPUT_NAMES``, points
     [F, N, H, P*3], lse and dvec [F, H, Nq]) and the key mask (None: the
     square call): (dq, dqp, dhw_rows [F, H, Nq])."""
-    global bwd_dq_launches, wide_bwd_dq_launches
-    out, route = _bwd_call(
+    return _bwd_call(
         "ipa_attention_bwd_dq", ipa_bwd_dq_plain,
         lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((F, Nq, H, C),
                                                (F, Nq, H, P3q), (F, H, Nq)),
         inputs, c_qk, c_b, inf, key_mask)
-    if route == "tc":
-        bwd_dq_launches += 1
-    elif route == "wide":
-        wide_bwd_dq_launches += 1
-    return out
 
 
 def ipa_attention_bwd_dkv(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
                           key_mask=None):
     """Kernel B on the backward inputs: (dk, dkp, dv, dvp), each [F, Nk, ...]
     and summed over the Nq query rows."""
-    global bwd_dkv_launches, wide_bwd_dkv_launches
-    out, route = _bwd_call(
+    return _bwd_call(
         "ipa_attention_bwd_dkv", ipa_bwd_dkv_plain,
         lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((F, Nk, H, C),
                                                (F, Nk, H, P3q),
                                                (F, Nk, H, C),
                                                (F, Nk, H, P3v)),
         inputs, c_qk, c_b, inf, key_mask)
-    if route == "tc":
-        bwd_dkv_launches += 1
-    elif route == "wide":
-        wide_bwd_dkv_launches += 1
-    return out
 
 
 def ipa_attention_bwd_pair(*inputs, c_qk, c_b=math.sqrt(1.0 / 3), inf=1e5,
                            key_mask=None):
     """Kernel C on the backward inputs: (dbias [Nq, Nk, H],
     dpz [Nq, Nk, Dz])."""
-    global bwd_pair_launches, wide_bwd_pair_launches
-    out, route = _bwd_call(
+    return _bwd_call(
         "ipa_attention_bwd_pair", ipa_bwd_pair_plain,
         lambda F, Nq, Nk, H, C, P3q, P3v, Dz: ((Nq, Nk, H), (Nq, Nk, Dz)),
         inputs, c_qk, c_b, inf, key_mask)
-    if route == "tc":
-        bwd_pair_launches += 1
-    elif route == "wide":
-        wide_bwd_pair_launches += 1
-    return out
 
 
 def backward_inputs(saved, g_o, g_opt, g_pair):

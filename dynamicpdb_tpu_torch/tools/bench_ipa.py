@@ -2,38 +2,47 @@
 their float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_ipa.py [--package DIR] \
-        [--rounds 3] [--reps 50] [--library] [--precision] \
-        [--ablate [KERNEL]]
+        [--case {release,wide-model,wide}] [--rounds 3] [--reps 50] \
+        [--library] [--precision] [--ablate [KERNEL]]
 
-Times the forward (``csrc/ipa_attention_fwd.cu``) and the three kernels of
-the backward (``csrc/ipa_attention_bwd.cu``: dq, dk/dv, pair) at the
-release shapes (F=2, N=256,
-H=8, C=256, Pq=8, Pv=12, Dz=32, last 56 residues masked), through their
-public wrappers (``ms``) and alone (``ms_kernel``, outputs allocated once,
-``chip_smoke.ipa_kernel_ms``), in ``--rounds`` interleaved rounds of
-``--reps`` launches (CUDA events, inputs warm in L2), and prints one JSON
-line per kernel. Inputs, timer and loader are ``chip_smoke.py``'s and
-``tools/bench_geom.py``'s, from this checkout.
+Times the IPA forward and the three kernels of its backward (dq, dk/dv,
+pair) at ``--case``'s shapes: "release" (F=2, N=256, H=8, C=256, Pq=8,
+Pv=12, Dz=32, last 56 residues masked: the tensor-core kernels,
+``csrc/ipa_attention_fwd.cu``, ``csrc/ipa_attention_bwd.cu``),
+"wide-model" (C=384, Pq=12, Dz=64 on the same window,
+``chip_smoke.WIDE_MODEL_CASE``) or "wide" (N=203, H=4, C=384, Pq=12,
+Pv=18, Dz=64, ``chip_smoke.WIDE_CASE``), where each wrapper runs the
+kernel its route gives it (``ops.ipa_attention.kernel_route``: the wide
+tensor-core forward and pair kernel, the CUDA-core dq and dk/dv kernels;
+a package without the wide tensor-core kernels runs the CUDA-core ones).
+Each through its public wrapper (``ms``) and alone (``ms_kernel``, outputs
+allocated once, ``chip_smoke.ipa_kernel_ms``), in ``--rounds`` interleaved
+rounds of ``--reps`` launches (CUDA events, inputs warm in L2); one JSON
+line per kernel, naming its route and launcher. Inputs, timer and loader
+are ``chip_smoke.py``'s and ``tools/bench_geom.py``'s, from this checkout.
 
 ``--package DIR`` times the ``dynamicpdb_tpu_torch`` package under DIR
 instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one run: run this script (as a script, not with
 ``-m``) once against each, e.g. parent, change, change, parent.
 
-``--ablate [KERNEL]`` builds copies of this checkout's kernel KERNEL
-(``ipa_attention_fwd``, the default, ``ipa_attention_bwd_dkv`` or
-``ipa_attention_bwd_pair``) with one part of its loop removed (``ABLATIONS``:
-for the forward the pair-stream loop, all pair_z work, p.v, q.k^T, the
-point distances, p.vp, the key fetches after the first, loads alone, math
-alone; for dk/dv and pair the fetches after the first, the transposed tile,
-the dk and dv products, the dpz update, math alone) and times each alone,
-interleaved with the whole kernel: where the kernel's time goes. The copies
+``--ablate [KERNEL]`` builds copies of this checkout's kernel KERNEL (a
+launcher: ``ipa_attention_fwd``, the default, ``ipa_attention_bwd_dkv``,
+``ipa_attention_bwd_pair``, ``ipa_attention_wide_tc_fwd`` or
+``ipa_attention_wide_tc_bwd_pair``) with one part of its loop removed
+(``ABLATIONS``: for the forwards the pair-stream loop, all pair_z work,
+p.v, q.k^T, the point distances, p.vp, the key fetches after the first,
+loads alone, math alone; for dk/dv and the pair kernels the fetches after
+the first, the tile's products, the dk and dv products, the pair term, the
+dpz update, math alone) and times each alone, interleaved with the whole
+kernel, at ``--case`` (default: "wide-model" for the wide kernels,
+"release" for the others): where the kernel's time goes. The copies
 compute wrong results; they are timed, never checked. The edits are made on
 the source text and fail loudly when the kernel no longer has the lines
 they expect.
 
 ``--save-outputs FILE`` writes the four kernels' outputs at the timed
-inputs (the forward's o, o_pt, o_pair and lse; dq, dqp, dhw rows; dk,
+inputs of ``--case`` (the forward's o, o_pt, o_pair and lse; dq, dqp, dhw rows; dk,
 dkp, dv, dvp; dbias, dpz) to FILE; ``--compare-outputs FILE`` computes
 them again and prints, per output, whether it equals FILE's bit for bit
 and its largest difference: run the parent with the first and this
@@ -41,7 +50,7 @@ checkout with the second to show that a change left the kernels'
 arithmetic as it was.
 
 ``--library`` times the library call beside the kernels at the same
-inputs: torch's ``scaled_dot_product_attention`` on the same logits
+inputs (any ``--case``): torch's ``scaled_dot_product_attention`` on the same logits
 (``sdpa_operands``: the points folded into the dot product, q|qp . k|kp,
 the pair bias and the two norm terms with the mask as a float
 ``attn_mask``, v|vp as the values), its forward for the forward kernel's
@@ -49,8 +58,8 @@ o and o_pt (o_pair has no library call) and its one backward call (dq, dk,
 dv of those operands) for the dq and dk/dv kernels (the pair kernel has
 none). Its outputs are held against the plain version's o and o_pt first.
 
-``--precision`` runs the four kernels in float32 at the release widths with
-one frame and two heads, and holds them, the float32 plain versions and the
+``--precision`` runs the four kernels in float32 at ``--case``'s widths
+(release unless stated) with one frame and two heads, and holds them, the float32 plain versions and the
 emulations below (every product through ``bench_geom.mm_3xtf32`` with the
 tensor cores' round-toward-zero accumulation, or through one TF32 pass,
 ``mm_one_pass``) against the same functions in float64, on real rows.
@@ -80,6 +89,23 @@ else:  # run as a script
 KERNELS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
            "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
 C_B, INF = math.sqrt(1.0 / 3), 1e5
+CASES = ("release", "wide-model", "wide")
+
+
+def case_shape(smoke, case: str) -> dict:
+    """``chip_smoke.ipa_inputs``' keywords of ``case`` (CASES)."""
+    return {"release": {}, "wide-model": smoke.WIDE_MODEL_CASE,
+            "wide": smoke.WIDE_CASE}[case]
+
+
+def route_launcher(mod, fn: str, shape: dict) -> tuple[str, str]:
+    """(route, launcher) of wrapper ``fn`` of package ``mod`` at ``shape``'s
+    widths (release unless stated)."""
+    w = dict(dict(C=256, Pq=8, Pv=12, Dz=32), **shape)
+    route = mod.kernel_route(fn, w["C"], 3 * w["Pq"], 3 * w["Pv"], w["Dz"])
+    prefix = {"tc": "ipa_attention_", "wide_tc": "ipa_attention_wide_tc_",
+              "wide": "ipa_attention_wide_"}[route]
+    return route, fn.replace("ipa_attention_", prefix)
 
 
 # ---------------------------------------------------------------------------
@@ -165,13 +191,13 @@ def ipa_pair_mm(*inputs, c_qk, mm):
             torch.einsum("fhij,fihd->ijd", a, inputs[14]))
 
 
-def precision_inputs(smoke, device, dtype=torch.float32):
-    """Release widths, F = 1, H = 2, N = 256, last 56 residues masked
-    (``chip_smoke.ipa_inputs``): the forward's inputs in ``dtype``, and the
-    backward kernels' 15 inputs with seeded cotangents zero on pad rows,
-    lse and D from the float64 forward (so that every gradient below starts
-    from the same values)."""
-    args, c_qk = smoke.ipa_inputs(torch, device, F=1, H=2, seed=0)
+def precision_inputs(smoke, device, dtype=torch.float32, **widths):
+    """Release widths unless ``widths`` (``chip_smoke.ipa_inputs``' C, Pq,
+    Pv, Dz) say otherwise, F = 1, H = 2, N = 256, last 56 residues masked:
+    the forward's inputs in ``dtype``, and the backward kernels' 15 inputs
+    with seeded cotangents zero on pad rows, lse and D from the float64
+    forward (so that every gradient below starts from the same values)."""
+    args, c_qk = smoke.ipa_inputs(torch, device, F=1, H=2, seed=0, **widths)
     args64 = [a.double() for a in args]
     exact = lambda a, b: a @ b  # noqa: E731
     l = _logits(*(args64[i] for i in (0, 1, 3, 4, 6, 8, 9)), c_qk, exact)
@@ -235,8 +261,9 @@ def emulations() -> dict:
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
-    args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+def timings(smoke, mod, device, rounds: int, reps: int,
+            shape: dict) -> list[dict]:
+    args, c_qk = smoke.ipa_inputs(torch, device, seed=20, **shape)
     inputs, _ = smoke.ipa_bwd_inputs(torch, args, c_qk, zero_pad=False,
                                      seed=4)
     kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
@@ -245,14 +272,16 @@ def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
     for kind in KERNELS[1:]:
         calls[kind] = (inputs, functools.partial(getattr(mod, kind), *inputs,
                                                  **kw))
+    routes = {k: route_launcher(mod, k, shape) for k in KERNELS}
     times = {k: {"ms_kernel": [], "ms": []} for k in KERNELS}
     for _ in range(rounds):
         for kind in KERNELS:
             operands, call = calls[kind]
-            times[kind]["ms_kernel"].append(
-                smoke.ipa_kernel_ms(torch, mod, kind, operands, c_qk, reps))
+            times[kind]["ms_kernel"].append(smoke.ipa_kernel_ms(
+                torch, mod, routes[kind][1], operands, c_qk, reps))
             times[kind]["ms"].append(smoke.time_ms(torch, call, reps))
-    return [{"kernel": k, **t} for k, t in times.items()]
+    return [{"kernel": k, "route": routes[k][0], "launcher": routes[k][1],
+             **t} for k, t in times.items()]
 
 
 def sdpa_operands(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
@@ -284,10 +313,11 @@ def sdpa_outputs(operands, C: int):
     return out[..., :C], out[..., C:].unflatten(-1, (-1, 3))
 
 
-def library_timings(smoke, device, rounds: int, reps: int) -> list[dict]:
+def library_timings(smoke, device, rounds: int, reps: int,
+                    shape: dict) -> list[dict]:
     """The SDPA call's forward and its one backward at ``timings``'
     inputs, after holding its o and o_pt against the plain version's."""
-    args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+    args, c_qk = smoke.ipa_inputs(torch, device, seed=20, **shape)
     C = args[0].shape[-1]
     from dynamicpdb_tpu_torch.ops.ipa_attention import ipa_attention_plain
 
@@ -317,9 +347,9 @@ def library_timings(smoke, device, rounds: int, reps: int) -> list[dict]:
              "ms": bwd}]
 
 
-def kernel_outputs(smoke, mod, device) -> dict:
+def kernel_outputs(smoke, mod, device, shape: dict) -> dict:
     """The four kernels' outputs at ``timings``' inputs, on the host."""
-    args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+    args, c_qk = smoke.ipa_inputs(torch, device, seed=20, **shape)
     inputs, _ = smoke.ipa_bwd_inputs(torch, args, c_qk, zero_pad=False,
                                      seed=4)
     kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
@@ -335,8 +365,9 @@ def kernel_outputs(smoke, mod, device) -> dict:
     return out
 
 
-def precision(smoke, mod, device) -> dict:
-    fwd_args, bwd_inputs, c_qk = precision_inputs(smoke, device)
+def precision(smoke, mod, device, shape: dict) -> dict:
+    widths = {k: v for k, v in shape.items() if k in ("C", "Pq", "Pv", "Dz")}
+    fwd_args, bwd_inputs, c_qk = precision_inputs(smoke, device, **widths)
     o, o_pt, o_pair, _ = mod.ipa_attention_fwd(*fwd_args, c_qk)
     kw = dict(c_qk=c_qk, c_b=C_B, inf=INF)
     dq = mod.ipa_attention_bwd_dq(*bwd_inputs, **kw)[0]
@@ -388,7 +419,48 @@ _PAIR_NO_FETCH = (("    fetch(it + 1, it + 1 < n_it);",
                    "    fetch(it + 1, false);"),)
 _PAIR_NO_DPZ = (("          dpa[n][e][m] = fmaf(a[n][e], gq[e >> 1][m], "
                  "dpa[n][e][m]);", "          ;"),)
+# the same parts of the wide tensor-core forward and pair kernel
+_W_SKIP_PAIR_LOOP = (
+    ("      cp_async_wait<1>();  // this step's pair_z (the next key tile may "
+     "wait)\n      __syncwarp();\n", "@@cut_start"),
+    ("      __syncwarp();  // every lane has read the rows", "@@cut_end"))
+_W_SKIP_PZ = (
+    ("  if (pair_warp) fetch_pz(spz, pz, i0 + 8 * rr, 0, c0, L);", ""),
+    ("      if (step + 1 < n_steps)\n        fetch_pz(spz, pz, i0 + 8 * rr, "
+     "j0 + kKeys, c0, L);", ""),
+    ("    if (pair_warp)\n      cp_async_wait<1>();\n    else\n      "
+     "cp_async_wait<0>();", "    cp_async_wait<0>();"))
+_W_SKIP_DIST = (("      point_dist(dist, qpa, qsq, s.c.ksq, kt);",
+                 "      for (int e = 0; e < 8; ++e) dist[e >> 2][e & 3] = 0.f;"),)
+_W_SKIP_FETCH = (("                   f, h, i0, j0 + kKeys, step + 1 < n_steps, "
+                  "L);", "                   f, h, i0, j0 + kKeys, false, L);"),)
+_WP_NO_TILE = (("        kt.k, col, L);\n", "        kt.k, col, L);\n" + _ZERO_X),
+               ("        kt.v, col, L);\n", "        kt.v, col, L);\n" + _ZERO_X))
+_WP_NO_PAIR_TERM = (("        a = fmaf(gp[m], z[jj * kMaxDz + 4 * m], a);",
+                     "        ;"),)
 ABLATIONS = {
+    "ipa_attention_wide_tc_fwd": {
+        "all": (),
+        "no pair-stream loop": _W_SKIP_PAIR_LOOP,
+        "no pair_z work": _W_SKIP_PAIR_LOOP + _W_SKIP_PZ,
+        "no p.v": _SKIP_PV,
+        "no q.k^T": _SKIP_QK,
+        "no point distances": _W_SKIP_DIST,
+        "no p.vp": _SKIP_PT,
+        "no key fetch after the first": _W_SKIP_FETCH,
+        "loads only": (_W_SKIP_PAIR_LOOP + _SKIP_PV + _SKIP_QK + _W_SKIP_DIST
+                       + _SKIP_PT),
+        "math only": _W_SKIP_FETCH + _W_SKIP_PAIR_LOOP + _W_SKIP_PZ,
+    },
+    "ipa_attention_wide_tc_bwd_pair": {
+        "all": (),
+        "no q, g_o reload": _PAIR_NO_RELOAD,
+        "no key-tile fetch after the first": _PAIR_NO_FETCH,
+        "math only": _PAIR_NO_RELOAD + _PAIR_NO_FETCH,
+        "no q.k^T, g_o.v^T": _WP_NO_TILE,
+        "no pair term": _WP_NO_PAIR_TERM,
+        "no dpz update": _PAIR_NO_DPZ,
+    },
     "ipa_attention_fwd": {
         "all": (),
         "no pair-stream loop": _SKIP_PAIR_LOOP,
@@ -433,13 +505,13 @@ def ablated_source(src: str, edits) -> str:
     return src
 
 
-def ablation(smoke, device, rounds: int, reps: int, kind: str) -> dict:
-    """{variant: [ms alone per round]} of kernel ``kind`` at the release
-    shapes."""
+def ablation(smoke, device, rounds: int, reps: int, kind: str,
+             shape: dict) -> dict:
+    """{variant: [ms alone per round]} of launcher ``kind`` at ``shape``'s
+    inputs."""
     from dynamicpdb_tpu_torch.ops import _build, ipa_attention
 
-    lib_name = ("ipa_attention_fwd" if kind == "ipa_attention_fwd"
-                else "ipa_attention_bwd")
+    lib_name = kind if kind.endswith("_fwd") else kind[:kind.rindex("_")]
     src = open(os.path.join(_build.CSRC_DIR, lib_name + ".cu")).read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="ablate_", dir=_build.BUILD_DIR)
@@ -461,15 +533,17 @@ def ablation(smoke, device, rounds: int, reps: int, kind: str) -> dict:
             if proc.returncode:
                 raise RuntimeError(f"ablation {name}: nvcc failed:\n{log}")
             libs[name] = ipa_attention._typed(ctypes.CDLL(so), lib_name)
-        args, c_qk = smoke.ipa_inputs(torch, device, seed=20)
+        args, c_qk = smoke.ipa_inputs(torch, device, seed=20, **shape)
         operands = args
-        if kind != "ipa_attention_fwd":
+        if not kind.endswith("_fwd"):
             operands, _ = smoke.ipa_bwd_inputs(torch, args, c_qk,
                                                zero_pad=False, seed=4)
         times = {name: [] for name in libs}
         for _ in range(rounds):
             for name, lib in libs.items():
-                variant = types.SimpleNamespace(_lib=lambda _, lib=lib: lib)
+                variant = types.SimpleNamespace(
+                    _lib=lambda _, lib=lib: lib,
+                    input_shapes=ipa_attention.input_shapes)
                 times[name].append(smoke.ipa_kernel_ms(
                     torch, variant, kind, operands, c_qk, reps))
         return times
@@ -481,6 +555,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", default=bench_geom.ROOT,
                     help="directory holding the dynamicpdb_tpu_torch to time")
+    ap.add_argument("--case", choices=CASES, default=None,
+                    help="the shapes (default release; for --ablate of a "
+                    "wide kernel, wide-model)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--precision", action="store_true")
@@ -497,31 +574,34 @@ def main(argv=None) -> int:
     card = smoke.card_line()
     device = torch.device("cuda")
     label = os.path.relpath(os.path.abspath(args.package), bench_geom.ROOT)
-    for row in timings(smoke, mod, device, args.rounds, args.reps):
-        print(json.dumps({"package": label, "card": card, **row}))
+    case = args.case or ("wide-model" if "_wide" in (args.ablate or "")
+                         else "release")
+    shape = case_shape(smoke, case)
+    head = {"package": label, "card": card, "case": case}
+    for row in timings(smoke, mod, device, args.rounds, args.reps, shape):
+        print(json.dumps({**head, **row}))
     if args.library:
-        for row in library_timings(smoke, device, args.rounds, args.reps):
-            print(json.dumps({"package": label, "card": card, **row}))
+        for row in library_timings(smoke, device, args.rounds, args.reps,
+                                   shape):
+            print(json.dumps({**head, **row}))
     if args.save_outputs:
-        torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
+        torch.save(kernel_outputs(smoke, mod, device, shape),
+                   args.save_outputs)
     if args.compare_outputs:
-        got = kernel_outputs(smoke, mod, device)
+        got = kernel_outputs(smoke, mod, device, shape)
         want = torch.load(args.compare_outputs, weights_only=True)
-        print(json.dumps({"package": label, "card": card,
-                          "against": args.compare_outputs,
+        print(json.dumps({**head, "against": args.compare_outputs,
                           "bit_identical": {k: bool(torch.equal(got[k], w))
                                             for k, w in want.items()},
                           "max_abs_diff": {k: float((got[k] - w).abs().max())
                                            for k, w in want.items()}}))
     if args.precision:
-        print(json.dumps({"package": label, "card": card,
-                          "max_abs_err_vs_float64":
-                          precision(smoke, mod, device)}))
+        print(json.dumps({**head, "max_abs_err_vs_float64":
+                          precision(smoke, mod, device, shape)}))
     if args.ablate:
         for name, t in ablation(smoke, device, args.rounds, args.reps,
-                                args.ablate).items():
-            print(json.dumps({"package": label, "card": card,
-                              "kernel": args.ablate, "without": name,
+                                args.ablate, shape).items():
+            print(json.dumps({**head, "kernel": args.ablate, "without": name,
                               "ms_kernel": t}))
     return 0
 

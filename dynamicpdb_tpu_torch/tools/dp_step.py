@@ -52,9 +52,7 @@ from dynamicpdb_tpu_torch.train.experiment import Trainer
 from dynamicpdb_tpu_torch.train_cli import make_run_mesh
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
-IPA_COUNTERS = ("launches", "bwd_dq_launches", "bwd_dkv_launches",
-                "bwd_pair_launches", "wide_launches", "wide_bwd_dq_launches",
-                "wide_bwd_dkv_launches", "wide_bwd_pair_launches")
+IPA_COUNTERS = tuple(ipa_mod.COUNTERS.values())
 
 
 def rank_batches(args, cfg, mesh, trainer):

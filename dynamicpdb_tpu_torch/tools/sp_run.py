@@ -75,9 +75,7 @@ from dynamicpdb_tpu_torch.sampling.reverse import rollout
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
 from dynamicpdb_tpu_torch.weights import randomize_
 
-IPA_COUNTERS = ("launches", "bwd_dq_launches", "bwd_dkv_launches",
-                "bwd_pair_launches", "wide_launches", "wide_bwd_dq_launches",
-                "wide_bwd_dkv_launches", "wide_bwd_pair_launches")
+IPA_COUNTERS = tuple(ipa_mod.COUNTERS.values())
 
 
 GEOM_COUNTERS = ("geom_launches", "node_launches")

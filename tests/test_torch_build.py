@@ -10,7 +10,8 @@ import pytest
 
 from dynamicpdb_tpu_torch.ops import _build
 
-SOURCES = ("geom_attention", "ipa_attention_fwd", "ipa_attention_bwd")
+SOURCES = ("geom_attention", "ipa_attention_fwd", "ipa_attention_bwd",
+           "ipa_attention_wide_tc_fwd", "ipa_attention_wide_tc_bwd")
 
 
 @pytest.fixture
@@ -30,7 +31,7 @@ def _append(path, text="\n// edited\n"):
 @pytest.mark.parametrize("name", SOURCES)
 def test_shared_header_edit_changes_library_path(csrc, name):
     """tf32_mma.cuh reaches every source, the IPA ones through
-    ipa_tile.cuh: an edit to it moves all three libraries."""
+    ipa_tile.cuh: an edit to it moves every library."""
     assert "tf32_mma.cuh" in _build.sources(name)
     before = _build.library_path(name)
     _append(csrc / "tf32_mma.cuh")
@@ -43,6 +44,15 @@ def test_ipa_header_edit_moves_only_its_users(csrc, name):
     _append(csrc / "ipa_tile.cuh")
     moved = _build.library_path(name) != before
     assert moved == name.startswith("ipa_"), (name, _build.sources(name))
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_wide_header_edit_moves_only_the_wide_tensor_core_kernels(csrc,
+                                                                  name):
+    before = _build.library_path(name)
+    _append(csrc / "ipa_wide_tile.cuh")
+    moved = _build.library_path(name) != before
+    assert moved == name.startswith("ipa_attention_wide_tc_"), name
 
 
 def test_unincluded_header_and_source_edits(csrc):

@@ -55,38 +55,76 @@ def test_mixed_devices_raise():
 
 WRAPPERS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
             "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
+# the wrappers with a kernel on the wide tensor-core route
+WIDE_TC = ("ipa_attention_fwd", "ipa_attention_bwd_pair")
+
+
+def _smem(asked):
+    """A stand-in for the wide library's shared-memory query: 200,000 bytes
+    below C = 1024, 300,000 from there; ``asked`` records the wrappers."""
+    def smem(name, C, P3q, P3v, Dz):
+        asked.append(name)
+        return 200_000 if C < 1024 else 300_000
+    return smem
+
+
+def _limit():
+    return 232_448
 
 
 @pytest.mark.parametrize("fn", WRAPPERS)
 def test_kernel_route(fn):
     """Which kernel a wrapper launches on the card, decided on the CPU: the
-    tensor-core kernel within TILE_LIMITS (the wide library is not asked),
-    the wide kernel past any one of them while its tiles fit a block's
-    shared memory, and a ValueError naming the widths and the limit past
-    that. ``smem`` and ``limit`` stand in for the wide library's
-    shared-memory queries."""
+    tensor-core kernel within TILE_LIMITS (the wide library is not asked);
+    past any one of them, within WIDE_TC_LIMITS, the wide tensor-core
+    kernel for the forward and the pair wrapper (not asked either) and the
+    CUDA-core kernel for dq and dk/dv while its tiles fit a block's shared
+    memory; and a ValueError naming the widths and the limit past that.
+    ``smem`` and ``limit`` stand in for the wide library's shared-memory
+    queries."""
     asked = []
-
-    def smem(name, C, P3q, P3v, Dz):
-        asked.append(name)
-        return 200_000 if C < 1024 else 300_000
-
-    def limit():
-        return 232_448
-
+    smem = _smem(asked)
     for widths in ((256, 24, 36, 32), (8, 12, 18, 4)):  # release, tiny
         assert ipa_mod.kernel_route(fn, *widths, smem=smem,
-                                    smem_limit=limit) == "tc"
+                                    smem_limit=_limit) == "tc"
     assert asked == []
     # model.ipa.c_z=256 (Dz 64), c_hidden=384, no_qk_points=12 (Pq*3 36),
     # no_v_points=18 (Pv*3 54), and all of them at once
+    want = "wide_tc" if fn in WIDE_TC else "wide"
     for widths in ((256, 24, 36, 64), (384, 24, 36, 32), (256, 36, 36, 32),
                    (256, 24, 54, 32), (384, 36, 54, 64)):
         assert ipa_mod.kernel_route(fn, *widths, smem=smem,
-                                    smem_limit=limit) == "wide"
-    assert asked == [fn] * 5
+                                    smem_limit=_limit) == want
+    assert asked == ([] if fn in WIDE_TC else [fn] * 5)
     with pytest.raises(ValueError, match=r"C=1024, Pq\*3=24, Pv\*3=36, "
                        r"Dz=32 is past .* needs 300000 bytes .* above the "
                        r"232448"):
         ipa_mod.kernel_route(fn, 1024, 24, 36, 32, smem=smem,
-                             smem_limit=limit)
+                             smem_limit=_limit)
+
+
+@pytest.mark.parametrize("widths", [(388, 24, 36, 32), (256, 42, 36, 32),
+                                    (256, 24, 60, 32), (256, 24, 36, 68)],
+                         ids=["C388", "Pq14", "Pv20", "Dz68"])
+@pytest.mark.parametrize("fn", WRAPPERS)
+def test_kernel_route_past_the_wide_tensor_core_limits(fn, widths):
+    """One width past ipa_attention.WIDE_TC_LIMITS sends every wrapper to
+    its CUDA-core kernel, which the wide library's shared memory admits."""
+    asked = []
+    assert ipa_mod.kernel_route(fn, *widths, smem=_smem(asked),
+                                smem_limit=_limit) == "wide"
+    assert asked == [fn]
+
+
+def test_every_route_has_a_counter_and_a_library():
+    """Each (wrapper, route) that kernel_route can return names its launch
+    counter and a library that lists its launcher."""
+    for fn in WRAPPERS:
+        for route in ("tc", "wide") + (("wide_tc",) if fn in WIDE_TC else ()):
+            assert isinstance(getattr(ipa_mod, ipa_mod.COUNTERS[(fn, route)]),
+                              int)
+            lib, launcher = ipa_mod.launcher(fn, route)
+            assert launcher in ipa_mod.LIBRARIES[lib][0], (fn, route)
+    assert set(ipa_mod.COUNTERS) == {
+        (fn, r) for fn in WRAPPERS for r in ("tc", "wide")} | {
+        (fn, "wide_tc") for fn in WIDE_TC}

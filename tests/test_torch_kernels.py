@@ -68,8 +68,10 @@ def cuda():
 # that every row's first key steps are all pad and its online softmax
 # starts from a running max near -1e5. "wide" and "wide-dz" are past the
 # tensor-core kernels' widths (ipa_attention.TILE_LIMITS), so they run the
-# wide route's CUDA-core kernels: C = 384, Pq = 12, Pv = 18, Dz = 64 at
-# N = 203, and the release widths with Dz = 64 (model.ipa.c_z = 256).
+# wide route (the forward and the pair kernel on the wide tensor-core
+# kernels, dq and dk/dv on the CUDA-core ones): C = 384, Pq = 12, Pv = 18,
+# Dz = 64 at N = 203, and the release widths with Dz = 64
+# (model.ipa.c_z = 256).
 RELEASE_WIDTHS = dict(H=8, C=256, Pq=8, Pv=12, Dz=32)
 IPA_SHAPES = {
     "release": dict(N=256, masked=56, **RELEASE_WIDTHS),
@@ -86,20 +88,18 @@ IPA_SHAPES = {
     # chip_smoke's phase 4b model: c_z 256, c_hidden 384, no_qk_points 12
     "wide-model": dict(N=256, masked=56,
                        **dict(RELEASE_WIDTHS, C=384, Pq=12, Dz=64)),
+    # past ipa_attention.WIDE_TC_LIMITS: all four on the CUDA cores
+    "past-wide-tc": dict(N=37, H=2, C=392, Pq=14, Pv=20, Dz=72, masked=5),
 }
 
 
 def counter(fn, shape):
     """The launch counter that wrapper ``fn`` moves at ``shape``'s widths:
-    the tensor-core kernel's, or the wide kernel's past TILE_LIMITS."""
+    its kernel's on the route ``kernel_route`` picks for it."""
     widths = dict(RELEASE_WIDTHS, **shape)
     route = ipa_mod.kernel_route(fn, widths["C"], 3 * widths["Pq"],
                                  3 * widths["Pv"], widths["Dz"])
-    name = {"ipa_attention_fwd": "launches",
-            "ipa_attention_bwd_dq": "bwd_dq_launches",
-            "ipa_attention_bwd_dkv": "bwd_dkv_launches",
-            "ipa_attention_bwd_pair": "bwd_pair_launches"}[fn]
-    return name if route == "tc" else f"wide_{name}"
+    return ipa_mod.COUNTERS[(fn, route)]
 
 
 BWD_FNS = ("ipa_attention_bwd_dq", "ipa_attention_bwd_dkv",
@@ -131,12 +131,18 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     d, c_qk = make_inputs(4, C=6)  # C not a multiple of 4
     with pytest.raises(ValueError, match="multiple of 4"):
         ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
-    # past one entry of ops.ipa_attention.TILE_LIMITS the wide kernel runs
-    for over in (dict(C=260), dict(Pq=11), dict(Pv=17), dict(Dz=33)):
+    # past one entry of ops.ipa_attention.TILE_LIMITS the wide tensor-core
+    # kernel runs, past one of WIDE_TC_LIMITS the CUDA-core one
+    for over, count in ((dict(C=260), "wide_tc_launches"),
+                        (dict(Pq=11), "wide_tc_launches"),
+                        (dict(Pv=17), "wide_tc_launches"),
+                        (dict(Dz=33), "wide_tc_launches"),
+                        (dict(C=388), "wide_launches"),
+                        (dict(Dz=65), "wide_launches")):
         d, c_qk = make_inputs(4, **over)
-        before = ipa_mod.wide_launches
+        before = getattr(ipa_mod, count)
         ipa_mod.ipa_attention(*_torch(d, cuda), c_qk)
-        assert ipa_mod.wide_launches == before + 1, over
+        assert getattr(ipa_mod, count) == before + 1, over
     # past the wide kernel's shared memory (its tiles at C = 2048) it raises
     d, c_qk = make_inputs(4, C=2048)
     with pytest.raises(ValueError, match=f"above the {ipa_mod.wide_smem_limit()}"):
@@ -153,11 +159,21 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 @pytest.mark.cuda
 def test_wide_route_shared_memory_from_the_library(cuda):
     """kernel_route reads the wide kernels' shared memory from their
-    library: the release widths stay on the tensor cores, the wide case
-    fits every wide kernel, and C = 2048 fits none."""
+    library: the release widths stay on the tensor cores; at the wide case
+    the forward and the pair wrapper take the wide tensor-core kernels
+    (their libraries' own query fits a block) and dq and dk/dv the
+    CUDA-core ones; C = 388 sends all four to the CUDA-core kernels, which
+    fit the wide case; C = 2048 fits none."""
     for fn in ("ipa_attention_fwd",) + BWD_FNS:
         assert ipa_mod.kernel_route(fn, 256, 24, 36, 32) == "tc"
-        assert ipa_mod.kernel_route(fn, 384, 36, 54, 64) == "wide"
+        wide_tc = fn in ipa_mod.WIDE_TC_KERNELS
+        assert ipa_mod.kernel_route(fn, 384, 36, 54, 64) == (
+            "wide_tc" if wide_tc else "wide")
+        if wide_tc:
+            lib = ipa_mod.WIDE_TC_KERNELS[fn][0]
+            query = getattr(ipa_mod._lib(lib), f"{lib}_smem")
+            assert 0 < query(384, 13, 18, 64) <= 232_448
+        assert ipa_mod.kernel_route(fn, 388, 36, 54, 64) == "wide"
         assert 0 < ipa_mod.wide_smem(fn, 384, 36, 54, 64) <= ipa_mod.wide_smem_limit()
         with pytest.raises(ValueError, match="shared memory"):
             ipa_mod.kernel_route(fn, 2048, 24, 36, 32)
@@ -235,7 +251,8 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
     # past one entry of ops.ipa_attention.TILE_LIMITS each runs its wide
-    # kernel; past the wide kernels' shared memory (C = 2048) each raises
+    # route's kernel; past the wide kernels' shared memory (C = 2048) each
+    # raises
     small = dict(N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3)
     for over in (dict(C=260), dict(Pq=11), dict(Pv=17), dict(Dz=33),
                  dict(C=2048)):
@@ -252,7 +269,7 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
                 with pytest.raises(ValueError, match="shared memory"):
                     fn(*inputs, c_qk=c_qk)
                 continue
-            count = f"wide_{counter(name, {})}"
+            count = counter(name, shape)
             before = getattr(ipa_mod, count)
             fn(*inputs, c_qk=c_qk)
             assert getattr(ipa_mod, count) == before + 1, (name, over)
