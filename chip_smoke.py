@@ -10,7 +10,8 @@ Phases, each printing its own lines:
      each, all started together, with ptxas's registers and spills; the
      machine code of the GeoFormer kernels, the IPA forward and the three
      IPA backward kernels, and the wide route's tensor-core forward and
-     pair kernels must hold tensor-core instructions (cuobjdump -sass);
+     three backward kernels must hold tensor-core instructions
+     (cuobjdump -sass);
   2. kernels: the IPA forward and its three backward kernels against their
      plain PyTorch versions on the card, at the release widths and N = 5,
      16, 203, 256 and 611, at the tiny width, and with the first key tile
@@ -19,12 +20,11 @@ Phases, each printing its own lines:
      with errors, tolerances and times; then the same at three cases past
      the tensor-core kernels' widths ("wide": C 384, Pq 12, Pv 18, Dz 64,
      4 heads; "wide-dz": Dz 64; "wide-model": phase 4b's widths and
-     window, C 384, Pq 12, Dz 64, N 256), which must run the wide route:
-     the forward and the pair kernel on the wide tensor-core kernels, dq
-     and dk/dv on the CUDA-core ones (each wrapper's counter of its route
-     moves, no other), and at one past the wide tensor-core kernels'
-     widths ("past-wide-tc": C 392, Pq 14, Pv 20, Dz 72, N 37), where all
-     four run on the CUDA cores; then the rectangular calls of sequence
+     window, C 384, Pq 12, Dz 64, N 256), which must run all four on the
+     wide tensor-core kernels (each wrapper's counter of its route moves,
+     no other), and at one past the wide tensor-core kernels' widths
+     ("past-wide-tc": C 392, Pq 14, Pv 20, Dz 72, N 37), where all four
+     run on the CUDA cores; then the rectangular calls of sequence
      parallelism on each route: rows 128-255 (the 56 pad rows among them)
      of the release and wide-model windows against all 256 keys, every
      kernel against its plain version and against the square call's rows
@@ -56,8 +56,7 @@ Phases, each printing its own lines:
   4b. wide: one IPA block at c_z 256, c_hidden 384, no_qk_points 12 with
      randomised weights, gradients on the card against the CPU; then that
      model at release depth trained 3 steps (B = 2) by train_cli and served
-     by serve_cli, every IPA launch on the wide route (the forward and the
-     pair kernel on the tensor cores, dq and dk/dv on the CUDA cores);
+     by serve_cli, every IPA launch on the wide tensor-core kernels;
   6. eval (run after phase 4, on its checkpoint): eval_cli over the two
      proteins (every metric finite, the IPA launches per protein checked),
      eval_cli --extension 4 --save-dcd (the DCD read back), and evaluate
@@ -550,8 +549,7 @@ def ipa_errors(got, want, args) -> dict:
 # first key steps are all pad and its running max starts near -1e5 before
 # the online softmax rescales it away. The last four are past the
 # tensor-core kernels' widths (ipa_attention.TILE_LIMITS) and run the wide
-# route (the forward and the pair kernel on the wide tensor-core kernels,
-# dq and dk/dv on the CUDA-core ones): "wide" at every width past its limit
+# tensor-core kernels: "wide" at every width past its limit
 # at once (C = 384, Pq*3 = 36, Pv*3 = 54, Dz = 64; 4 heads, 203 residues
 # ending in a ragged tile), "wide-dz" at the release widths with Dz = 64,
 # "wide-model" at the widths and window of phase 4b's model (WIDE_MODEL:
@@ -582,8 +580,8 @@ TIMED_CASES = (("release", {}), ("wide-model", WIDE_MODEL_CASE),
                ("wide", WIDE_CASE))
 REPORTED_CASES = ("release", "wide-model")
 # the IPA kernels' routes (ops/ipa_attention.kernel_route): the tensor-core
-# kernels, the wide tensor-core kernels (forward and pair only) and the wide
-# route's CUDA-core kernels
+# kernels, the wide tensor-core kernels and the wide route's CUDA-core
+# kernels
 IPA_ROUTES = ("tc", "wide_tc", "wide")
 
 
@@ -725,8 +723,7 @@ def bwd_kernel_phase(torch, device, card: str) -> list[dict]:
     the card; then each kernel's time (through its wrapper and alone)
     against its plain version at every case of TIMED_CASES. Returns the
     reports of the tensor-core kernels (release case), then of the wide
-    route's (wide-model case: dq and dk/dv on the CUDA cores, the pair
-    kernel on the tensor cores)."""
+    tensor-core kernels (wide-model case)."""
     from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 
     reports = {}
@@ -4228,10 +4225,10 @@ def main() -> int:
         print(f"build: {kname} wide route: {need} bytes of dynamic shared "
               f"memory per block at the wide case (limit "
               f"{ipa_mod.wide_smem_limit()})")
-    for lib_name, _ in ipa_mod.WIDE_TC_KERNELS.values():
-        query = getattr(ipa_mod._lib(lib_name), f"{lib_name}_smem")
-        print(f"build: {lib_name}: {query(w['C'], w['Pq'], w['Pv'], w['Dz'])}"
-              " bytes of dynamic shared memory per block at the wide case")
+        need = ipa_mod.wide_smem(kname, w["C"], 3 * w["Pq"], 3 * w["Pv"],
+                                 w["Dz"], kernels=ipa_mod.WIDE_TC_KERNELS)
+        print(f"build: {ipa_mod.launcher(kname, 'wide_tc')[1]}: {need} bytes "
+              "of dynamic shared memory per block at the wide case")
     for gname, shp in GEOM_SHAPES.items():
         print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
               f" bytes of dynamic shared memory per block at d={shp['d']}")
@@ -4246,6 +4243,8 @@ def main() -> int:
                   ("ipa_attention_bwd", "ipa_bwd_dkv_kernel"),
                   ("ipa_attention_bwd", "ipa_bwd_pair_kernel"),
                   ("ipa_attention_wide_tc_fwd", "ipa_wtc_fwd_kernel"),
+                  ("ipa_attention_wide_tc_bwd", "ipa_wtc_bwd_dq_kernel"),
+                  ("ipa_attention_wide_tc_bwd", "ipa_wtc_bwd_dkv_kernel"),
                   ("ipa_attention_wide_tc_bwd", "ipa_wtc_bwd_pair_kernel"))
     ipa_sass = {src: sass_mma_counts(_build.nvcc(), built[src].path)
                 for src in {src for src, _ in tc_kernels}}
@@ -4375,9 +4374,7 @@ def main() -> int:
             max_steps=3, tmp=tmp, tag=f" [wide, {card}]")
         serve_checkpoint("cuda", release, wide["ckpt"], WIDE_MODEL,
                          n_res=200, pad_to=256, tag=f" [wide, {card}]")
-    want = {"ipa_attention_fwd": "wide_tc", "ipa_attention_bwd_dq": "wide",
-            "ipa_attention_bwd_dkv": "wide",
-            "ipa_attention_bwd_pair": "wide_tc"}
+    want = {k: "wide_tc" for k in ipa_mod.WRAPPERS}
     check(wide["routes"] == want, f"train wide: ran the routes "
           f"{wide['routes']}, expected {want}")
     wide_fwd_report["launches"] = wide["launched"]["fwd"]

@@ -1,9 +1,8 @@
 // Invariant Point Attention backward on the CUDA cores, for sm_90a: the
-// wide route, for the widths past the tensor-core kernels' limits
-// (ipa_attention_bwd.cu: C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32).
-// Kernels A and B take every such width; kernel C only those past the wide
-// tensor-core pair kernel's (ipa_attention_wide_tc_bwd.cu: C <= 384,
-// Pq*3 <= 40, Pv*3 <= 56, Dz <= 64), which takes the rest.
+// wide route, for the widths past both tensor-core routes' limits
+// (ipa_attention_bwd.cu: C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32;
+// ipa_attention_wide_tc_bwd.cu: C <= 384, Pq*3 <= 40, Pv*3 <= 56,
+// Dz <= 64, which takes the widths between).
 //
 // Replaces the three Pallas TPU kernels of
 // dynamicpdb_tpu/ops/pallas/ipa_attention.py that the custom VJP
@@ -40,15 +39,9 @@
 //                      dpz_ij    = sum_{f,h} a_ij g_pair_i
 //
 // The logit is built in the same order of operations as the CUDA-core
-// wide forward (ipa_attention_wide_fwd.cu), so past the wide tensor-core
-// limits, where that forward runs, a_ij agrees with its softmax to the last
-// bit the two compilations allow. Within them the forward is the wide
-// tensor-core kernel (ipa_attention_wide_tc_fwd.cu), whose logit sums C in
-// eight channel slices of 3xTF32 products: A and B's a_ij = exp(l - lse)
-// then differs from its softmax by float32 rounding, which on a pad row
-// (logits near -1e5, where float32 steps by 2^-7) can be a whole step of
-// the logit. chip_smoke.py holds A and B against their plain versions with
-// that forward's lse (BWD_PAD_RTOL covers two such steps).
+// wide forward (ipa_attention_wide_fwd.cu), which is the forward at every
+// width these kernels take, so a_ij agrees with its softmax to the last
+// bit the two compilations allow.
 //
 // Bound on an H100 (2 FLOP per multiply-add): the tile recompute costs
 // about 4 C + 2 Pq*3 + 2 Pv*3 + 2 Dz + 14 FLOP per (f, h, i, j) element;

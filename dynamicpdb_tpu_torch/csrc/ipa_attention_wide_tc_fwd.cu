@@ -81,46 +81,16 @@ namespace {
 
 using namespace ipa_wtc;
 
-constexpr int kPZs = kKeys * 32 + 4;  // a pair warp's tile row: [key][32]
-
 struct SmemF {
   Common c;
-  float* pz;  // [4 pair warps][8 rows][kPZs]
+  float* pz;  // [4 pair warps][8 rows][kPZh]
   __host__ __device__ size_t carve(float* base, const Layout& L) {
     Carver cv(base);
     c.carve(cv, L, kFwdSlots);
-    pz = cv.take((size_t)4 * 8 * kPZs);
+    pz = cv.take((size_t)4 * 8 * kPZh);
     return cv.n;
   }
 };
-
-// pair_z rows r0.. r0 + 7, keys j0.. j0 + 15 and channels c0.. c0 + 31
-// into dst [8][kPZs] ([key][32] a row), by one warp, as one cp.async group;
-// zeros past Nq, Nk and Dz.
-__device__ void fetch_pz(float* dst, const float* __restrict__ pz, int r0,
-                         int j0, int c0, const Layout& L) {
-  const int lane = threadIdx.x & 31;
-  const int nk = min(kKeys, L.Nk - j0);
-  for (int r = 0; r < 8; ++r) {
-    const int i = r0 + r;
-    const float* src = pz + ((size_t)min(i, L.Nq - 1) * L.Nk + j0) * L.Dz;
-    float* d = dst + r * kPZs;
-    if (L.pz_vec) {
-      for (int e = lane; e < kKeys * 8; e += 32) {
-        const int key = e >> 3, x = 4 * (e & 7);
-        const bool ok = i < L.Nq && key < nk && c0 + x < L.Dz;
-        cp_async16(d + key * 32 + x, ok ? src + key * L.Dz + c0 + x : pz, ok);
-      }
-    } else {
-      for (int e = lane; e < kKeys * 32; e += 32) {
-        const int key = e >> 5, x = e & 31;
-        const bool ok = i < L.Nq && key < nk && c0 + x < L.Dz;
-        cp_async4(d + key * 32 + x, ok ? src + key * L.Dz + c0 + x : pz, ok);
-      }
-    }
-  }
-  cp_async_commit();
-}
 
 template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -146,7 +116,7 @@ ipa_wtc_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rr = w & 1, c0 = 32 * ((w >> 1) & 1);  // pair rows, channels
   const float hw = head_w[h];
   const int n_steps = (L.Nk + kKeys - 1) / kKeys;
-  float* spz = s.pz + (w & 3) * 8 * kPZs;  // warps 4-7
+  float* spz = s.pz + (w & 3) * 8 * kPZh;  // warps 4-7
 
   zero_padding(s.c, L);
   fetch_key_step(s.c.tile(0, L), k, v, kp, vp, kmask, bias, f, h, i0, 0,
@@ -253,7 +223,7 @@ ipa_wtc_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int m = 0; m < 8; ++m) opair[m] *= a_rr;
       cp_async_wait<1>();  // this step's pair_z (the next key tile may wait)
       __syncwarp();
-      const float* z = spz + g * kPZs + t;  // zeros past Dz
+      const float* z = spz + g * kPZh + t;  // zeros past Dz
 #pragma unroll
       for (int jj = 0; jj < kKeys; ++jj) {
         const int n = jj >> 3, e = jj & 1;

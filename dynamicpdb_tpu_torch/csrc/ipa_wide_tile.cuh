@@ -1,10 +1,10 @@
-// The tile machinery of the two IPA kernels on the TF32 tensor cores at the
-// widths past ipa_tile.cuh's limits (C > 256, Pq*3 > 32, Pv*3 > 48 or
-// Dz > 32): the forward (ipa_attention_wide_tc_fwd.cu) and the pair
-// backward (ipa_attention_wide_tc_bwd.cu). It reuses ipa_tile.cuh's
-// width-free pieces (the Layout, fragment loads and splits, qk_partial,
-// the exchange slots, ipa_logit) and replaces what that header sizes for
-// C <= 256 and Dz <= 32.
+// The tile machinery of the four IPA kernels on the TF32 tensor cores at
+// the widths past ipa_tile.cuh's limits (C > 256, Pq*3 > 32, Pv*3 > 48 or
+// Dz > 32): the forward (ipa_attention_wide_tc_fwd.cu) and the three
+// kernels of the backward (ipa_attention_wide_tc_bwd.cu: dq, dk/dv, pair).
+// It reuses ipa_tile.cuh's width-free pieces (the Layout, fragment loads
+// and splits, qk_partial, the exchange slots, ipa_logit) and replaces what
+// that header sizes for C <= 256 and Dz <= 32.
 //
 // Why another layout. ipa_tile.cuh gives each 16-row query tile four
 // channel-quarter warps that hold their quarter of q (and in the backward
@@ -12,32 +12,31 @@
 // C = 256. At C = 384 that is 96, and the kernels already sit at 255, so
 // they would spill; at Dz = 64 its pair_z tiles (32 rows x 16 keys x Dz,
 // 131 KB) and C = 384's double-buffered key tiles (99 KB) do not fit 227
-// KB together. Here a block owns ONE 16-row query tile and splits C over
-// EIGHT warps (channel slices of CQ = 8 NT channels, NT = 4 up to C = 256
-// and 6 up to 384): a warp holds 24 registers of q and 24 of o at C = 384,
-// and the block's rows' pair_z step is 16 rows x 16 keys (66 KB at
-// Dz = 64). The price: 16 rows a block, so each block walks the keys for
-// half as many rows, and the exchange sums eight partial products, not
-// four.
+// KB together. Here a block owns ONE 16-row query tile (dk/dv: one 16-key
+// tile) and splits C over EIGHT warps (channel slices of CQ = 8 NT
+// channels, NT = 4 up to C = 256 and 6 up to 384): a warp holds 24
+// registers of q and 24 of o at C = 384, and the block's rows' pair_z
+// step is 16 rows x 16 keys (66 KB at Dz = 64). The price: 16 rows a
+// block, so each block walks the keys for half as many rows, and the
+// exchange sums eight partial products, not four.
 //
 // Widths: C % 4 == 0 up to 384, Pq*3 <= 40, Pv*3 <= 56 (the 36 and 54 of
 // no_qk_points 12 and no_v_points 18 padded to multiples of 8), Dz <= 64.
 // Every loop runs to a compile-time bound; channels past C, point columns
 // past Pq*3 and Pv*3 and pair channels past Dz are zeros in shared memory
 // and in the fragments. Strides read by fragment loads are 4 mod 8 floats
-// (Cs = 8 CQ + 4, 44, 60, 24, 516, 1028), so a warp's 32 lanes hit 32
-// banks.
+// (Cs = 8 CQ + 4, 44, 60, 24, 20, 68, 516, 1028), so a warp's 32 lanes hit
+// 32 banks; dk/dv's pair_z tiles are XOR-swizzled instead.
 //
 // One logit. logit_ij = c_qk q_i.k_j + c_b bias_ijh - 0.5 w_h dist_ij
-// + inf (m_i m_j - 1), built by both kernels with the same code: each
+// + inf (m_i m_j - 1), built by all four kernels with the same code: each
 // warp's slice of q.k^T by ipa_tc::qk_partial, the slices summed in one
 // fixed order (xsum8), the distance by row_norms, key_norms and
-// point_dist, the terms added by ipa_tc::ipa_logit. The pair kernel's a_ij
-// is therefore exp(l - lse) of the forward's own logit. The wide
-// backward's dq and dk/dv kernels (ipa_attention_wide_bwd.cu, CUDA cores)
-// build their logit in another order; on a pad row, whose logits sit near
-// -1e5 where float32 steps by 2^-7, their a_ij may differ from this
-// forward's softmax by a step.
+// point_dist, the terms added by ipa_tc::ipa_logit. The dk/dv kernel
+// computes the tile transposed (keys x rows) with the passes of each
+// product in mma3t's order, so each element comes from the same products
+// in the same order. The backward's a_ij is therefore exp(l - lse) of the
+// forward's own logit, on pad rows too.
 #pragma once
 
 #include <math.h>
@@ -90,6 +89,8 @@ constexpr int kP3vs = kMaxP3v + 4;
 // its small products. The forward carves the first kFwdSlots.
 enum Slot { kQK = 0, kDist = 8, kGV = 9, kGVP = 17, kGPZ = 18, kSlots = 19 };
 constexpr int kFwdSlots = kDist + 1;
+// dq and dk/dv take the pair term in two channel halves: kGPZ, kGPZ + 1
+constexpr int kBwdSlots = kSlots + 1;
 constexpr int kSlotFloats = 8 * 32;
 
 // NT of the kernel instance that takes C
@@ -213,6 +214,38 @@ __device__ void fetch_key_step(const KeyTile& t,
   cp_async_commit();
 }
 
+// A pair warp's pair_z tile row in the row-stationary kernels (forward and
+// dq): [key][32 channels].
+constexpr int kPZh = kKeys * 32 + 4;
+
+// pair_z rows r0.. r0 + 7, keys j0.. j0 + 15 and channels c0.. c0 + 31
+// into dst [8][kPZh], by one warp, as one cp.async group; zeros past Nq,
+// Nk and Dz.
+__device__ void fetch_pz(float* dst, const float* __restrict__ pz, int r0,
+                         int j0, int c0, const Layout& L) {
+  const int lane = threadIdx.x & 31;
+  const int nk = min(kKeys, L.Nk - j0);
+  for (int r = 0; r < 8; ++r) {
+    const int i = r0 + r;
+    const float* src = pz + ((size_t)min(i, L.Nq - 1) * L.Nk + j0) * L.Dz;
+    float* d = dst + r * kPZh;
+    if (L.pz_vec) {
+      for (int e = lane; e < kKeys * 8; e += 32) {
+        const int key = e >> 3, x = 4 * (e & 7);
+        const bool ok = i < L.Nq && key < nk && c0 + x < L.Dz;
+        cp_async16(d + key * 32 + x, ok ? src + key * L.Dz + c0 + x : pz, ok);
+      }
+    } else {
+      for (int e = lane; e < kKeys * 32; e += 32) {
+        const int key = e >> 5, x = e & 31;
+        const bool ok = i < L.Nq && key < nk && c0 + x < L.Dz;
+        cp_async4(d + key * 32 + x, ok ? src + key * L.Dz + c0 + x : pz, ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
 // Rows i0.. i0 + 15 of the (f, h) rows of a query-side [F, Nq, H, D]
 // tensor into dst [kRows][stride], columns [0, width) with zeros past D
 // and past Nq, by the whole block; not committed.
@@ -240,17 +273,22 @@ __device__ __forceinline__ void row_norms(float (&qsq)[2],
   qsq[1] = quad_sum(qsq[1]);
 }
 
-// |kp|^2 of the step's 16 keys into ksq, by lanes 0..15 of one warp (the
-// caller orders the reads with __syncwarp).
-__device__ __forceinline__ void key_norms(float* ksq, const KeyTile& t) {
+// |kp|^2 of 16 keys (kp: [kKeys][kP3qs], zero past P3q) into ksq, by
+// lanes 0..15 of one warp (the caller orders the reads with __syncwarp).
+__device__ __forceinline__ void key_norms(float* ksq, const float* kp) {
   const int lane = threadIdx.x & 31;
   if (lane < kKeys) {
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxP3q; ++c)  // zero past P3q
-      s += t.kp[lane * kP3qs + c] * t.kp[lane * kP3qs + c];
+      s += kp[lane * kP3qs + c] * kp[lane * kP3qs + c];
     ksq[lane] = s;
   }
+}
+
+// |kp|^2 of the step's keys
+__device__ __forceinline__ void key_norms(float* ksq, const KeyTile& t) {
+  key_norms(ksq, t.kp);
 }
 
 // dist[nt] = |qp_i|^2 + |kp_j|^2 - 2 qp_i.kp_j for the step's keys, the
@@ -283,6 +321,57 @@ __device__ __forceinline__ void point_dist(float (&dist)[2][4],
     for (int e = 0; e < 4; ++e)
       dist[n][e] = qsq[e >> 1] + ksq[8 * n + 2 * t4 + (e & 1)] -
                    2.f * cross[n][e];
+}
+
+// g_opt . vp^T of the block's 16 rows (sgopt: [kRows][kP3vs], zeros past
+// Pv*3) and the step's keys in kt, 3xTF32, into slot kGVP.
+__device__ __forceinline__ void gopt_vp(float* xch, const float* sgopt,
+                                        const KeyTile& kt) {
+  float gvp[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gvp[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kNV; ++ks) {
+    float a[4];
+    smem_afrag(a, sgopt, kP3vs, 8 * ks);
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t bh[2], bl[2];
+      bfrag_rows(kt.vp, kP3vs, n, 8 * ks, bh, bl);
+      mma3(gvp[n], ah, al, bh, bl);
+    }
+  }
+  xput(xch, kGVP, gvp);
+}
+
+// A pair warp's sums part[jj] of row g + 8 rr (over this lane's pair
+// channels) for the step's 16 keys, reduce-scattered over the quad: keys
+// (jj & 7) < 4 to lanes t < 2 and the rest to t >= 2, then odd key pairs
+// to odd t; each lane writes the keys of its fragment to slot s.
+__device__ __forceinline__ void quad_scatter(float* xch, int s, int rr,
+                                             const float (&part)[kKeys]) {
+  const int t = threadIdx.x & 3;
+  const bool lo2 = t < 2, even = (t & 1) == 0;
+  float hf[8];
+#pragma unroll
+  for (int sl = 0; sl < 8; ++sl) {
+    const int kl = sl < 4 ? sl : sl + 4, kh = kl + 4;
+    const float send = lo2 ? part[kh] : part[kl];
+    const float recv = __shfl_xor_sync(0xffffffffu, send, 2);
+    hf[sl] = (lo2 ? part[kl] : part[kh]) + recv;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int sl = u < 2 ? u : u + 2, sh = sl + 2;
+    const float send = even ? hf[sh] : hf[sl];
+    const float recv = __shfl_xor_sync(0xffffffffu, send, 1);
+    // key 8 (u / 2) + 2 t + u % 2 of row g + 8 rr
+    xset(xch, s, u >> 1, 2 * rr + (u & 1), (even ? hf[sl] : hf[sh]) + recv);
+  }
 }
 
 // The sum of the eight warps' slices of slot s (kQK or kGV), in the same

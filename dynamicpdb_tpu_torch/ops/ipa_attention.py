@@ -19,14 +19,13 @@ picks for that wrapper from the widths:
   ``"tc"``       within ``TILE_LIMITS``, all four wrappers: the tensor-core
                  kernels (``csrc/ipa_attention_fwd.cu``,
                  ``csrc/ipa_attention_bwd.cu``);
-  ``"wide_tc"``  past them and within ``WIDE_TC_LIMITS``, the forward and
-                 the pair wrapper only: the wide tensor-core kernels
+  ``"wide_tc"``  past them and within ``WIDE_TC_LIMITS``, all four: the
+                 wide tensor-core kernels
                  (``csrc/ipa_attention_wide_tc_fwd.cu``,
                  ``csrc/ipa_attention_wide_tc_bwd.cu``);
   ``"wide"``     every other width whose tiles fit a block's shared memory:
                  the CUDA-core kernels (``csrc/ipa_attention_wide_fwd.cu``,
-                 ``csrc/ipa_attention_wide_bwd.cu``); dq and dk/dv take
-                 them at every width past ``TILE_LIMITS``.
+                 ``csrc/ipa_attention_wide_bwd.cu``).
 
 For CPU tensors a wrapper runs its plain version, the same function in
 plain PyTorch. Nothing falls back from one to the other: a CUDA call that
@@ -43,9 +42,9 @@ in three passes, about 9 (the bytes), 12, 15 and 12 us. The kernels keep
 every N x N quantity in shared memory and registers, so traffic stays near
 the compulsory bytes. All four tensor-core kernels run their products on
 the tensor cores (3xTF32, float32 accuracy), which bounds their widths:
-C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``). The wide
-tensor-core forward and pair kernels split C over eight warps of one
-16-row tile and take C <= 384, Pq*3 <= 40, Pv*3 <= 56, Dz <= 64
+C <= 256, Pq*3 <= 32, Pv*3 <= 48, Dz <= 32 (``TILE_LIMITS``). The four
+wide tensor-core kernels split C over eight warps of one 16-row (dk/dv:
+16-key) tile and take C <= 384, Pq*3 <= 40, Pv*3 <= 56, Dz <= 64
 (``WIDE_TC_LIMITS``); the wide CUDA-core kernels run every operation in
 float32.
 
@@ -60,8 +59,9 @@ calls them so with one rank's rows against every key. Without
 
 Each (wrapper, route) has a launch counter of this process (``COUNTERS``):
 ``launches``, ``bwd_dq_launches``, ``bwd_dkv_launches`` and
-``bwd_pair_launches`` for the tensor-core kernels, ``wide_tc_launches``
-and ``wide_tc_bwd_pair_launches`` for the wide tensor-core ones, and
+``bwd_pair_launches`` for the tensor-core kernels, ``wide_tc_launches``,
+``wide_tc_bwd_dq_launches``, ``wide_tc_bwd_dkv_launches`` and
+``wide_tc_bwd_pair_launches`` for the wide tensor-core ones, and
 ``wide_launches``, ``wide_bwd_dq_launches``, ``wide_bwd_dkv_launches`` and
 ``wide_bwd_pair_launches`` for the CUDA-core ones; a run that must show the
 kernels were on its path sets them to 0 before and reads them after.
@@ -83,6 +83,8 @@ wide_bwd_dq_launches = 0
 wide_bwd_dkv_launches = 0
 wide_bwd_pair_launches = 0
 wide_tc_launches = 0
+wide_tc_bwd_dq_launches = 0
+wide_tc_bwd_dkv_launches = 0
 wide_tc_bwd_pair_launches = 0
 
 INPUT_NAMES = ("q", "k", "v", "q_pts", "k_pts", "v_pts", "bias", "pair_z",
@@ -228,8 +230,9 @@ LIBRARIES = {
     "ipa_attention_wide_tc_fwd": ({"ipa_attention_wide_tc_fwd": 15},
                                   "ipa_attention_wide_tc_fwd_smem", 4,
                                   "ipa_attention_wide_tc_error_string"),
-    "ipa_attention_wide_tc_bwd": ({"ipa_attention_wide_tc_bwd_pair": 18},
-                                  "ipa_attention_wide_tc_bwd_smem", 4,
+    "ipa_attention_wide_tc_bwd": ({f"ipa_attention_wide_tc_bwd_{k}": n
+                                   for k, n in _BWD.items()},
+                                  "ipa_attention_wide_tc_bwd_smem", 5,
                                   "ipa_attention_wide_tc_bwd_error_string"),
     "ipa_attention_wide_fwd": ({"ipa_attention_wide_fwd": 15},
                                "ipa_attention_wide_fwd_smem", 4,
@@ -272,15 +275,22 @@ TILE_LIMITS = {"C": 256, "Pq*3": 32, "Pv*3": 48, "Dz": 32}
 WIDE_TC_LIMITS = {"C": 384, "Pq*3": 40, "Pv*3": 56, "Dz": 64}
 WRAPPERS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
             "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
-# each wrapper's kernel on the wide tensor-core route: (library, launcher)
+# each wrapper's kernel on the wide tensor-core route and on the wide route:
+# (library, launcher, shared-memory query, its kernel index or None)
 WIDE_TC_KERNELS = {
     "ipa_attention_fwd": ("ipa_attention_wide_tc_fwd",
-                          "ipa_attention_wide_tc_fwd"),
+                          "ipa_attention_wide_tc_fwd",
+                          "ipa_attention_wide_tc_fwd_smem", None),
+    "ipa_attention_bwd_dq": ("ipa_attention_wide_tc_bwd",
+                             "ipa_attention_wide_tc_bwd_dq",
+                             "ipa_attention_wide_tc_bwd_smem", 0),
+    "ipa_attention_bwd_dkv": ("ipa_attention_wide_tc_bwd",
+                              "ipa_attention_wide_tc_bwd_dkv",
+                              "ipa_attention_wide_tc_bwd_smem", 1),
     "ipa_attention_bwd_pair": ("ipa_attention_wide_tc_bwd",
-                               "ipa_attention_wide_tc_bwd_pair"),
+                               "ipa_attention_wide_tc_bwd_pair",
+                               "ipa_attention_wide_tc_bwd_smem", 2),
 }
-# each wrapper's kernel on the wide route: (library, launcher, shared-memory
-# query, its kernel index or None)
 WIDE_KERNELS = {
     "ipa_attention_fwd": ("ipa_attention_wide_fwd", "ipa_attention_wide_fwd",
                           "ipa_attention_wide_fwd_smem", None),
@@ -296,10 +306,12 @@ WIDE_KERNELS = {
 }
 
 
-def wide_smem(fn: str, C: int, P3q: int, P3v: int, Dz: int) -> int:
-    """Bytes of dynamic shared memory a block of ``fn``'s wide kernel needs
-    at these widths, from the wide library's own query (builds it)."""
-    lib_name, _, query, which = WIDE_KERNELS[fn]
+def wide_smem(fn: str, C: int, P3q: int, P3v: int, Dz: int,
+              kernels=WIDE_KERNELS) -> int:
+    """Bytes of dynamic shared memory a block of ``fn``'s kernel in
+    ``kernels`` (the wide route's, or ``WIDE_TC_KERNELS``) needs at these
+    widths, from its library's own query (builds it)."""
+    lib_name, _, query, which = kernels[fn]
     args = (C, P3q // 3, P3v // 3, Dz)
     query = getattr(_lib(lib_name), query)
     return int(query(*args) if which is None else query(which, *args))
@@ -318,16 +330,16 @@ def _within(widths: dict, limits: dict) -> bool:
 def kernel_route(fn: str, C: int, P3q: int, P3v: int, Dz: int,
                  smem=wide_smem, smem_limit=wide_smem_limit) -> str:
     """The kernel that wrapper ``fn`` launches on the card at these widths:
-    ``"tc"`` (the tensor-core kernel) within ``TILE_LIMITS``; for the
-    forward and the pair wrapper ``"wide_tc"`` (the wide tensor-core
-    kernel, ``WIDE_TC_KERNELS``) within ``WIDE_TC_LIMITS``; else ``"wide"``
-    (the CUDA-core kernel) when its tiles, as ``smem(fn, C, P3q, P3v, Dz)``
-    counts them, fit the ``smem_limit()`` bytes of shared memory a block
-    may use; past that, ValueError naming the widths and the limit."""
+    ``"tc"`` (the tensor-core kernel) within ``TILE_LIMITS``; ``"wide_tc"``
+    (the wide tensor-core kernel, ``WIDE_TC_KERNELS``) within
+    ``WIDE_TC_LIMITS``; else ``"wide"`` (the CUDA-core kernel) when its
+    tiles, as ``smem(fn, C, P3q, P3v, Dz)`` counts them, fit the
+    ``smem_limit()`` bytes of shared memory a block may use; past that,
+    ValueError naming the widths and the limit."""
     widths = dict(zip(TILE_LIMITS, (C, P3q, P3v, Dz)))
     if _within(widths, TILE_LIMITS):
         return "tc"
-    if fn in WIDE_TC_KERNELS and _within(widths, WIDE_TC_LIMITS):
+    if _within(widths, WIDE_TC_LIMITS):
         return "wide_tc"
     need, limit = smem(fn, C, P3q, P3v, Dz), smem_limit()
     if need > limit:
@@ -346,6 +358,8 @@ COUNTERS = {
     ("ipa_attention_bwd_dkv", "tc"): "bwd_dkv_launches",
     ("ipa_attention_bwd_pair", "tc"): "bwd_pair_launches",
     ("ipa_attention_fwd", "wide_tc"): "wide_tc_launches",
+    ("ipa_attention_bwd_dq", "wide_tc"): "wide_tc_bwd_dq_launches",
+    ("ipa_attention_bwd_dkv", "wide_tc"): "wide_tc_bwd_dkv_launches",
     ("ipa_attention_bwd_pair", "wide_tc"): "wide_tc_bwd_pair_launches",
     ("ipa_attention_fwd", "wide"): "wide_launches",
     ("ipa_attention_bwd_dq", "wide"): "wide_bwd_dq_launches",
@@ -359,9 +373,7 @@ def launcher(fn: str, route: str) -> tuple[str, str]:
     if route == "tc":
         return ("ipa_attention_fwd" if fn == "ipa_attention_fwd"
                 else "ipa_attention_bwd"), fn
-    if route == "wide_tc":
-        return WIDE_TC_KERNELS[fn]
-    return WIDE_KERNELS[fn][:2]
+    return (WIDE_TC_KERNELS if route == "wide_tc" else WIDE_KERNELS)[fn][:2]
 
 
 def _launch(fn: str, route: str, ptrs, F, Nq, Nk, H, C, Pq, Pv, Dz, c_qk,

@@ -3,7 +3,7 @@ their float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_ipa.py [--package DIR] \
         [--case {release,wide-model,wide}] [--rounds 3] [--reps 50] \
-        [--library] [--precision] [--ablate [KERNEL]]
+        [--library [{square,rect}]] [--precision] [--ablate [KERNEL]]
 
 Times the IPA forward and the three kernels of its backward (dq, dk/dv,
 pair) at ``--case``'s shapes: "release" (F=2, N=256, H=8, C=256, Pq=8,
@@ -13,8 +13,8 @@ Pv=12, Dz=32, last 56 residues masked: the tensor-core kernels,
 ``chip_smoke.WIDE_MODEL_CASE``) or "wide" (N=203, H=4, C=384, Pq=12,
 Pv=18, Dz=64, ``chip_smoke.WIDE_CASE``), where each wrapper runs the
 kernel its route gives it (``ops.ipa_attention.kernel_route``: the wide
-tensor-core forward and pair kernel, the CUDA-core dq and dk/dv kernels;
-a package without the wide tensor-core kernels runs the CUDA-core ones).
+tensor-core kernels; a package without a wrapper's wide tensor-core
+kernel runs its CUDA-core one).
 Each through its public wrapper (``ms``) and alone (``ms_kernel``, outputs
 allocated once, ``chip_smoke.ipa_kernel_ms``), in ``--rounds`` interleaved
 rounds of ``--reps`` launches (CUDA events, inputs warm in L2); one JSON
@@ -28,12 +28,14 @@ timed on one card in one run: run this script (as a script, not with
 
 ``--ablate [KERNEL]`` builds copies of this checkout's kernel KERNEL (a
 launcher: ``ipa_attention_fwd``, the default, ``ipa_attention_bwd_dkv``,
-``ipa_attention_bwd_pair``, ``ipa_attention_wide_tc_fwd`` or
+``ipa_attention_bwd_pair``, ``ipa_attention_wide_tc_fwd``,
+``ipa_attention_wide_tc_bwd_dq``, ``ipa_attention_wide_tc_bwd_dkv`` or
 ``ipa_attention_wide_tc_bwd_pair``) with one part of its loop removed
 (``ABLATIONS``: for the forwards the pair-stream loop, all pair_z work,
 p.v, q.k^T, the point distances, p.vp, the key fetches after the first,
-loads alone, math alone; for dk/dv and the pair kernels the fetches after
-the first, the tile's products, the dk and dv products, the pair term, the
+loads alone, math alone; for the backward kernels the key or row fetches
+after the first, the pair_z refetches, the tile's products, the
+accumulation products (dq, dk and dv, the point sums), the pair term, the
 dpz update, math alone) and times each alone, interleaved with the whole
 kernel, at ``--case`` (default: "wide-model" for the wide kernels,
 "release" for the others): where the kernel's time goes. The copies
@@ -57,6 +59,10 @@ the pair bias and the two norm terms with the mask as a float
 o and o_pt (o_pair has no library call) and its one backward call (dq, dk,
 dv of those operands) for the dq and dk/dv kernels (the pair kernel has
 none). Its outputs are held against the plain version's o and o_pt first.
+``--library rect`` makes the call rectangular, as sequence parallelism
+makes the kernels': query rows ``chip_smoke.RECT_ROWS`` (128-255) of the
+window against all its keys, the float mask built from the query rows'
+mask and the keys' mask.
 
 ``--precision`` runs the four kernels in float32 at ``--case``'s widths
 (release unless stated) with one frame and two heads, and holds them, the float32 plain versions and the
@@ -285,12 +291,14 @@ def timings(smoke, mod, device, rounds: int, reps: int,
 
 
 def sdpa_operands(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
-                  head_weights, c_qk, c_b=C_B, inf=INF):
+                  head_weights, c_qk, c_b=C_B, inf=INF, key_mask=None):
     """The forward's logits as one scaled dot product: q' = [sqrt(c_qk) q |
     sqrt(w_h) qp], k' likewise (q'.k' = c_qk q.k + w_h qp.kp), the float
     mask c_b bias - w_h (|qp|^2 + |kp|^2) / 2 + inf (m_i m_j - 1), values
-    [v | vp]; each [F, H, N, .] (the mask [F, H, N, N]), with scale 1."""
-    F, N, H, C = q.shape
+    [v | vp]; each [F, H, rows, .] (the mask [F, H, Nq, Nk]), with scale
+    1. ``key_mask`` [F, Nk]: a rectangular call's (None: ``mask`` for
+    both)."""
+    key_mask = mask if key_mask is None else key_mask
     sw = head_weights.sqrt()[None, None, :, None]
     qp, kp = q_pts.flatten(-2), k_pts.flatten(-2)
     q2 = torch.cat([q * math.sqrt(c_qk), qp * sw], -1).transpose(1, 2)
@@ -299,7 +307,7 @@ def sdpa_operands(q, k, v, q_pts, k_pts, v_pts, bias, pair_z, mask,
     hw = head_weights[None, :, None]
     qn = (-0.5 * hw * qp.pow(2).sum(-1).transpose(1, 2))[..., :, None]
     kn = (-0.5 * hw * kp.pow(2).sum(-1).transpose(1, 2))[..., None, :]
-    m = inf * (mask[:, :, None] * mask[:, None, :] - 1.0)
+    m = inf * (mask[:, :, None] * key_mask[:, None, :] - 1.0)
     attn = c_b * bias.permute(2, 0, 1)[None] + qn + kn + m[:, None]
     return (q2.contiguous(), k2.contiguous(), v2.contiguous(),
             attn.contiguous())
@@ -313,17 +321,28 @@ def sdpa_outputs(operands, C: int):
     return out[..., :C], out[..., C:].unflatten(-1, (-1, 3))
 
 
-def library_timings(smoke, device, rounds: int, reps: int,
-                    shape: dict) -> list[dict]:
-    """The SDPA call's forward and its one backward at ``timings``'
-    inputs, after holding its o and o_pt against the plain version's."""
+def library_inputs(smoke, device, shape: dict, rect: bool):
+    """(forward inputs, key mask, c_qk) at ``timings``' inputs; ``rect``:
+    the query side cut to rows ``smoke.RECT_ROWS``, the keys whole."""
     args, c_qk = smoke.ipa_inputs(torch, device, seed=20, **shape)
+    if not rect:
+        return args, args[8], c_qk
+    args, key_mask = smoke.rect_block(args, smoke.RECT_ROWS)
+    return args, key_mask, c_qk
+
+
+def library_timings(smoke, device, rounds: int, reps: int, shape: dict,
+                    rect: bool = False) -> list[dict]:
+    """The SDPA call's forward and its one backward at ``timings``'
+    inputs (``rect``: rows ``smoke.RECT_ROWS`` against every key), after
+    holding its o and o_pt against the plain version's."""
+    args, key_mask, c_qk = library_inputs(smoke, device, shape, rect)
     C = args[0].shape[-1]
     from dynamicpdb_tpu_torch.ops.ipa_attention import ipa_attention_plain
 
-    operands = sdpa_operands(*args, c_qk)
+    operands = sdpa_operands(*args, c_qk, key_mask=key_mask)
     o, o_pt = sdpa_outputs(operands, C)
-    want = ipa_attention_plain(*args, c_qk)
+    want = ipa_attention_plain(*args, c_qk, key_mask=key_mask)
     real = args[8].bool()  # the real query rows
     errs = [float((got - w)[real].abs().max())
             for got, w in ((o, want[0]), (o_pt, want[1]))]
@@ -339,10 +358,13 @@ def library_timings(smoke, device, rounds: int, reps: int,
     fwd = [smoke.time_ms(torch, lambda: sdpa_outputs(operands, C), reps)
            for _ in range(rounds)]
     bwd = [smoke.time_ms(torch, backward, reps) for _ in range(rounds)]
+    call = (f"rows {smoke.RECT_ROWS[0]}-{smoke.RECT_ROWS[1] - 1} against "
+            f"{args[1].shape[1]} keys" if rect else "square")
     return [{"library": "scaled_dot_product_attention forward (o, o_pt)",
-             "for": ["ipa_attention_fwd"], "ms": fwd,
+             "call": call, "for": ["ipa_attention_fwd"], "ms": fwd,
              "max_abs_err_vs_plain": errs},
             {"library": "scaled_dot_product_attention backward (dq, dk, dv)",
+             "call": call,
              "for": ["ipa_attention_bwd_dq", "ipa_attention_bwd_dkv"],
              "ms": bwd}]
 
@@ -434,11 +456,65 @@ _W_SKIP_DIST = (("      point_dist(dist, qpa, qsq, s.c.ksq, kt);",
                  "      for (int e = 0; e < 8; ++e) dist[e >> 2][e & 3] = 0.f;"),)
 _W_SKIP_FETCH = (("                   f, h, i0, j0 + kKeys, step + 1 < n_steps, "
                   "L);", "                   f, h, i0, j0 + kKeys, false, L);"),)
-_WP_NO_TILE = (("        kt.k, col, L);\n", "        kt.k, col, L);\n" + _ZERO_X),
-               ("        kt.v, col, L);\n", "        kt.v, col, L);\n" + _ZERO_X))
+_WP_NO_TILE = (("        kt.k, col, L);\n    read(0);\n",
+                "        kt.k, col, L);\n" + _ZERO_X + "    read(0);\n"),
+               ("        kt.v, col, L);\n    read(1);\n",
+                "        kt.v, col, L);\n" + _ZERO_X + "    read(1);\n"))
 _WP_NO_PAIR_TERM = (("        a = fmaf(gp[m], z[jj * kMaxDz + 4 * m], a);",
                      "        ;"),)
+# the wide tensor-core dq and dk/dv kernels
+_WQ_NO_FETCH = (("                   in.kmask, in.bias, f, h, i0, j0 + kKeys,\n"
+                 "                   step + 1 < n_steps, L);",
+                 "                   in.kmask, in.bias, f, h, i0, j0 + kKeys,\n"
+                 "                   false, L);"),)
+_WQ_NO_PZ = (("      if (step + 1 < n_steps)\n        fetch_pz(spz, in.pz, "
+              "i0 + 8 * rr, j0 + kKeys, c0, L);", ""),)
+_WQ_NO_TILE = (("          kt.k, col, L);\n      xput(s.c.xch, kQK + w, x);",
+                "          kt.k, col, L);\n" + _ZERO_X
+                + "      xput(s.c.xch, kQK + w, x);"),
+               ("          kt.v, col, L);\n      xput(s.c.xch, kGV + w, x);",
+                "          kt.v, col, L);\n" + _ZERO_X
+                + "      xput(s.c.xch, kGV + w, x);"))
+_WQ_NO_ACC = (("        mma3(acc[n], dh[ks], dlo[ks], bh, bl);", ""),
+              ("          mma3(pts[n], dh[ks], dlo[ks], bh, bl);", ""))
+_WQ_NO_PAIR_TERM = (("        for (int m = 0; m < 8; ++m) a = fmaf(gp[m], "
+                     "z[jj * 32 + 4 * m], a);", ""),)
+_WK_NO_ROWS = (("i0 + kRows, j0,\n                   step + 1 < n_steps, L);",
+                "i0 + kRows, j0,\n                   false, L);"),)
+_WK_NO_PZ = (("      if (step + 1 < n_steps)\n        fetch_pz_keys(spz, in.pz, "
+              "i0 + kRows, j0 + 8 * rr, 32 * half, L);", ""),)
+_WK_NO_TILE = (("          rs.q, col, L);\n      xput(s.xch, kQK + w, x);",
+                "          rs.q, col, L);\n" + _ZERO_X
+                + "      xput(s.xch, kQK + w, x);"),
+               ("          rs.go, col, L);\n      xput(s.xch, kGV + w, x);",
+                "          rs.go, col, L);\n" + _ZERO_X
+                + "      xput(s.xch, kGV + w, x);"))
+_WK_NO_ACC = _DKV_NO_DKDV + (
+    ("          mma3(pacc[n], dh[ks], dlo[ks], bh, bl);", ""),
+    ("          mma3(pacc[n], ah[ks], alo[ks], bh, bl);", ""))
+_WK_NO_PAIR_TERM = (("            acc = fmaf(p.x, q.x, acc);\n"
+                     "            acc = fmaf(p.y, q.y, acc);\n"
+                     "            acc = fmaf(p.z, q.z, acc);\n"
+                     "            acc = fmaf(p.w, q.w, acc);\n", ""),)
 ABLATIONS = {
+    "ipa_attention_wide_tc_bwd_dq": {
+        "all": (),
+        "no key fetch after the first": _WQ_NO_FETCH,
+        "no pair_z refetch": _WQ_NO_PZ,
+        "math only": _WQ_NO_FETCH + _WQ_NO_PZ,
+        "no q.k^T, g_o.v^T": _WQ_NO_TILE,
+        "no dq, dl.kp products": _WQ_NO_ACC,
+        "no pair term": _WQ_NO_PAIR_TERM,
+    },
+    "ipa_attention_wide_tc_bwd_dkv": {
+        "all": (),
+        "no row-step fetch after the first": _WK_NO_ROWS,
+        "no pair_z refetch": _WK_NO_PZ,
+        "math only": _WK_NO_ROWS + _WK_NO_PZ,
+        "no k.q^T, v.g_o^T": _WK_NO_TILE,
+        "no dk, dv, point products": _WK_NO_ACC,
+        "no pair term": _WK_NO_PAIR_TERM,
+    },
     "ipa_attention_wide_tc_fwd": {
         "all": (),
         "no pair-stream loop": _W_SKIP_PAIR_LOOP,
@@ -561,7 +637,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--precision", action="store_true")
-    ap.add_argument("--library", action="store_true")
+    ap.add_argument("--library", nargs="?", const="square",
+                    choices=("square", "rect"))
     ap.add_argument("--save-outputs", metavar="FILE")
     ap.add_argument("--compare-outputs", metavar="FILE")
     ap.add_argument("--ablate", nargs="?", const="ipa_attention_fwd",
@@ -582,7 +659,7 @@ def main(argv=None) -> int:
         print(json.dumps({**head, **row}))
     if args.library:
         for row in library_timings(smoke, device, args.rounds, args.reps,
-                                   shape):
+                                   shape, rect=args.library == "rect"):
             print(json.dumps({**head, **row}))
     if args.save_outputs:
         torch.save(kernel_outputs(smoke, mod, device, shape),

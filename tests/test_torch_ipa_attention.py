@@ -55,8 +55,7 @@ def test_mixed_devices_raise():
 
 WRAPPERS = ("ipa_attention_fwd", "ipa_attention_bwd_dq",
             "ipa_attention_bwd_dkv", "ipa_attention_bwd_pair")
-# the wrappers with a kernel on the wide tensor-core route
-WIDE_TC = ("ipa_attention_fwd", "ipa_attention_bwd_pair")
+ROUTES = ("tc", "wide_tc", "wide")
 
 
 def _smem(asked):
@@ -75,13 +74,12 @@ def _limit():
 @pytest.mark.parametrize("fn", WRAPPERS)
 def test_kernel_route(fn):
     """Which kernel a wrapper launches on the card, decided on the CPU: the
-    tensor-core kernel within TILE_LIMITS (the wide library is not asked);
-    past any one of them, within WIDE_TC_LIMITS, the wide tensor-core
-    kernel for the forward and the pair wrapper (not asked either) and the
-    CUDA-core kernel for dq and dk/dv while its tiles fit a block's shared
-    memory; and a ValueError naming the widths and the limit past that.
-    ``smem`` and ``limit`` stand in for the wide library's shared-memory
-    queries."""
+    tensor-core kernel within TILE_LIMITS; past any one of them, within
+    WIDE_TC_LIMITS, the wide tensor-core kernel, every wrapper alike (the
+    wide library is asked in neither case); past those, the CUDA-core
+    kernel while its tiles fit a block's shared memory; and a ValueError
+    naming the widths and the limit past that. ``smem`` and ``limit``
+    stand in for the wide library's shared-memory queries."""
     asked = []
     smem = _smem(asked)
     for widths in ((256, 24, 36, 32), (8, 12, 18, 4)):  # release, tiny
@@ -90,12 +88,11 @@ def test_kernel_route(fn):
     assert asked == []
     # model.ipa.c_z=256 (Dz 64), c_hidden=384, no_qk_points=12 (Pq*3 36),
     # no_v_points=18 (Pv*3 54), and all of them at once
-    want = "wide_tc" if fn in WIDE_TC else "wide"
     for widths in ((256, 24, 36, 64), (384, 24, 36, 32), (256, 36, 36, 32),
                    (256, 24, 54, 32), (384, 36, 54, 64)):
         assert ipa_mod.kernel_route(fn, *widths, smem=smem,
-                                    smem_limit=_limit) == want
-    assert asked == ([] if fn in WIDE_TC else [fn] * 5)
+                                    smem_limit=_limit) == "wide_tc"
+    assert asked == []
     with pytest.raises(ValueError, match=r"C=1024, Pq\*3=24, Pv\*3=36, "
                        r"Dz=32 is past .* needs 300000 bytes .* above the "
                        r"232448"):
@@ -117,14 +114,15 @@ def test_kernel_route_past_the_wide_tensor_core_limits(fn, widths):
 
 
 def test_every_route_has_a_counter_and_a_library():
-    """Each (wrapper, route) that kernel_route can return names its launch
-    counter and a library that lists its launcher."""
+    """Each (wrapper, route) that kernel_route can return, every wrapper on
+    every route, names its own launch counter and a library that lists its
+    launcher."""
     for fn in WRAPPERS:
-        for route in ("tc", "wide") + (("wide_tc",) if fn in WIDE_TC else ()):
+        for route in ROUTES:
             assert isinstance(getattr(ipa_mod, ipa_mod.COUNTERS[(fn, route)]),
                               int)
             lib, launcher = ipa_mod.launcher(fn, route)
             assert launcher in ipa_mod.LIBRARIES[lib][0], (fn, route)
-    assert set(ipa_mod.COUNTERS) == {
-        (fn, r) for fn in WRAPPERS for r in ("tc", "wide")} | {
-        (fn, "wide_tc") for fn in WIDE_TC}
+    assert set(ipa_mod.COUNTERS) == {(fn, r) for fn in WRAPPERS
+                                     for r in ROUTES}
+    assert len(set(ipa_mod.COUNTERS.values())) == len(ipa_mod.COUNTERS)

@@ -1,7 +1,7 @@
 """Why the IPA kernels run every product in three TF32 passes
 (csrc/ipa_attention_fwd.cu, csrc/ipa_attention_bwd.cu kernels A, B, C, and
-at the wide widths csrc/ipa_attention_wide_tc_fwd.cu and the pair kernel
-of csrc/ipa_attention_wide_tc_bwd.cu).
+at the wide widths csrc/ipa_attention_wide_tc_fwd.cu and
+csrc/ipa_attention_wide_tc_bwd.cu kernels A, B, C).
 
 The kernels' arithmetic is emulated on the CPU at the release widths (one
 frame, two heads, N = 256, C = 256, Pq 8, Pv 12, Dz 32, last 56 residues
@@ -16,8 +16,9 @@ gradient's largest magnitude for dq, dk, dkp, dv, dvp, dbias and dpz
 (tools/bench_ipa.py --precision adds the kernels themselves).
 
 The same holds at phase 4b's wide-model widths (C = 384, Pq 12, Dz 64,
-chip_smoke.WIDE_MODEL_CASE) for the outputs of the wide tensor-core
-kernels: o, o_pt, o_pair, dbias and dpz. There the sums are 1.5x longer
+chip_smoke.WIDE_MODEL_CASE) for every output of the wide tensor-core
+kernels: o, o_pt, o_pair, dq, dk, dkp, dv, dvp, dbias and dpz. There the
+sums are 1.5x longer
 and 3xTF32 reaches 0.22 of IPA_ATOL on o_pt (0.14 at the release widths),
 so those cases ask for half the tolerance, not a fifth."""
 import pytest
@@ -45,8 +46,8 @@ def wide_errors():
     return bench_ipa.errors_vs_float64(fwd_args, bwd_inputs, c_qk, results)
 
 
-# the outputs of the wide tensor-core kernels (forward and pair)
-WIDE_TC_NAMES = ("o", "o_pt", "o_pair", "dbias", "dpz")
+# the outputs of the wide tensor-core kernels (forward, dq, dk/dv, pair)
+WIDE_TC_NAMES = bench_ipa.NAMES
 
 
 def _tol(errors, name):

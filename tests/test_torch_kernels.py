@@ -68,8 +68,7 @@ def cuda():
 # that every row's first key steps are all pad and its online softmax
 # starts from a running max near -1e5. "wide" and "wide-dz" are past the
 # tensor-core kernels' widths (ipa_attention.TILE_LIMITS), so they run the
-# wide route (the forward and the pair kernel on the wide tensor-core
-# kernels, dq and dk/dv on the CUDA-core ones): C = 384, Pq = 12, Pv = 18,
+# wide tensor-core kernels, all four: C = 384, Pq = 12, Pv = 18,
 # Dz = 64 at N = 203, and the release widths with Dz = 64
 # (model.ipa.c_z = 256).
 RELEASE_WIDTHS = dict(H=8, C=256, Pq=8, Pv=12, Dz=32)
@@ -160,19 +159,14 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 def test_wide_route_shared_memory_from_the_library(cuda):
     """kernel_route reads the wide kernels' shared memory from their
     library: the release widths stay on the tensor cores; at the wide case
-    the forward and the pair wrapper take the wide tensor-core kernels
-    (their libraries' own query fits a block) and dq and dk/dv the
-    CUDA-core ones; C = 388 sends all four to the CUDA-core kernels, which
-    fit the wide case; C = 2048 fits none."""
+    all four wrappers take the wide tensor-core kernels (each one's own
+    query fits a block at the widest it takes); C = 388 sends all four to
+    the CUDA-core kernels, which fit the wide case; C = 2048 fits none."""
     for fn in ("ipa_attention_fwd",) + BWD_FNS:
         assert ipa_mod.kernel_route(fn, 256, 24, 36, 32) == "tc"
-        wide_tc = fn in ipa_mod.WIDE_TC_KERNELS
-        assert ipa_mod.kernel_route(fn, 384, 36, 54, 64) == (
-            "wide_tc" if wide_tc else "wide")
-        if wide_tc:
-            lib = ipa_mod.WIDE_TC_KERNELS[fn][0]
-            query = getattr(ipa_mod._lib(lib), f"{lib}_smem")
-            assert 0 < query(384, 13, 18, 64) <= 232_448
+        assert ipa_mod.kernel_route(fn, 384, 36, 54, 64) == "wide_tc"
+        assert 0 < ipa_mod.wide_smem(
+            fn, 384, 39, 54, 64, kernels=ipa_mod.WIDE_TC_KERNELS) <= 232_448
         assert ipa_mod.kernel_route(fn, 388, 36, 54, 64) == "wide"
         assert 0 < ipa_mod.wide_smem(fn, 384, 36, 54, 64) <= ipa_mod.wide_smem_limit()
         with pytest.raises(ValueError, match="shared memory"):
@@ -251,11 +245,12 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ipa_mod.ipa_attention_bwd_pair(*bad, c_qk=c_qk)
     # past one entry of ops.ipa_attention.TILE_LIMITS each runs its wide
-    # route's kernel; past the wide kernels' shared memory (C = 2048) each
-    # raises
+    # tensor-core kernel, past one of WIDE_TC_LIMITS its CUDA-core kernel
+    # (``counter`` names the route's); past the wide kernels' shared memory
+    # (C = 2048) each raises
     small = dict(N=16, H=2, C=8, Pq=4, Pv=6, Dz=4, masked=3)
     for over in (dict(C=260), dict(Pq=11), dict(Pv=17), dict(Dz=33),
-                 dict(C=2048)):
+                 dict(C=388), dict(Dz=65), dict(C=2048)):
         shape = {**small, **over}
         args, c_qk = chip_smoke.ipa_inputs(torch, cuda, seed=9, **shape)
         outs = (torch.zeros_like(args[0]), torch.zeros_like(args[5]),
