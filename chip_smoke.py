@@ -7,11 +7,12 @@
 Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
   1. build: every kernel source under dynamicpdb_tpu_torch/csrc, one nvcc
-     each, all started together, with ptxas's registers and spills; the
-     machine code of the GeoFormer kernels, the IPA forward and the three
-     IPA backward kernels, and the wide route's tensor-core forward and
-     three backward kernels must hold tensor-core instructions
-     (cuobjdump -sass);
+     each, all started together, with ptxas's registers and spills (the
+     GeoFormer kernel's per instance); the machine code of the GeoFormer
+     kernels (six in each instance, 128 and 256 query rows a block), the
+     IPA forward and the three IPA backward kernels, and the wide route's
+     tensor-core forward and three backward kernels must hold tensor-core
+     instructions (cuobjdump -sass);
   2. kernels: the IPA forward and its three backward kernels against their
      plain PyTorch versions on the card, at the release widths and N = 5,
      16, 203, 256 and 611, at the tiny width, and with the first key tile
@@ -120,7 +121,8 @@ Phases, each printing its own lines:
      padded to 224), 2 cycles with the structure, against one process:
      every cycle's node, edge and confidence, the selected cycle (equal),
      its pos14 and pLDDT within SP_OF_RTOL of their scale, every rank's
-     result equal to rank 0's, each rank's GeoFormer kernel launches; a
+     result equal to rank 0's, each rank's GeoFormer kernel launches (its
+     node_attention blocks of at most 128 rows in the 128-row instance); a
      run with a planted fault (the column view from the rank's own rows)
      must read past the bound; 10b, one cycle at 512 residues, one
      process and a 'seq' rank with its collectives timed: each one's
@@ -131,7 +133,8 @@ Phases, each printing its own lines:
      wrapped by one box length, a gzipped State XML, an _npt_sim.dat)
      through tools/ingest_release.py with --unwrap and --weights: one
      manifest row, the unwrapped frames, node and edge reprs equal to a
-     direct omegafold_embed, the GeoFormer launches of 10 cycles, the
+     direct omegafold_embed, the GeoFormer launches of 10 cycles (all in
+     the 128-row instance at 96 residues), the
      energy table's summary; 11b, train_cli at configs/release.yaml with
      model.embed.use_aatype_embedding=true for 3 steps at B 8 on that
      manifest (phase 4's checks: finite losses, the batches received, the
@@ -151,10 +154,13 @@ Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
 core; then their rectangular calls under sequence parallelism
-(node_attention on rows 0-127 and 128-255 of the release window and on a
-ragged block with a pad row, the odd rows' last 33 keys masked;
-geom_attention on B = 128 rows of a 256 window), each against its plain
-version and equal to the square call's rows bit for bit, timed. Every kernel report carries two bounds: bound_ms with every
+(node_attention on rows 0-127 and 128-255 of the release window, on a
+ragged block with a pad row and on rows 256-511 of 512, the odd rows' last
+33 keys masked; geom_attention on B = 128 rows of a 256 window) and both
+kernels' square calls at L 96, each against its plain version, equal to
+the square call's rows bit for bit and, where it runs the 128-row
+instance, to the 256-row instance's output bit for bit; one case of each
+kernel timed, naming its instance. Every kernel report carries two bounds: bound_ms with every
 operation on the CUDA cores in float32, tc_bound_ms with the products on
 the TF32 tensor cores in three passes (bounds()).
 The line before the last is the kernel report (launches: the tensor-core
@@ -168,7 +174,9 @@ launches_ingest; errors
 and times at the same shapes; each IPA kernel's "rectangular" entry its
 rectangular call's errors, times and bounds; the GeoFormer kernels'
 rectangular calls as two reports of their own, their launches a 'seq'
-rank's in 10a),
+rank's in 10a; each GeoFormer report names the instance it timed,
+``tile_rows``, and counts the launches of the 128-row instance,
+``launches_128``, ``launches_ingest_128``),
 the last line {"ok": true, "device": {...}}. Any failed check exits
 nonzero; with no CUDA device, or without the package beside it, the script
 exits 1 and prints no result.
@@ -181,6 +189,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -252,6 +261,34 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel function: "N registers, S bytes spill stores, L bytes spill
+    loads"} from nvcc's -Xptxas -v output."""
+    usage, name, spills = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            spills = ", ".join(p.strip() for p in line.split(",")[1:])
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            usage[name] = f"{regs}, {spills}"
+            name = None
+    return usage
+
+
+def geom_instance(fn: str) -> str:
+    """geom_attn_kernel<T, MASKED, PP, ROWS>, named from a mangled kernel
+    name (the name itself when it is not one of them)."""
+    m = re.search(r"geom_attn_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)"
+                  r"ELi(\d+)E", fn)
+    if not m:
+        return fn
+    dtype = "float" if m[1] == "f" else "bfloat16"
+    return (f"geom_attn_kernel<{dtype}, masked={m[2]}, passes={m[3]}, "
+            f"rows={m[4]}>")
 
 
 def sass_mma_counts(nvcc: str, library: str) -> dict:
@@ -1109,11 +1146,13 @@ GEOM_REPLACES = {
 }
 
 
-def geom_kernel_ms(torch, mod, kind: str, inp: dict, reps: int) -> float:
-    """The time of kernel ``kind`` alone: its operands prepared once by the
-    wrapper's kernel_inputs, then ``reps`` launches (no counter moves). The
-    wrapper's own per-call work (checks, views, casts of bf16 weights) runs
-    on the host and is timed apart, through the public function."""
+def geom_kernel_launch(torch, mod, kind: str, inp: dict,
+                       rows: int | None = None):
+    """A function that launches kernel ``kind`` alone on ``inp`` and
+    returns its output ([B, R*H, Lq, c]): the operands prepared once by the
+    wrapper's kernel_inputs, the output allocated once, no counter moved;
+    in the instance of ``rows`` query rows a block (None: the one the
+    wrapper takes)."""
     x, bias = inp["x"], inp["bias"]
     if kind == "node_attention":
         x, bias = x[:, None], bias[None]
@@ -1126,9 +1165,24 @@ def geom_kernel_ms(torch, mod, kind: str, inp: dict, reps: int) -> float:
     # the query block only for a rectangular call, as in geom_call
     rect = ({"q0": inp["q0"], "Lq": Lq} if (inp.get("q0") or Lq != L)
             else {})
-    return time_ms(torch, lambda: mod.launch(
-        lib, kind, ops, out, B, R, H, L, d, GEOM_C, GEOM_C ** -0.5,
-        x.device.index, stream, **rect), reps)
+    if rows is not None:  # a package before the instances has no rows
+        rect["rows"] = rows
+
+    def run():
+        mod.launch(lib, kind, ops, out, B, R, H, L, d, GEOM_C, GEOM_C ** -0.5,
+                   x.device.index, stream, **rect)
+        return out
+    return run
+
+
+def geom_kernel_ms(torch, mod, kind: str, inp: dict, reps: int,
+                   rows: int | None = None) -> float:
+    """The time of kernel ``kind`` alone (``geom_kernel_launch``), ``reps``
+    launches. The wrapper's own per-call work (checks, views, casts of bf16
+    weights) runs on the host and is timed apart, through the public
+    function."""
+    return time_ms(torch, geom_kernel_launch(torch, mod, kind, inp, rows),
+                   reps)
 
 
 def sdpa_core_ms(torch, mod, kind: str, inp: dict) -> float:
@@ -1214,6 +1268,7 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
             "name": kind, "route": "cuda",
             "source": "dynamicpdb_tpu_torch/csrc/geom_attention.cu",
             "replaces": GEOM_REPLACES[kind], "launches": None,
+            "tile_rows": mod.tile_rows(256),
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **bounds(ops, ew_ops, nbytes),
             # torch's SDPA on the same q, k, v and bias: the attention core
@@ -1240,14 +1295,20 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
 # node_attention on one rank's block of query rows [q0, q0 + Lq) against
 # all L keys (two 'seq' ranks: rows 0-127 and 128-255 of the release
 # window; the ragged 203 residues give rank 1 rows 102-203, its last a pad
-# row past L), the odd pseudo-MSA rows with their last 33 keys masked; and
-# geom_attention with a rank's B = 128 rows of a 256 window as its batch,
-# the bias whole. (label, kind, L, (q0, Lq) or None, B).
+# row past L; phase 10b's rank 1 rows 256-511 of 512), the odd pseudo-MSA
+# rows with their last 33 keys masked; and geom_attention with a rank's B
+# = 128 rows of a 256 window as its batch, the bias whole. Then the square
+# calls of phase 11a's 96 residues, both kernels. (label, kind, L, (q0, Lq)
+# or None, B). The calls of at most 128 query rows run the 128-row
+# instance (ops/geom_attention.tile_rows), the others the 256-row one.
 GEOM_RECT_CASES = (
     ("rows 128-255", "node_attention", 256, (128, 128), None),
     ("rows 0-127", "node_attention", 256, (0, 128), None),
     ("ragged rows 102-203", "node_attention", 203, (102, 102), None),
+    ("rows 256-511", "node_attention", 512, (256, 256), None),
     ("B 128", "geom_attention", 256, None, 128),
+    ("L 96", "node_attention", 96, None, None),
+    ("L 96", "geom_attention", 96, None, None),
 )
 GEOM_RECT_MASKED = 33
 GEOM_RECT_TIMED = {"node_attention": "rows 128-255",
@@ -1255,11 +1316,14 @@ GEOM_RECT_TIMED = {"node_attention": "rows 128-255",
 
 
 def geom_rect_phase(torch, device, card: str) -> list[dict]:
-    """Phase 2b's rectangular calls (GEOM_RECT_CASES) against their plain
-    versions at phase 2b's tolerances, float32 and bfloat16; then one case
-    of each kernel (GEOM_RECT_TIMED) timed as phase 2b times the square
-    calls, with its bounds at the rectangular work. Returns the two
-    reports (``launches`` filled by phase 10)."""
+    """Phase 2b's rectangular and short calls (GEOM_RECT_CASES) against
+    their plain versions at phase 2b's tolerances, float32 and bfloat16,
+    each a block's rows against the square call's (or a batch's half
+    against its own call) and, where it runs the 128-row instance, against
+    the 256-row instance on the same inputs, bit for bit; then one case of
+    each kernel (GEOM_RECT_TIMED) timed as phase 2b times the square
+    calls, with its bounds at the rectangular work and the instance it ran.
+    Returns the two reports (``launches`` filled by phase 10)."""
     from dynamicpdb_tpu_torch.ops import geom_attention as mod
 
     worst, inputs = {}, {}
@@ -1283,12 +1347,12 @@ def geom_rect_phase(torch, device, card: str) -> list[dict]:
                   f"max_abs_err {err} out of tolerance")
             # a row's arithmetic does not depend on the rows beside it:
             # the block's rows are the square call's bit for bit
-            if kind == "geom_attention":
+            if kind == "geom_attention" and B:
                 half = dict(inp, x=inp["x"][:B // 2])
                 same = torch.equal(geom_call(mod, kind, half, plain=False),
                                    got[:B // 2])
                 what = f"batch rows 0-{B // 2 - 1} of a {B // 2}-row call"
-            elif rows[0] + rows[1] <= L:
+            elif rows and rows[0] + rows[1] <= L:
                 square = geom_inputs(torch, device, kind, L, dtype,
                                      seed=40 + L + (dtype == torch.bfloat16),
                                      masked_suffix=GEOM_RECT_MASKED)
@@ -1302,6 +1366,19 @@ def geom_rect_phase(torch, device, card: str) -> list[dict]:
                       f"equal to {what} bit for bit: {same}")
                 check(same, f"{kind} rectangular {label} {dtype}: not "
                       f"{what} bit for bit")
+            # nor on the instance: the 128-row tile's rows are the 256-row
+            # tile's
+            tile = mod.tile_rows(rows[1] if rows else L)
+            if tile != max(mod.TILE_ROWS):
+                other = geom_kernel_launch(torch, mod, kind, inp,
+                                           max(mod.TILE_ROWS))()
+                same = torch.equal(other.view(got.shape), got)
+                print(f"kernel {kind} rectangular {label} {str(dtype)[6:]}: "
+                      f"the {tile}-row instance equal to the "
+                      f"{max(mod.TILE_ROWS)}-row one bit for bit: {same}")
+                check(same, f"{kind} rectangular {label} {dtype}: the "
+                      f"{tile}-row instance differs from the "
+                      f"{max(mod.TILE_ROWS)}-row one")
             if dtype == torch.float32:
                 worst[kind] = max(worst.get(kind, 0.0), err)
                 if GEOM_RECT_TIMED[kind] == label:
@@ -1315,7 +1392,8 @@ def geom_rect_phase(torch, device, card: str) -> list[dict]:
             "name": f"{kind}_rectangular", "route": "cuda",
             "source": "dynamicpdb_tpu_torch/csrc/geom_attention.cu",
             "replaces": GEOM_REPLACES[kind], "launches": None,
-            "case": GEOM_RECT_TIMED[kind], "max_abs_err": worst[kind],
+            "case": GEOM_RECT_TIMED[kind], "tile_rows": mod.tile_rows(Lq),
+            "max_abs_err": worst[kind],
             "ms": time_ms(torch, lambda: geom_call(mod, kind, inp,
                                                    plain=False), 20),
             "ms_kernel": geom_kernel_ms(torch, mod, kind, inp, 20),
@@ -1326,7 +1404,8 @@ def geom_rect_phase(torch, device, card: str) -> list[dict]:
             "library": "scaled_dot_product_attention (attention core only)",
         }
         reports.append(rep)
-        print(f"kernel {kind} rectangular {rep['case']} float32: "
+        print(f"kernel {kind} rectangular {rep['case']} float32, the "
+              f"{rep['tile_rows']}-row instance: "
               f"{rep['ms']:.4f} ms through the wrapper, {rep['ms_kernel']:.4f}"
               f" ms alone, plain {rep['plain_ms']:.4f} ms, SDPA core only "
               f"{rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
@@ -3721,6 +3800,8 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
     split and one-process results, the relative readings and the launches
     a 'seq' rank made per cycle."""
     from dynamicpdb_tpu_torch.models.omegafold.model import OmegaFoldConfig
+    from dynamicpdb_tpu_torch.ops.geom_attention import tile_rows
+    from dynamicpdb_tpu_torch.tools.sp_run import GEOM_COUNTERS
     from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
 
     cfg = cfg or OmegaFoldConfig()
@@ -3765,8 +3846,16 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
                                       SP_OF_RTOL))
         for r, got in enumerate(ranks):
             n = len(got["cycles"])
+            # a rank's node_attention takes its block of query rows (at
+            # most 128 at 10a's lengths: the 128-row instance), its
+            # geom_attention every row of the window (the 256-row one)
+            _, rows, window = got["rows"]
             want = {"geom_launches": n * blocks * cfg.geom_count,
-                    "node_launches": n * blocks}
+                    "node_launches": n * blocks,
+                    "geom_launches_128": (n * blocks * cfg.geom_count
+                                          if tile_rows(window) == 128 else 0),
+                    "node_launches_128": (n * blocks if tile_rows(rows) == 128
+                                          else 0)}
             launched = {k: got["launches"][k] for k in want}
             check(launched == want, f"sp 10a L={L}: rank {r} launches "
                   f"{launched}, expected {want}")
@@ -3797,9 +3886,9 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
                fault=err / scale,
                launches={k: sum(s["launches"][k] for s in
                                 res["10a seq"][0]["omegafold"])
-                         for k in ("geom_launches", "node_launches")},
+                         for k in GEOM_COUNTERS},
                per_cycle={k: first["launches"][k] // len(first["cycles"])
-                          for k in ("geom_launches", "node_launches")})
+                          for k in GEOM_COUNTERS})
     if not long_n:
         return out
     one = res["10b one"][0]["omegafold"][0]
@@ -3813,7 +3902,7 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
               f"{got['peak_bytes'] / 2**30:.3f} GiB, {got['sp_calls']} "
               f"collectives taking {got['sp_seconds']:.3f} s (timed between "
               f"device synchronises), launches "
-              f"{ {k: got['launches'][k] for k in ('geom_launches', 'node_launches')} }"
+              f"{ {k: got['launches'][k] for k in GEOM_COUNTERS} }"
               f" [{card}]")
     check(not on_card or max(g["peak_bytes"] for g in ranks)
           < one["peak_bytes"], "sp 10b: a 'seq' rank's peak memory is not "
@@ -3868,6 +3957,7 @@ def ingest_phase(torch, tmp: str, weights: str, of_cfg, *,
                                  n_frames=RELEASE_PROTEIN["n_frames"], seed=11)
     out_dir = os.path.join(tmp, "ingested")
     geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    geom_mod.geom_launches_128 = geom_mod.node_launches_128 = 0
     t0 = time.perf_counter()
     rc = ingest_release.main(["--data-root", root, "--out-dir", out_dir,
                               "--unwrap", "--weights", weights, "--device",
@@ -3875,6 +3965,8 @@ def ingest_phase(torch, tmp: str, weights: str, of_cfg, *,
     wall = time.perf_counter() - t0
     launched = {"geom_attention": geom_mod.geom_launches,
                 "node_attention": geom_mod.node_launches}
+    tiled = {"geom_attention": geom_mod.geom_launches_128,
+             "node_attention": geom_mod.node_launches_128}
     check(rc == 0, f"ingest: exit code {rc}")
     manifest = os.path.join(out_dir, "manifest.csv")
     with open(manifest) as f:
@@ -3890,6 +3982,10 @@ def ingest_phase(torch, tmp: str, weights: str, of_cfg, *,
               "node_attention": cycles_run * per_cycle}
     check(launched == expect, f"ingest: GeoFormer launches {launched}, "
           f"expected {expect}")
+    # the square calls of n_res <= 128 residues: the 128-row instance
+    short = geom_mod.tile_rows(n_res) == 128
+    check(tiled == {k: n if short else 0 for k, n in expect.items()},
+          f"ingest: {tiled} launches in the 128-row instance, of {launched}")
 
     model = load_release_weights(weights, device=device)
     seq = ingest_release.pdb_sequence(pid, prot["dir"])
@@ -3919,14 +4015,16 @@ def ingest_phase(torch, tmp: str, weights: str, of_cfg, *,
           f"frames, --unwrap --weights (release OmegaFold, {cycles_run} "
           f"cycles): 1 manifest row, frames within {unwrap_err:.2e} A of the "
           f"unwrapped ones, reprs equal to a direct omegafold_embed (max "
-          f"diff {node_err}, {edge_err}), GeoFormer launches {launched}; "
+          f"diff {node_err}, {edge_err}), GeoFormer launches {launched} "
+          f"({tiled} in the 128-row instance); "
           f"{wall:.2f} s of the CLI (weights loaded included){tag}")
     print("energies: " + ", ".join(
         f"{k} {summary[k]:.4f}" for k in (
             "potential_kj_mol_mean", "potential_kj_mol_std",
             "total_kj_mol_mean", "temperature_k_mean", "temperature_k_std",
             "box_volume_nm3_mean")))
-    return dict(csv=manifest, launches=launched, wall=wall)
+    return dict(csv=manifest, launches=launched, launches_128=tiled,
+                wall=wall)
 
 
 def aatype_card_vs_cpu(seed: int = 0, n_res: int = 12, pad_to: int = 16):
@@ -4148,7 +4246,8 @@ def pipeline_phase(torch, tmp: str, card: str, weights: str, of_cfg, serve,
     seconds = time.perf_counter() - t0
     print(f"pipeline: phase 11 in {seconds:.2f} s, {seconds + export_seconds:.2f}"
           f" s with 11d's export beside phase 4 [{card}]")
-    return dict(ingest=ing["launches"], train=train["launched"])
+    return dict(ingest=ing["launches"], ingest_128=ing["launches_128"],
+                train=train["launched"])
 
 
 def dp_cards_main() -> int:
@@ -4205,6 +4304,10 @@ def main() -> int:
     for b in built.values():
         print(f"build: {b.name} in {b.seconds:.2f} s -> "
               f"{os.path.relpath(b.path, ROOT)}")
+        if b.name == "geom_attention":  # each instance by name
+            for fn, use in sorted(ptxas_usage(b.log).items()):
+                print(f"build: geom_attention: {geom_instance(fn)}: {use}")
+            continue
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"build: {b.name}: {line.strip()}")
@@ -4229,15 +4332,24 @@ def main() -> int:
                                  w["Dz"], kernels=ipa_mod.WIDE_TC_KERNELS)
         print(f"build: {ipa_mod.launcher(kname, 'wide_tc')[1]}: {need} bytes "
               "of dynamic shared memory per block at the wide case")
-    for gname, shp in GEOM_SHAPES.items():
-        print(f"build: {gname}: {geom_mod._lib().geom_attention_smem(shp['d'])}"
-              f" bytes of dynamic shared memory per block at d={shp['d']}")
+    for rows in geom_mod.TILE_ROWS:
+        print(f"build: geom_attention, node_attention: "
+              f"{geom_mod._lib().geom_attention_smem(rows)} bytes of dynamic "
+              f"shared memory per block in the {rows}-row instance")
     mma = sass_mma_counts(_build.nvcc(), built["geom_attention"].path)
     for fn, n in sorted(mma.items()):
         print(f"build: geom_attention.cu SASS: {n} tensor-core instructions "
-              f"in {fn}")
-    check(len(mma) == 6 and all(mma.values()), "geom_attention.cu: a "
-          f"kernel without tensor-core instructions: {mma}")
+              f"in {geom_instance(fn)}")
+    # 2 kernels (masked or not) x 3 (float32, bf16 with float32 weights,
+    # bf16 with bf16 weights) in each instance
+    for rows in geom_mod.TILE_ROWS:
+        got = [n for fn, n in mma.items()
+               if geom_instance(fn).endswith(f"rows={rows}>")]
+        check(len(got) == 6 and all(got), f"geom_attention.cu: the "
+              f"{rows}-row instance has {len(got)} kernels, or one without "
+              f"tensor-core instructions: {mma}")
+    check(len(mma) == 6 * len(geom_mod.TILE_ROWS), "geom_attention.cu: "
+          f"kernels beside the instances: {mma}")
     tc_kernels = (("ipa_attention_fwd", "ipa_attn_fwd_kernel"),
                   ("ipa_attention_bwd", "ipa_bwd_dq_kernel"),
                   ("ipa_attention_bwd", "ipa_bwd_dkv_kernel"),
@@ -4416,6 +4528,8 @@ def main() -> int:
                    else "node_launches")
             rep["launches"] = sp_of["launches"][key]
             rep["launches_per_cycle"] = sp_of["per_cycle"][key]
+            # of them in the 128-row instance
+            rep["launches_128"] = sp_of["launches"][key + "_128"]
         print(f"sp omegafold: phase in {time.perf_counter() - t0:.2f} s "
               f"[{card}]")
 
@@ -4433,6 +4547,8 @@ def main() -> int:
         rep["launches"] = ext["launches"][rep["name"]]
         rep["launches_fold"] = fold["launches"][rep["name"]]
         rep["launches_ingest"] = pipe["ingest"][rep["name"]]
+        # 11a's 96 residues: the 128-row instance
+        rep["launches_ingest_128"] = pipe["ingest_128"][rep["name"]]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         extract_card_vs_cpu(tmp)

@@ -48,15 +48,17 @@
 //   exact. bfloat16 x with float32 weights takes the 3-pass instance, where
 //   x_lo = 0 adds nothing.
 //
-// Design. One block of 8 warps per (head, query chunk of 256 rows, batch
-// row and axis), one block per SM; the head is the fastest grid axis, so the
-// blocks that read the same x[b, axis] run together and find it in L2. Each
-// warp owns 32 query rows, two 16-row mma tiles, in a flash-attention
-// layout: q (as mma A fragments, hi and lo), the output and the scores live
-// in mma accumulator fragments, the online softmax reduces over each row's
-// quad with shuffles, and the row sums stay per thread until the end. Every
-// B fragment (k, v, W) a warp loads from shared memory serves both tiles.
-//   1. q | gate: a [256 x d] . [d x 64] product on the tensor cores, x and
+// Design. One block of 8 warps per (head, query chunk, batch row and axis),
+// one block per SM; the head is the fastest grid axis, so the blocks that
+// read the same x[b, axis] run together and find it in L2. A query chunk is
+// 256 rows, or 128 (the two instances, below). Each warp owns 32 query
+// rows, two 16-row mma tiles (16 rows, one tile, in the 128-row instance),
+// in a flash-attention layout: q (as mma A fragments, hi and lo), the
+// output and the scores live in mma accumulator fragments, the online
+// softmax reduces over each row's quad with shuffles, and the row sums stay
+// per thread until the end. Every B fragment (k, v, W) a warp loads from
+// shared memory serves all its tiles.
+//   1. q | gate: a [rows x d] . [d x 64] product on the tensor cores, x and
 //      Wqg staged in 32-wide slices of d by cp.async, double-buffered.
 //      The q columns come out of the accumulators already in A-fragment
 //      order (the c index is permuted inside each group of 8 channels, and
@@ -78,22 +80,40 @@
 // rescaled by exp(-1e9) = 0). Every L is taken: chunks and tiles are
 // zero-filled past L and past the last query row.
 //
-// At L <= 256 a block holds every query row, so k | v is projected once per
-// (b, g); past that once per query chunk. 201,216 bytes of shared memory;
-// 256 threads, so a thread may hold up to 255 registers.
+// Two instances, the same arithmetic for each row: 256 query rows a block
+// (two tiles a warp) and 128 (one tile a warp). The caller picks one per
+// call (ops/geom_attention.py tile_rows): a block's k | v is projected once
+// per (b, g, query chunk), so the 128-row instance takes the calls whose
+// query rows fit one 128-row chunk (Lq <= 128: a 'seq' rank's block, short
+// sequences), where the 256-row tile would run half or more of its rows on
+// zeros, and the 256-row instance every other call, where 128-row chunks
+// would re-project k | v more often. The k | v product keeps its warp tile
+// (32 keys x 32 columns) in both. A row's arithmetic does not depend on the
+// instance: the same mma sequence per element, the same 32-key steps, so a
+// row of a block call equals the square call's bit for bit. Shared memory:
+// 201,216 bytes at 256 rows, 147,968 at 128 (the gate and the staged x
+// slices shrink with the rows). The freed space buys nothing: no second
+// block per SM (that needs ~113 KB each, and k | v of a key chunk alone
+// hold 75 KB), and three or four staging buffers for the projections,
+// tried on rows 128-255 of the release window, ran slower than two, so the
+// staging stays double-buffered. 256 threads, so a thread may hold up to
+// 255 registers.
 //
 // node_attention's release grid is M H = 128 blocks for 132 SMs. Splitting
-// its query rows was measured and is slower: 128-row blocks of 4 warps, two
-// per SM, in two-block clusters that share each key chunk's k | v through
-// distributed shared memory, took 0.078-0.081 ms against 0.0755-0.0784 ms
-// for this layout on an H100 80GB HBM3 at 700 W (float32, release shapes;
-// tools/bench_geom.py; the other split layouts tried are in PERF.md).
+// its square call's query rows was measured and is slower: 128-row blocks
+// of 4 warps, two per SM, in two-block clusters that share each key
+// chunk's k | v through distributed shared memory, took 0.078-0.081 ms
+// against 0.0755-0.0784 ms for this layout on an H100 80GB HBM3 at 700 W
+// (float32, release shapes; tools/bench_geom.py; the other split layouts
+// tried are in PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "tf32_mma.cuh"  // cp.async, mma, split, quad shuffles
 
@@ -102,16 +122,21 @@ namespace {
 constexpr int kC = 32;             // head width c
 constexpr int kC2 = 2 * kC;        // q|gate and k|v widths
 constexpr int kWarps = 8;
-constexpr int kMT = 2;             // 16-row tiles per warp
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kMT * kWarps;  // query rows per block
 constexpr int kChunk = 128;        // keys whose k|v are resident at once
 constexpr int kTile = 32;          // keys per attention step
 constexpr int kDk = 32;            // depth of one staged slice of x and W
 constexpr int kMaxSmem = 232448;   // bytes a block may use on sm_90
-// the k|v product's warp tile: 16 kMT keys x kKvWN columns
-constexpr int kKvWN = kC2 * (kChunk / (16 * kMT)) / kWarps;
+// the k|v product's warp tile, the same in both instances: kKvMT 16-key mma
+// tiles x kKvWN columns
+constexpr int kKvMT = 2;
+constexpr int kKvWN = kC2 * (kChunk / (16 * kKvMT)) / kWarps;
 static_assert(kKvWN == 32, "a k|v warp tile is all k or all v columns");
+
+// 16-row mma tiles per warp in the instance of `rows` query rows a block
+__host__ __device__ constexpr int tiles_per_warp(int rows) {
+  return rows / (16 * kWarps);
+}
 
 // Row strides (floats) of the shared tiles. Each is 8 mod 32, so the 64-bit
 // fragment loads of a half-warp (rows g = 0..3, column pairs 2t) fall on 32
@@ -129,15 +154,18 @@ template <> struct Staged<__nv_bfloat16> { static constexpr int stride = kDk + 8
 __host__ __device__ constexpr size_t stage_bytes(int rows) {
   return (size_t)rows * (kDk + 4) * 4 + (size_t)kDk * kWS * 4;
 }
-constexpr size_t kResidentBytes =
-    4 * (2 * kChunk * kKS + 2 * kC * kVS   // sK hi/lo, sVt hi/lo
-         + 16 * kMT * kThreads             // sGate
-         + kChunk);                        // sMask
-constexpr size_t kStageBytes = 2 * stage_bytes(kRows);
-static_assert(2 * (size_t)kRows * kBS * 4 <= kStageBytes, "bias tiles fit");
-constexpr size_t kSmemBytes = kResidentBytes + kStageBytes;
-static_assert(kResidentBytes % 16 == 0, "the stage region is 16-byte aligned");
-
+// Shared memory of the instance of `rows` query rows: k|v of a key chunk
+// (hi and lo), the gate, the key mask, then two staging buffers of the
+// larger of the query tile and the key chunk.
+__host__ __device__ constexpr size_t resident_bytes(int rows) {
+  return 4 * (2 * kChunk * kKS + 2 * kC * kVS   // sK hi/lo, sVt hi/lo
+              + 16 * tiles_per_warp(rows) * kThreads  // sGate
+              + kChunk);                                // sMask
+}
+__host__ __device__ constexpr size_t smem_bytes(int rows) {
+  return resident_bytes(rows)
+         + 2 * stage_bytes(rows > kChunk ? rows : kChunk);
+}
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -151,18 +179,20 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // acc = x[row0 : row0 + ROWS] . W (rows past L read as 0), W [d][kC2] with
-// rows ws floats apart. ROWS / WM x kC2 / WN warps (WM = 16 kMT); warp w
-// owns rows WM (w % (ROWS / WM)) + 0..WM-1, as kMT 16-row tiles, and columns
+// rows ws floats apart. ROWS / WM x kC2 / WN warps (WM = 16 MT); warp w
+// owns rows WM (w % (ROWS / WM)) + 0..WM-1, as MT 16-row tiles, and columns
 // WN (w / (ROWS / WM)) + 0..WN-1, in C-fragment layout. x and W come
 // through `stage` in slices of kDk, double-buffered by cp.async. PP is the
-// pass count, 3 or 1 (see the header). Starts and ends with a block barrier.
-template <typename T, int ROWS, int WN, int PP>
-__device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
+// pass count, 3 or 1 (see the header). Every element of acc takes the same
+// mma sequence whatever the tile's shape: per 8-deep step of d, lo.hi,
+// hi.lo, hi.hi. Starts and ends with a block barrier.
+template <typename T, int ROWS, int MT, int WN, int PP>
+__device__ __forceinline__ void project(float (&acc)[MT][WN / 8][4],
                                         const T* __restrict__ xg, int row0,
                                         int L, int d,
                                         const float* __restrict__ w,
                                         int ws, char* stage) {
-  constexpr int WM = 16 * kMT;  // rows of a warp tile
+  constexpr int WM = 16 * MT;  // rows of a warp tile
   static_assert((ROWS / WM) * (kC2 / WN) == kWarps, "one tile per warp");
   constexpr int XS = Staged<T>::stride;
   constexpr int XBYTES = ROWS * XS * (int)sizeof(T);
@@ -174,7 +204,7 @@ __device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
   const int wm = warp % (ROWS / WM), wn = warp / (ROWS / WM);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < WN / 8; ++nt)
 #pragma unroll
@@ -215,9 +245,9 @@ __device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
         reinterpret_cast<const float*>(stage + (sl & 1) * BUF + XBYTES);
 #pragma unroll
     for (int ks = 0; ks < kDk / 8; ++ks) {
-      uint32_t ah[kMT][4], al[kMT][4];
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const T* xa = sx + (WM * wm + 16 * mt + g) * XS + 8 * ks + t;
         const float a[4] = {to_float(xa[0]), to_float(xa[8 * XS]),
                             to_float(xa[4]), to_float(xa[8 * XS + 4])};
@@ -242,7 +272,7 @@ __device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
             split(b[j], bh[j], bl[j]);
         }
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           if (PP == 3) {
             mma(acc[mt][nt], al[mt], bh);
             mma(acc[mt][nt], ah[mt], bl);
@@ -255,23 +285,24 @@ __device__ __forceinline__ void project(float (&acc)[kMT][WN / 8][4],
   }
 }
 
-// The bias tile [kRows query rows][kTile keys] at (row0, j0) into sb, of
+// The bias tile [ROWS query rows][kTile keys] at (row0, j0) into sb, of
 // a bias with Lq rows of L keys; rows past Lq and keys past L are
 // zero-filled (and never used).
+template <int ROWS>
 __device__ __forceinline__ void fetch_bias(float* sb,
                                            const float* __restrict__ bias_g,
                                            int row0, int j0, int Lq, int L,
                                            bool vec) {
   const int tid = threadIdx.x;
   if (vec) {  // L % 4 == 0: 16-byte aligned rows, whole 4-key groups
-    for (int e = tid; e < kRows * (kTile / 4); e += kThreads) {
+    for (int e = tid; e < ROWS * (kTile / 4); e += kThreads) {
       const int r = e / (kTile / 4), j = j0 + 4 * (e % (kTile / 4));
       const bool ok = row0 + r < Lq && j < L;
       cp_async16(sb + r * kBS + (j - j0),
                  ok ? bias_g + (size_t)(row0 + r) * L + j : bias_g, ok);
     }
   } else {
-    for (int e = tid; e < kRows * kTile; e += kThreads) {
+    for (int e = tid; e < ROWS * kTile; e += kThreads) {
       const int r = e / kTile, j = j0 + e % kTile;
       const bool ok = row0 + r < Lq && j < L;
       cp_async4(sb + r * kBS + (j - j0),
@@ -281,7 +312,7 @@ __device__ __forceinline__ void fetch_bias(float* sb,
   cp_async_commit();
 }
 
-template <typename T, bool MASKED, int PP>
+template <typename T, bool MASKED, int PP, int ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
                  const float* __restrict__ bqg, const float* __restrict__ wkv,
@@ -289,6 +320,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
                  const float* __restrict__ kmask, T* __restrict__ out,
                  int n_axis, int H, int L, int Lq, int q0, int d,
                  float scale) {
+  constexpr int kRows = ROWS;                 // query rows a block
+  constexpr int kMT = tiles_per_warp(kRows);  // 16-row tiles per warp
   extern __shared__ float4 smem4[];
   float* sKh = reinterpret_cast<float*>(smem4);  // [kChunk][kKS]
   float* sKl = sKh + kChunk * kKS;
@@ -316,8 +349,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
   {
     float acc[kMT][8][4];
     // x rows q0 + row0 + r, read as 0 at and past min(q0 + Lq, L)
-    project<T, kRows, kC2, PP>(acc, xg, q0 + row0, min(q0 + Lq, L), d,
-                               wqg + gi * kC2, G * kC2, stage);
+    project<T, kRows, kMT, kC2, PP>(acc, xg, q0 + row0, min(q0 + Lq, L), d,
+                                    wqg + gi * kC2, G * kC2, stage);
     const float* bq = bqg + (size_t)gi * kC2;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
@@ -365,14 +398,14 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
 
   for (int kc0 = 0; kc0 < L; kc0 += kChunk) {
     {
-      float acc[kMT][kKvWN / 8][4];
-      project<T, kChunk, kKvWN, PP>(acc, xg, kc0, L, d, wkv + gi * kC2,
-                                    G * kC2, stage);
-      constexpr int WM = 16 * kMT;
+      float acc[kKvMT][kKvWN / 8][4];
+      project<T, kChunk, kKvMT, kKvWN, PP>(acc, xg, kc0, L, d,
+                                           wkv + gi * kC2, G * kC2, stage);
+      constexpr int WM = 16 * kKvMT;
       const int wm = warp % (kChunk / WM), wn = warp / (kChunk / WM);
       const float* bk = bkv + (size_t)gi * kC2 + kKvWN * wn;
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < kKvMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < kKvWN / 8; ++nt)
 #pragma unroll
@@ -393,7 +426,7 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
         sMask[tid] = kc0 + tid < L ? kmask[(size_t)b * L + kc0 + tid] : 0.f;
     }
     const int n_tiles = (min(kChunk, L - kc0) + kTile - 1) / kTile;
-    fetch_bias(sb[0], bias_g, row0, kc0, Lq, L, vec);
+    fetch_bias<kRows>(sb[0], bias_g, row0, kc0, Lq, L, vec);
     for (int jt = 0; jt < n_tiles; ++jt) {
       cp_async_wait<0>();
       // the bias tile jt has landed (and k|v and the mask, at jt == 0), and
@@ -401,8 +434,8 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
       // which now takes tile jt + 1 while this step computes
       __syncthreads();
       if (jt + 1 < n_tiles)
-        fetch_bias(sb[(jt + 1) & 1], bias_g, row0, kc0 + (jt + 1) * kTile, Lq,
-                   L, vec);
+        fetch_bias<kRows>(sb[(jt + 1) & 1], bias_g, row0,
+                          kc0 + (jt + 1) * kTile, Lq, L, vec);
       const int kl0 = jt * kTile;  // first key of the step, in the chunk
       const int j0 = kc0 + kl0;
 
@@ -535,85 +568,123 @@ geom_attn_kernel(const T* __restrict__ x, const float* __restrict__ wqg,
     }
 }
 
+// One call's operands and shapes (the launchers' layouts, below).
+struct Call {
+  const void* x;
+  const float *wqg, *bqg, *wkv, *bkv, *bias, *kmask;
+  void* out;
+  int B, n_axis, H, L, Lq, q0, d;
+  float scale;
+};
+
+constexpr int kMaxDevices = 64;  // devices whose attribute state is kept
+
+// Launch the instance of ROWS query rows a block on the current device.
+// The kernel's shared-memory attribute is set on its first launch on each
+// device and kept, not set again per call.
+template <typename T, bool MASKED, int PP, int ROWS>
+cudaError_t launch(const Call& a, int device, cudaStream_t stream) {
+  static_assert(ROWS % (16 * kWarps) == 0, "whole 16-row tiles per warp");
+  static_assert(2 * (size_t)ROWS * kBS * 4 <= 2 * stage_bytes(ROWS),
+                "bias tiles fit");
+  static_assert(resident_bytes(ROWS) % 16 == 0,
+                "the stage region is 16-byte aligned");
+  static_assert(smem_bytes(ROWS) <= (size_t)kMaxSmem, "fits one block");
+  constexpr size_t smem = smem_bytes(ROWS);
+  static std::atomic<unsigned long long> ready{0};  // one bit a device
+  const unsigned long long bit = 1ull << device;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        geom_attn_kernel<T, MASKED, PP, ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
+  const dim3 grid(a.H, (a.Lq + ROWS - 1) / ROWS, a.B * a.n_axis);
+  geom_attn_kernel<T, MASKED, PP, ROWS><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.x), a.wqg, a.bqg, a.wkv, a.bkv, a.bias,
+      a.kmask, static_cast<T*>(a.out), a.n_axis, a.H, a.L, a.Lq, a.q0, a.d,
+      a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, bool MASKED, int PP>
-int launch(const void* x, const float* wqg, const float* bqg, const float* wkv,
-           const float* bkv, const float* bias, const float* kmask, void* out,
-           int B, int n_axis, int H, int L, int Lq, int q0, int d, int c,
-           float scale, int device, cudaStream_t stream) {
-  if (B < 1 || n_axis < 1 || H < 1 || L < 1 || Lq < 1 || q0 < 0 || d < 8 ||
-      d % 8 != 0 || c != kC || (long long)B * n_axis > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  static_assert(kSmemBytes <= (size_t)kMaxSmem, "fits one block");
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(geom_attn_kernel<T, MASKED, PP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, (Lq + kRows - 1) / kRows, B * n_axis);
-  geom_attn_kernel<T, MASKED, PP><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), wqg, bqg, wkv, bkv, bias, kmask,
-      static_cast<T*>(out), n_axis, H, L, Lq, q0, d, scale);
-  return (int)cudaGetLastError();
+cudaError_t launch_rows(const Call& a, int rows, int device,
+                        cudaStream_t stream) {
+  return rows == 128 ? launch<T, MASKED, PP, 128>(a, device, stream)
+                     : launch<T, MASKED, PP, 256>(a, device, stream);
 }
 
 template <bool MASKED>
-int dispatch(const void* x, const float* wqg, const float* bqg,
-             const float* wkv, const float* bkv, const float* bias,
-             const float* kmask, void* out, int B, int n_axis, int H, int L,
-             int Lq, int q0, int d, int c, float scale, int bf16, int w_bf16,
+int dispatch(const Call& a, int c, int bf16, int w_bf16, int rows,
              int device, cudaStream_t stream) {
+  if (a.B < 1 || a.n_axis < 1 || a.H < 1 || a.L < 1 || a.Lq < 1 ||
+      a.q0 < 0 || a.d < 8 || a.d % 8 != 0 || c != kC ||
+      (long long)a.B * a.n_axis > 65535 || a.H > 65535 ||
+      (rows != 128 && rows != 256) || device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidValue;
+  // launch on `device`, then give the caller back its current device
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return (int)err;
   using bf = __nv_bfloat16;
   if (!bf16)
-    return launch<float, MASKED, 3>(x, wqg, bqg, wkv, bkv, bias, kmask, out,
-                                    B, n_axis, H, L, Lq, q0, d, c, scale,
-                                    device, stream);
-  if (w_bf16)
-    return launch<bf, MASKED, 1>(x, wqg, bqg, wkv, bkv, bias, kmask, out, B,
-                                 n_axis, H, L, Lq, q0, d, c, scale, device,
-                                 stream);
-  return launch<bf, MASKED, 3>(x, wqg, bqg, wkv, bkv, bias, kmask, out, B,
-                               n_axis, H, L, Lq, q0, d, c, scale, device,
-                               stream);
+    err = launch_rows<float, MASKED, 3>(a, rows, device, stream);
+  else if (w_bf16)
+    err = launch_rows<bf, MASKED, 1>(a, rows, device, stream);
+  else
+    err = launch_rows<bf, MASKED, 3>(a, rows, device, stream);
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 }  // namespace
 
 // Both launchers run on `stream` and return cudaGetLastError() (0 = the
-// launch was accepted). Layouts: x [B, n_axis, L, d] (node_attention: node
-// [M, L, d], n_axis = 1) in float32 (bf16 = 0) or bfloat16 (bf16 = 1);
-// wqg, wkv [d, n_axis * H, 2c] and bqg, bkv [n_axis * H, 2c], float32, with
-// g = axis * H + head; w_bf16 = 1 promises that every value of wqg and wkv
-// is a bfloat16 value (one projection pass with bf16 x); bias
+// launch was accepted); the caller's current device is left as it was.
+// Layouts: x [B, n_axis, L, d] (node_attention: node [M, L, d], n_axis =
+// 1) in float32 (bf16 = 0) or bfloat16 (bf16 = 1); wqg, wkv
+// [d, n_axis * H, 2c] and bqg, bkv [n_axis * H, 2c], float32, with g =
+// axis * H + head; w_bf16 = 1 promises that every value of wqg and wkv is
+// a bfloat16 value (one projection pass with bf16 x); bias
 // [n_axis * H, L, L] float32, shared over the batch rows (node_attention:
 // [H, Lq, L], its query rows' bias); kmask [M, L] float32; out
 // [B, n_axis * H, L, c] in x's type (node_attention: [M, H, Lq, c], row i
 // the query x[q0 + i], zeros past L). All contiguous and 16-byte aligned;
-// d divisible by 8; c = 32.
+// d divisible by 8; c = 32. `rows` picks the instance, 128 or 256 query
+// rows a block; any other value is refused (cudaErrorInvalidValue).
 extern "C" int geom_attention(const void* x, const float* wqg, const float* bqg,
                               const float* wkv, const float* bkv,
                               const float* bias, void* out, int B, int n_axis,
                               int H, int L, int d, int c, float scale, int bf16,
-                              int w_bf16, int device, cudaStream_t stream) {
-  return dispatch<false>(x, wqg, bqg, wkv, bkv, bias, nullptr, out, B, n_axis,
-                         H, L, L, 0, d, c, scale, bf16, w_bf16, device,
-                         stream);
+                              int w_bf16, int rows, int device,
+                              cudaStream_t stream) {
+  const Call a{x, wqg, bqg, wkv, bkv, bias, nullptr, out, B, n_axis, H, L, L,
+               0, d, scale};
+  return dispatch<false>(a, c, bf16, w_bf16, rows, device, stream);
 }
 
 extern "C" int node_attention(const void* x, const float* wqg, const float* bqg,
                               const float* wkv, const float* bkv,
                               const float* bias, const float* kmask, void* out,
                               int M, int H, int L, int Lq, int q0, int d, int c,
-                              float scale, int bf16, int w_bf16, int device,
-                              cudaStream_t stream) {
-  return dispatch<true>(x, wqg, bqg, wkv, bkv, bias, kmask, out, M, 1, H, L,
-                        Lq, q0, d, c, scale, bf16, w_bf16, device, stream);
+                              float scale, int bf16, int w_bf16, int rows,
+                              int device, cudaStream_t stream) {
+  const Call a{x, wqg, bqg, wkv, bkv, bias, kmask, out, M, 1, H, L, Lq, q0,
+               d, scale};
+  return dispatch<true>(a, c, bf16, w_bf16, rows, device, stream);
 }
 
-// Dynamic shared memory per block (bytes); the same for every d.
-extern "C" long long geom_attention_smem(int d) {
-  (void)d;
-  return (long long)kSmemBytes;
+// Dynamic shared memory per block (bytes) of the instance of `rows` query
+// rows, the same for every d; -1 for a `rows` the kernel has no instance of.
+extern "C" long long geom_attention_smem(int rows) {
+  return rows == 128 ? (long long)smem_bytes(128)
+         : rows == 256 ? (long long)smem_bytes(256) : -1;
 }
 
 extern "C" const char* geom_attention_error_string(int code) {

@@ -2,14 +2,23 @@
 float32 error comes from.
 
     python dynamicpdb_tpu_torch/tools/bench_geom.py [--package DIR] \
-        [--rounds 3] [--reps 20] [--precision] \
-        [--save-outputs FILE | --compare-outputs FILE]
+        [--case CASE [CASE ...]] [--rounds 3] [--reps 20] [--precision] \
+        [--save-outputs FILE | --compare-outputs FILE] [--ablate]
 
-Times both kernels (``csrc/geom_attention.cu``) at their release shapes in
-float32 and bfloat16, alone (operands prepared once by the wrapper's
-``kernel_inputs``) and through their public wrappers, in ``--rounds``
-interleaved rounds of ``--reps`` launches (CUDA events, inputs warm in L2),
-and prints one JSON line per kernel and dtype. The inputs and the timer are
+Times both kernels (``csrc/geom_attention.cu``) alone (operands prepared
+once by the wrapper's ``kernel_inputs``) and through their public
+wrappers, in ``--rounds`` interleaved rounds of ``--reps`` launches (CUDA
+events, inputs warm in L2), beside the SDPA core on the same query rows
+(``chip_smoke.sdpa_core_ms``, float32), and prints one JSON line per case,
+kernel and dtype, naming the instance the wrapper took (``tile_rows``:
+query rows a block). ``--case`` (default: release) picks the calls:
+"release", both kernels at their release shapes in float32 and bfloat16;
+or a call of phase 2b's ``chip_smoke.GEOM_RECT_CASES`` by its label with
+hyphens, in float32: "rows-128-255" (node_attention on a 'seq' rank's
+rows 128-255 of the release window), "rows-0-127", "ragged-rows-102-203",
+"rows-256-511" (rank 1 of a 512-residue window), "B-128"
+(geom_attention on a rank's 128 batch rows), "L-96" (both kernels'
+square calls at 96 residues). The inputs and the timer are
 ``chip_smoke.py``'s (``geom_inputs``, ``time_ms``), from this checkout.
 
 ``--package DIR`` times the ``dynamicpdb_tpu_torch`` package under DIR
@@ -17,13 +26,22 @@ instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one session: run this script (as a script, not with
 ``-m``) once against each, e.g. parent, change, change, parent.
 
-``--save-outputs FILE`` writes both kernels' outputs at phase 2b's square
-cases of ``chip_smoke.py`` (``GEOM_CASES``: release, ragged and long
-ragged L, float32 and bfloat16) to FILE; ``--compare-outputs FILE``
-computes them again and prints, per output, whether it equals FILE's bit
-for bit and its largest difference: run another checkout's package with
-the first and this one with the second to show that a change left the
-square calls' arithmetic as it was.
+``--save-outputs FILE`` writes both kernels' outputs at phase 2b's cases
+of ``chip_smoke.py`` (``GEOM_CASES``: release, ragged and long ragged L;
+``GEOM_RECT_CASES``: the rectangular and short calls; float32 and
+bfloat16) to FILE; ``--compare-outputs FILE`` computes them again and
+prints, per output, whether it equals FILE's bit for bit and its largest
+difference: run another checkout's package with the first and this one
+with the second to show that a change left the kernels' arithmetic as it
+was.
+
+``--ablate`` builds copies of this checkout's kernel with one part removed
+(``ABLATIONS``: the q|gate projection, the k|v projection, the attention
+steps) and times node_attention alone in each at ``ABLATE_CASE`` (rows
+128-255 of the release window, float32), in both instances (256 and 128
+query rows a block), interleaved with the whole kernel: where the
+rectangular call's time goes in each tile. The copies compute wrong
+results; they are timed, never checked. Run it without ``--package``.
 
 ``--precision`` runs each kernel in float32 at its release widths with two
 batch rows, and holds it, the float32 plain version and two emulations of
@@ -37,12 +55,16 @@ better model of the card. Runs only on a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import types
 
 import torch
 
@@ -131,26 +153,77 @@ def _load(package: str, module: str = "geom_attention"):
     return smoke, mod
 
 
-def timings(smoke, mod, device, rounds: int, reps: int) -> list[dict]:
+# --case: the release square calls, or a call of chip_smoke.GEOM_RECT_CASES
+# by its label, spaces as hyphens (both kernels where two share a label)
+CASES = ("release", "rows-128-255", "rows-0-127", "ragged-rows-102-203",
+         "rows-256-511", "B-128", "L-96")
+
+
+def case_inputs(smoke, device, case: str, dtype) -> list[tuple]:
+    """[(kind, inputs)] of ``case`` in ``dtype``: the release square calls
+    at phase 2b's timed seed, or phase 2b's rectangular and short calls on
+    its own inputs (``chip_smoke.geom_rect_phase``)."""
+    if case == "release":
+        return [(kind, smoke.geom_inputs(torch, device, kind, 256, dtype,
+                                         seed=7))
+                for kind in smoke.GEOM_SHAPES]
+    out = [(kind, smoke.geom_inputs(
+                torch, device, kind, L, dtype,
+                seed=40 + L + (dtype == torch.bfloat16), B=B, rows=rows,
+                masked_suffix=smoke.GEOM_RECT_MASKED))
+           for label, kind, L, rows, B in smoke.GEOM_RECT_CASES
+           if label.replace(" ", "-") == case]
+    if not out:
+        raise ValueError(f"bench_geom: no case {case!r} in "
+                         "chip_smoke.GEOM_RECT_CASES")
+    return out
+
+
+def _tile_rows(mod, inp: dict) -> int:
+    """The instance the wrapper of package ``mod`` takes for ``inp``; a
+    package before the instances has only the 256-row one."""
+    if not hasattr(mod, "tile_rows"):
+        return 256
+    return mod.tile_rows(inp["bias"].shape[-2])
+
+
+def timings(smoke, mod, device, rounds: int, reps: int,
+            cases=("release",)) -> list[dict]:
+    """Per case, kernel and dtype: ``ms_kernel`` (alone), ``ms`` (through
+    the wrapper) and, in float32, ``library_ms`` (the SDPA core on the same
+    rows), one value a round. The release calls in float32 and bfloat16,
+    the others in float32."""
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    inputs = {(kind, name): smoke.geom_inputs(torch, device, kind, 256, dt,
-                                              seed=7)
-              for kind in smoke.GEOM_SHAPES for name, dt in dtypes.items()}
+    inputs = {}
+    for case in cases:
+        for name, dt in dtypes.items():
+            if case != "release" and name != "float32":
+                continue
+            for kind, inp in case_inputs(smoke, device, case, dt):
+                inputs[(case, kind, name)] = inp
     times = {key: {"ms_kernel": [], "ms": []} for key in inputs}
+    for key in inputs:
+        if key[2] == "float32":
+            times[key]["library_ms"] = []
     for _ in range(rounds):
-        for (kind, name), inp in inputs.items():
-            t = times[(kind, name)]
+        for (case, kind, name), inp in inputs.items():
+            t = times[(case, kind, name)]
             t["ms_kernel"].append(smoke.geom_kernel_ms(torch, mod, kind, inp,
                                                        reps))
             t["ms"].append(smoke.time_ms(
                 torch, lambda: smoke.geom_call(mod, kind, inp, plain=False),
                 reps))
-    return [{"kernel": kind, "dtype": name, **t}
-            for (kind, name), t in times.items()]
+            if "library_ms" in t:
+                t["library_ms"].append(smoke.sdpa_core_ms(torch, mod, kind,
+                                                          inp))
+    return [{"case": case, "kernel": kind, "dtype": name,
+             "tile_rows": _tile_rows(mod, inputs[(case, kind, name)]), **t}
+            for (case, kind, name), t in times.items()]
 
 
 def kernel_outputs(smoke, mod, device) -> dict:
-    """{"kind label dtype": output} at phase 2b's square cases."""
+    """{"kind label dtype": output} at phase 2b's square cases and at its
+    rectangular and short cases (GEOM_RECT_CASES), on phase 2b's inputs."""
     out = {}
     for kind in smoke.GEOM_SHAPES:
         for label, L, pad, B, prefix in smoke.GEOM_CASES:
@@ -162,7 +235,89 @@ def kernel_outputs(smoke, mod, device) -> dict:
                     masked_prefix=prefix)
                 out[f"{kind} {label} {str(dtype)[6:]}"] = smoke.geom_call(
                     mod, kind, inp, plain=False).cpu()
+    for label, kind, L, rows, B in smoke.GEOM_RECT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = smoke.geom_inputs(
+                torch, device, kind, L, dtype,
+                seed=40 + L + (dtype == torch.bfloat16), B=B, rows=rows,
+                masked_suffix=smoke.GEOM_RECT_MASKED)
+            out[f"{kind} {label} {str(dtype)[6:]}"] = smoke.geom_call(
+                mod, kind, inp, plain=False).cpu()
     return out
+
+
+# --ablate: copies of node_attention's kernel with one part removed (edits
+# of the source text, bench_ipa.ablated_source), timed alone at ABLATE_CASE
+# in each instance. The copies compute wrong results; they are timed, never
+# checked.
+_ZERO_ACC = "for (auto& a : acc) for (auto& b : a) for (float& e : b) e = 0.f;"
+_NO_QG = (("    project<T, kRows, kMT, kC2, PP>(acc, xg, q0 + row0, "
+           "min(q0 + Lq, L), d,\n"
+           "                                    wqg + gi * kC2, G * kC2, "
+           "stage);", "    " + _ZERO_ACC),)
+_NO_KV = (("      project<T, kChunk, kKvMT, kKvWN, PP>(acc, xg, kc0, L, d,\n"
+           "                                           wkv + gi * kC2, "
+           "G * kC2, stage);", "      " + _ZERO_ACC + "\n      __syncthreads();"),)
+# the bias fetches and the 32-key steps of every chunk (with them go q's
+# split and the q columns of the q|gate product, which nothing reads then)
+_NO_STEPS = (("        sMask[tid] = kc0 + tid < L ? "
+              "kmask[(size_t)b * L + kc0 + tid] : 0.f;\n    }\n",
+              "@@cut_start"),
+             ("    // the next chunk's project() starts with a barrier",
+              "@@cut_end"))
+ABLATIONS = {
+    "all": (),
+    "no q|gate projection": _NO_QG,
+    "no k|v projection": _NO_KV,
+    "no attention steps": _NO_STEPS,
+}
+ABLATE_CASE = "rows-128-255"
+
+
+def ablation(smoke, mod, device, rounds: int, reps: int) -> dict:
+    """{(variant, tile rows): [ms alone per round]} of node_attention at
+    ABLATE_CASE, float32, each variant of ABLATIONS in each instance."""
+    from dynamicpdb_tpu_torch.ops import _build
+
+    if __package__:
+        from .bench_ipa import ablated_source
+    else:  # run as a script
+        from bench_ipa import ablated_source
+
+    src = open(os.path.join(_build.CSRC_DIR, "geom_attention.cu")).read()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ablate_geom_", dir=_build.BUILD_DIR)
+    try:
+        for rel in _build.sources("geom_attention")[1:]:
+            shutil.copy(os.path.join(_build.CSRC_DIR, rel), work)
+        procs = {}
+        for i, (name, edits) in enumerate(ABLATIONS.items()):
+            cu = os.path.join(work, f"v{i}.cu")
+            with open(cu, "w") as f:
+                f.write(ablated_source(src, edits))
+            so = os.path.join(work, f"libv{i}.so")
+            procs[name] = (so, subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        for name, (so, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"ablation {name}: nvcc failed:\n{log}")
+            libs[name] = mod._typed(ctypes.CDLL(so))
+        (kind, inp), = case_inputs(smoke, device, ABLATE_CASE, torch.float32)
+        times = {(name, rows): [] for name in libs for rows in mod.TILE_ROWS}
+        for _ in range(rounds):
+            for name, lib in libs.items():
+                variant = types.SimpleNamespace(
+                    _lib=lambda lib=lib: lib, kernel_inputs=mod.kernel_inputs,
+                    launch=mod.launch)
+                for rows in mod.TILE_ROWS:
+                    times[(name, rows)].append(smoke.geom_kernel_ms(
+                        torch, variant, kind, inp, reps, rows=rows))
+        return times
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def precision(smoke, mod, device) -> list[dict]:
@@ -205,23 +360,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", default=ROOT,
                     help="directory holding the dynamicpdb_tpu_torch to time")
+    ap.add_argument("--case", nargs="+", choices=CASES, default=["release"])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--precision", action="store_true")
     ap.add_argument("--save-outputs", metavar="FILE")
     ap.add_argument("--compare-outputs", metavar="FILE")
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_geom: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.ablate and os.path.abspath(args.package) != ROOT:
+        print("bench_geom: --ablate edits this checkout's kernel; run it "
+              "without --package", file=sys.stderr)
+        return 1
     smoke, mod = _load(args.package)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
+    card = smoke.card_line()
     device = torch.device("cuda")
     label = os.path.relpath(os.path.abspath(args.package), ROOT)
-    for row in timings(smoke, mod, device, args.rounds, args.reps):
+    for row in timings(smoke, mod, device, args.rounds, args.reps,
+                       args.case):
         print(json.dumps({"package": label, "card": card, **row}))
     if args.save_outputs:
         torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
@@ -238,6 +397,13 @@ def main(argv=None) -> int:
     if args.precision:
         for row in precision(smoke, mod, device):
             print(json.dumps({"package": label, "card": card, **row}))
+    if args.ablate:
+        for (name, rows), t in ablation(smoke, mod, device, args.rounds,
+                                        args.reps).items():
+            print(json.dumps({"package": label, "card": card,
+                              "kernel": "node_attention",
+                              "case": ABLATE_CASE, "tile_rows": rows,
+                              "without": name, "ms_kernel": t}))
     return 0
 
 

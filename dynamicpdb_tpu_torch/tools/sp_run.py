@@ -78,7 +78,8 @@ from dynamicpdb_tpu_torch.weights import randomize_
 IPA_COUNTERS = tuple(ipa_mod.COUNTERS.values())
 
 
-GEOM_COUNTERS = ("geom_launches", "node_launches")
+GEOM_COUNTERS = ("geom_launches", "node_launches", "geom_launches_128",
+                 "node_launches_128")
 DFOLD_PARTS = ("forward", "rollout", "rollout_float32")
 
 

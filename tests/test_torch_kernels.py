@@ -313,30 +313,47 @@ def test_geom_kernels_match_plain(cuda, kind, L, pad, B, prefix, dtype):
     assert over <= 0, err
 
 
+def _rect_id(case) -> str:
+    """The case's label, hyphenated, with its kernel where two kernels
+    share the label."""
+    label, kind = case[:2]
+    shared = [c[0] for c in chip_smoke.GEOM_RECT_CASES].count(label) > 1
+    return (f"{label}-{kind}" if shared else label).replace(" ", "-")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", chip_smoke.GEOM_RECT_CASES,
-                         ids=[c[0].replace(" ", "-")
-                              for c in chip_smoke.GEOM_RECT_CASES])
+                         ids=[_rect_id(c) for c in chip_smoke.GEOM_RECT_CASES])
 def test_geom_kernels_rectangular_calls_match_plain(cuda, case, dtype):
     """Sequence parallelism's calls (chip_smoke.GEOM_RECT_CASES):
     node_attention on a block of query rows against every key (a pad row
-    past L in the ragged block), geom_attention on a rank's batch rows;
-    one launch each against the plain version, at the square calls'
-    tolerances."""
+    past L in the ragged block), geom_attention on a rank's batch rows,
+    and both kernels' square calls at 96 residues; one launch each against
+    the plain version, at the square calls' tolerances. A call of at most
+    128 query rows runs the 128-row instance (its counter moves), and its
+    output equals the 256-row instance's on the same inputs bit for bit."""
     label, kind, L, rows, B = case
     dtype = getattr(torch, dtype)
     inp = chip_smoke.geom_inputs(torch, cuda, kind, L, dtype, seed=13, B=B,
                                  rows=rows,
                                  masked_suffix=chip_smoke.GEOM_RECT_MASKED)
-    before = getattr(geom_mod, GEOM_COUNTERS[kind])
+    counter = GEOM_COUNTERS[kind]
+    before = getattr(geom_mod, counter), getattr(geom_mod, counter + "_128")
     got = chip_smoke.geom_call(geom_mod, kind, inp, plain=False)
     torch.cuda.synchronize()
-    assert getattr(geom_mod, GEOM_COUNTERS[kind]) == before + 1
+    tile = geom_mod.tile_rows(rows[1] if rows else L)
+    assert (getattr(geom_mod, counter),
+            getattr(geom_mod, counter + "_128")) == (
+        before[0] + 1, before[1] + (tile == 128))
     want = chip_smoke.geom_call(geom_mod, kind, inp, plain=True)
     assert got.dtype == dtype and got.shape == want.shape
     err, over = chip_smoke.geom_error(got, want)
     assert over <= 0, err
+    if tile == 128:
+        other = chip_smoke.geom_kernel_launch(torch, geom_mod, kind, inp,
+                                              256)()
+        assert torch.equal(other.view(got.shape), got)
 
 
 @pytest.mark.cuda
@@ -358,3 +375,8 @@ def test_geom_kernels_reject_what_they_cannot_take(cuda):
         geom_mod.fused_gated_geom_attention_t(
             args[0][..., :124], args[1][:124], args[2], args[3][:124],
             *args[4:], c=32, scale=1.0)
+    # the kernel has the instances of TILE_ROWS and refuses any other tile
+    for rows in (0, 64, 192, 512):
+        with pytest.raises(RuntimeError, match=f"rows={rows}"):
+            chip_smoke.geom_kernel_launch(torch, geom_mod, "geom_attention",
+                                          inp, rows)()
