@@ -52,10 +52,7 @@ from dynamicpdb_tpu_torch.ops.geom_attention import (
     fused_gated_node_attention,
 )
 from dynamicpdb_tpu_torch.parallel import sp
-
-
-def _span(name: str):
-    return torch.profiler.record_function("omegafold." + name)
+from dynamicpdb_tpu_torch.utils.logging import span
 
 
 def _mask2bias(mask, inf=1e9):
@@ -280,26 +277,26 @@ def geoformer_block(p: GeoFormerBlock, node, edge, mask, *,
                     pad_safe: bool = False):
     """node [M, Lr, d_node]; edge [Lr, L, d_edge] (this rank's rows; Lr = L
     outside sequence parallelism); mask [M, L]. Each step runs under a
-    profiler range named for it (tools/profile_extract.py)."""
-    with _span("attention_w_edge_bias"):
+    span named for it (``utils.logging.span``)."""
+    with span("omegafold.attention_w_edge_bias"):
         node = node + attention_w_edge_bias(p.attention_w_edge_bias, node,
                                             edge, mask)
-    with _span("column_attention"):  # over the pseudo-MSA axis
+    with span("omegafold.column_attention"):  # over the pseudo-MSA axis
         node_col = _normalize(node.transpose(0, 1))
         rows_mask = sp.take_rows(mask, mask.shape[-1], 1)
         col_bias = _mask2bias(rows_mask.T[..., None, None, :])
         node_col = gated_attention(p.column_attention, node_col, node_col,
                                    col_bias)
         node = node + node_col.transpose(0, 1).to(node.dtype)
-    with _span("node_transition"):
+    with span("omegafold.node_transition"):
         node = node + transition(p.node_transition, node)
-    with _span("out_product"):
+    with span("omegafold.out_product"):
         edge = edge + node2edge(p.out_product, node, mask)
-    with _span("geometric_attention"):
+    with span("omegafold.geometric_attention"):
         for gp in p.geometric_attention:
             edge = edge + geometric_attention(
                 gp, edge, mask[0], pad_safe=pad_safe).to(edge.dtype)
-    with _span("edge_transition"):
+    with span("omegafold.edge_transition"):
         edge = edge + transition(p.edge_transition, edge)
     return node, edge
 

@@ -47,13 +47,14 @@ from dynamicpdb_tpu_torch.models.omegafold.embedders import (
     EdgeEmbedder,
     RecycleEmbedder,
 )
-from dynamicpdb_tpu_torch.models.omegafold.geoformer import GeoFormer, _span
+from dynamicpdb_tpu_torch.models.omegafold.geoformer import GeoFormer
 from dynamicpdb_tpu_torch.models.omegafold.plm import OmegaPLM, PLMConfig
 from dynamicpdb_tpu_torch.models.omegafold.structure import (
     ConfidenceHead,
     StructureModule,
 )
 from dynamicpdb_tpu_torch.parallel import sp
+from dynamicpdb_tpu_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -137,7 +138,8 @@ def deep_sequence_embed(model: OmegaFold, p_msa, p_msa_mask):
     [M, Lr, node_dim] and edge [Lr, L, edge_dim], this rank's rows (the
     PLM's edge stack stays as rows; Lr = L outside sequence
     parallelism)."""
-    node, edges = model.omega_plm(p_msa, p_msa_mask)
+    with span("omegafold.plm"):
+        node, edges = model.omega_plm(p_msa, p_msa_mask)
     node = linear(model.plm_node_embedder, _normalize_unbiased(node))
     edge = linear(model.plm_edge_embedder,
                   _normalize_unbiased(edges.permute(1, 2, 0)))
@@ -151,23 +153,23 @@ def omegafold_cycle(model: OmegaFold, p_msa, p_msa_mask, prev_node,
     parallelism) and prev_x [L, 14, 3]. Returns (node_out [L, node_dim],
     edge_out [Lr, L, edge_dim], confidence, plddt [L], pos14 [L, 14, 3]):
     all but the edge whole, the same on every rank. Each stage runs under a
-    profiler range named for it."""
+    span named for it (``utils.logging.span``)."""
     fasta, mask = p_msa[0], p_msa_mask[0]
     cyc = model.omega_fold_cycle
-    with _span("plm_and_embedders"):
+    with span("omegafold.plm_and_embedders"):
         node, edge = deep_sequence_embed(model, p_msa, p_msa_mask)
         node, edge = model.recycle_embedder(fasta, prev_node, prev_edge,
                                             prev_x, node, edge)
-    with _span("geoformer"):
+    with span("omegafold.geoformer"):
         node, edge, final_node = cyc.geoformer(node, edge, p_msa_mask,
                                                pad_safe=pad_safe)
     L = fasta.shape[-1]
     node0 = sp.gather_replicated(node[0], L, dim=0)
-    with _span("structure_module"):
+    with span("omegafold.structure_module"):
         node_struct, (rots, trans), torsions = cyc.structure_module(
             sp.gather_replicated(final_node[0], L, dim=0),
             sp.gather_replicated(edge, L, dim=0), mask)
-    with _span("atom14_and_confidence"):
+    with span("omegafold.atom14_and_confidence"):
         pos14, _ = atoms.frames_and_torsions_to_atom14(
             rots, trans, mask.bool(), torsions.float(), fasta)
         plddt = cyc.confidence_head(node_struct)
@@ -208,7 +210,10 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
     if given, sees each cycle's outputs as it ends (edge: this rank's
     rows).
 
-    Under sequence parallelism every rank returns the same Embedding."""
+    Under sequence parallelism every rank returns the same Embedding.
+    Spans: each cycle runs under ``omegafold.cycle``, its inputs' copies to
+    the device under ``omegafold.inputs``; the final gather and the host's
+    reads of the choice and the confidences under ``omegafold.readback``."""
     w = model.plm_node_embedder.weight
     dev, act = w.device, w.dtype
     cfg = model.cfg
@@ -222,34 +227,38 @@ def omegafold_embed(model: OmegaFold, cycle_inputs, *,
     best_node, best_edge, confs = prev_node, prev_edge, []
     best_pos14 = best_plddt = None
     for i, cyc in enumerate(cycle_inputs):
-        p_msa = torch.as_tensor(cyc["p_msa"], device=dev)
-        mask = torch.as_tensor(cyc["p_msa_mask"], device=dev).to(act)
-        node, edge, conf, plddt, pos14 = omegafold_cycle(
-            model, p_msa, mask, prev_node, prev_edge, prev_x,
-            pad_safe=pad_safe)
-        prev_node, prev_edge, prev_x = node.to(act), edge.to(act), pos14.to(act)
-        if on_cycle is not None:
-            on_cycle(i, node, edge, conf)
-        conf = sp.rank0(conf)  # one choice on every rank
-        better = conf > best_conf
-        if i == 0 or not predict_with_confidence:  # this cycle fills them
-            better = torch.ones_like(better)
-        best_node = torch.where(better, prev_node, best_node)
-        best_edge = torch.where(better, prev_edge, best_edge)
-        best_cycle = torch.where(better, i, best_cycle)
-        if return_structure:
-            pos14, plddt = pos14.float(), plddt.float()
-            best_pos14 = pos14 if i == 0 else torch.where(better, pos14,
-                                                          best_pos14)
-            best_plddt = plddt if i == 0 else torch.where(better, plddt,
-                                                          best_plddt)
-        best_conf = torch.where(conf > best_conf, conf.float(), best_conf)
-        confs.append(conf.float())
-    best_edge = sp.gather_replicated(best_edge, L, dim=0)
-    return Embedding(edge=best_edge.float(), node=best_node.float(),
-                     confidence=float(best_conf), cycle=int(best_cycle),
-                     confidences=torch.stack(confs).tolist(),
-                     pos14=best_pos14, plddt=best_plddt)
+        with span("omegafold.cycle"):
+            with span("omegafold.inputs"):
+                p_msa = torch.as_tensor(cyc["p_msa"], device=dev)
+                mask = torch.as_tensor(cyc["p_msa_mask"], device=dev).to(act)
+            node, edge, conf, plddt, pos14 = omegafold_cycle(
+                model, p_msa, mask, prev_node, prev_edge, prev_x,
+                pad_safe=pad_safe)
+            prev_node, prev_edge = node.to(act), edge.to(act)
+            prev_x = pos14.to(act)
+            if on_cycle is not None:
+                on_cycle(i, node, edge, conf)
+            conf = sp.rank0(conf)  # one choice on every rank
+            better = conf > best_conf
+            if i == 0 or not predict_with_confidence:  # this cycle fills them
+                better = torch.ones_like(better)
+            best_node = torch.where(better, prev_node, best_node)
+            best_edge = torch.where(better, prev_edge, best_edge)
+            best_cycle = torch.where(better, i, best_cycle)
+            if return_structure:
+                pos14, plddt = pos14.float(), plddt.float()
+                best_pos14 = pos14 if i == 0 else torch.where(
+                    better, pos14, best_pos14)
+                best_plddt = plddt if i == 0 else torch.where(
+                    better, plddt, best_plddt)
+            best_conf = torch.where(conf > best_conf, conf.float(), best_conf)
+            confs.append(conf.float())
+    with span("omegafold.readback"):
+        best_edge = sp.gather_replicated(best_edge, L, dim=0)
+        return Embedding(edge=best_edge.float(), node=best_node.float(),
+                         confidence=float(best_conf), cycle=int(best_cycle),
+                         confidences=torch.stack(confs).tolist(),
+                         pos14=best_pos14, plddt=best_plddt)
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,10 @@ tensor cores, three TF32 passes at 495 TFLOP/s plus the elementwise work,
 ``geom_launches`` and ``node_launches`` count the kernel launches of this
 process, ``geom_launches_128`` and ``node_launches_128`` those of them in
 the 128-row instance; a run that must show the kernels were on its path
-sets them to 0 before and reads them after.
+sets them to 0 before and reads them after. Each wrapper's whole call (the
+plain path and the launch alike) runs under a span named for it,
+``ops.geom_attention`` or ``ops.node_attention`` (``utils.logging.span``),
+where a profile reads the kernels' device time.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ import functools
 import torch
 
 from dynamicpdb_tpu_torch.ops.ipa_attention import _device_of
+from dynamicpdb_tpu_torch.utils.logging import span
 
 geom_launches = 0
 node_launches = 0
@@ -267,17 +271,18 @@ def fused_gated_geom_attention_t(stacked_t, qg_w, qg_b, kv_w, kv_b, bias, *,
     gated output [B, n_axis, H, L, c] (before the output projection) in
     stacked_t's dtype."""
     global geom_launches, geom_launches_128
-    args = (stacked_t, qg_w, qg_b, kv_w, kv_b, bias)
-    device = _device_of("geom_attention", args)
-    if device.type == "cpu":
-        return geom_attention_plain(*args, c=c, scale=scale)
-    B, R, L, _ = stacked_t.shape
-    rows = tile_rows(L)
-    out = _cuda_call("geom_attention", stacked_t, qg_w, qg_b, kv_w, kv_b,
-                     bias, None, c, scale, rows)
-    geom_launches += 1
-    geom_launches_128 += rows == 128
-    return out.reshape(B, R, qg_w.shape[2], L, c)
+    with span("ops.geom_attention"):
+        args = (stacked_t, qg_w, qg_b, kv_w, kv_b, bias)
+        device = _device_of("geom_attention", args)
+        if device.type == "cpu":
+            return geom_attention_plain(*args, c=c, scale=scale)
+        B, R, L, _ = stacked_t.shape
+        rows = tile_rows(L)
+        out = _cuda_call("geom_attention", stacked_t, qg_w, qg_b, kv_w, kv_b,
+                         bias, None, c, scale, rows)
+        geom_launches += 1
+        geom_launches_128 += rows == 128
+        return out.reshape(B, R, qg_w.shape[2], L, c)
 
 
 def fused_gated_node_attention(node, qg_w, qg_b, kv_w, kv_b, bias, kmask, *,
@@ -291,13 +296,14 @@ def fused_gated_node_attention(node, qg_w, qg_b, kv_w, kv_b, bias, kmask, *,
     Returns the gated output [M, H, Lq, c] (before the output projection)
     in node's dtype."""
     global node_launches, node_launches_128
-    args = (node, qg_w, qg_b, kv_w, kv_b, bias, kmask)
-    device = _device_of("node_attention", args)
-    if device.type == "cpu":
-        return node_attention_plain(*args, c=c, scale=scale, q0=q0)
-    rows = tile_rows(bias.shape[1])
-    out = _cuda_call("node_attention", node[:, None], qg_w, qg_b, kv_w, kv_b,
-                     bias[None], kmask, c, scale, rows, q0)
-    node_launches += 1
-    node_launches_128 += rows == 128
-    return out
+    with span("ops.node_attention"):
+        args = (node, qg_w, qg_b, kv_w, kv_b, bias, kmask)
+        device = _device_of("node_attention", args)
+        if device.type == "cpu":
+            return node_attention_plain(*args, c=c, scale=scale, q0=q0)
+        rows = tile_rows(bias.shape[1])
+        out = _cuda_call("node_attention", node[:, None], qg_w, qg_b, kv_w,
+                         kv_b, bias[None], kmask, c, scale, rows, q0)
+        node_launches += 1
+        node_launches_128 += rows == 128
+        return out

@@ -8,14 +8,17 @@ confidence as ``{name}.npz``, the files DFOLD reads.
     python -m dynamicpdb_tpu_torch.preprocess.extract_embeddings \
         --fasta seqs.fasta --out-dir embeds/ --weights release.pt \
         [--num-cycles 10] [--num-pseudo-msa 15] [--dtype float32|bfloat16] \
-        [--pad-multiple 32] [--device cuda]
+        [--pad-multiple 32] [--device cuda] [--profile-dir DIR]
 
 ``--weights`` is a ``torch.save``d reference-layout OmegaFold state dict
 (or a ``{'model': state_dict}`` wrapper, 'module.' prefixes allowed); its
 dimensions come from the tensors' shapes. ``--flash`` and ``--no-scan`` are
 accepted for the JAX CLI's command lines and select nothing: the fused
 attention kernels always run on the card, and the best cycle is always
-selected on the device.
+selected on the device. ``--profile-dir DIR`` profiles the run (the
+program's spans, the CUDA runtime calls and the device's work, no
+operator: ``utils.logging.profile_trace``) and writes ``DIR/trace.json``,
+a Chrome trace (chrome://tracing, Perfetto).
 
 The JAX module's ``resolve_dtype_flash`` picks the Pallas kernel by
 backend; here the fused CUDA kernels always run on the card.
@@ -35,7 +38,11 @@ from dynamicpdb_tpu_torch.models.omegafold.model import (
     omegafold_embed,
     omegafold_from_state_dict,
 )
-from dynamicpdb_tpu_torch.models.omegafold.pipeline import fasta2inputs
+from dynamicpdb_tpu_torch.models.omegafold.pipeline import (
+    fasta2inputs,
+    parse_fasta,
+)
+from dynamicpdb_tpu_torch.utils.logging import profile_trace, span
 from dynamicpdb_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger(__name__)
@@ -59,19 +66,28 @@ def extract_embeddings(fasta_lines, model: OmegaFold, *, num_cycles: int = 10,
     (masked so padding cannot perturb real positions) and slices the
     outputs back to its length. ``stats``: n_res, padded length, seconds
     (host clock, the reprs on the host), the selected cycle and every
-    cycle's confidence."""
-    for name, cycles in fasta2inputs(fasta_lines,
-                                     num_pseudo_msa=num_pseudo_msa,
-                                     num_cycle=num_cycles,
-                                     pad_multiple=pad_multiple):
+    cycle's confidence.
+
+    Spans (``utils.logging.span``): building a sequence's cycles runs under
+    ``extract.pipeline``, the reprs' copies to the host under
+    ``extract.fetch``."""
+    fasta_lines = list(fasta_lines)
+    inputs = fasta2inputs(fasta_lines, num_pseudo_msa=num_pseudo_msa,
+                          num_cycle=num_cycles, pad_multiple=pad_multiple)
+    # one next() a record, so the span holds a sequence's cycles and never
+    # the call that finds the generator's end
+    for _ in parse_fasta(fasta_lines):
+        with span("extract.pipeline"):
+            name, cycles = next(inputs)
         t0 = time.perf_counter()
         emb = omegafold_embed(model, cycles, pad_safe=bool(pad_multiple))
         n = cycles[0].get("num_res", emb.node.shape[0])
-        arrays = {
-            "node_repr": emb.node[:n].cpu().numpy(),
-            "edge_repr": emb.edge[:n, :n].cpu().numpy(),
-            "confidence": np.float32(emb.confidence),
-        }
+        with span("extract.fetch"):
+            arrays = {
+                "node_repr": emb.node[:n].cpu().numpy(),
+                "edge_repr": emb.edge[:n, :n].cpu().numpy(),
+                "confidence": np.float32(emb.confidence),
+            }
         stats = dict(name=name, n_res=n, padded=cycles[0]["p_msa"].shape[-1],
                      seconds=time.perf_counter() - t0, cycle=emb.cycle,
                      confidences=emb.confidences)
@@ -112,6 +128,8 @@ def main(argv=None) -> list[dict]:
     stats (see ``extract_embeddings``)."""
     parser = argparse.ArgumentParser(description=__doc__)
     add_omegafold_cli_args(parser)
+    parser.add_argument("--profile-dir", default=None,
+                        help="profile the run and write DIR/trace.json")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -122,14 +140,17 @@ def main(argv=None) -> list[dict]:
     with open(args.fasta) as f:
         lines = f.readlines()
     records = []
-    for name, arrays, stats in extract_embeddings(
-            lines, model, num_cycles=args.num_cycles,
-            num_pseudo_msa=args.num_pseudo_msa,
-            pad_multiple=args.pad_multiple):
-        out = os.path.join(args.out_dir, f"{name}.npz")
-        np.savez_compressed(out, **arrays)
-        log.info("wrote %s", out)
-        records.append(dict(stats, path=out))
+    with profile_trace(args.profile_dir):
+        for name, arrays, stats in extract_embeddings(
+                lines, model, num_cycles=args.num_cycles,
+                num_pseudo_msa=args.num_pseudo_msa,
+                pad_multiple=args.pad_multiple):
+            out = os.path.join(args.out_dir, f"{name}.npz")
+            np.savez_compressed(out, **arrays)
+            log.info("wrote %s", out)
+            records.append(dict(stats, path=out))
+    if args.profile_dir:
+        log.info("wrote %s", os.path.join(args.profile_dir, "trace.json"))
     return records
 
 

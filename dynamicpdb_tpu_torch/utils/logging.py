@@ -1,12 +1,16 @@
-"""Metrics: an append-only JSON-lines stream, a steps/sec timer and a
-profiler trace.
+"""Metrics: an append-only JSON-lines stream, a steps/sec timer, the
+program's profiler spans and a profiler trace.
 
 Port of ``dynamicpdb_tpu/utils/logging.py``. Records go to
 ``<log_dir>/metrics.jsonl``, one JSON object per line with ``step``,
 ``time`` and the metrics as floats, and ``read_metrics`` reads them back;
-there is no TensorBoard mirror. ``profile_trace`` runs ``torch.profiler``
-where the JAX package runs ``jax.profiler`` and writes a Chrome trace
-(chrome://tracing, Perfetto) instead of an xprof one.
+there is no TensorBoard mirror. ``profile_trace`` runs the PyTorch
+profiler where the JAX package runs ``jax.profiler`` and writes a Chrome
+trace (chrome://tracing, Perfetto) instead of an xprof one.
+
+``span(name)`` marks a layer boundary of the program (``extract.*``,
+``omegafold.*``, ``ops.*``): a profiler range while a profiler runs, so it
+lies on the device trace's clock, and one branch otherwise.
 """
 from __future__ import annotations
 
@@ -15,6 +19,11 @@ import json
 import os
 import time
 from typing import Any
+
+import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class MetricsWriter:
@@ -38,23 +47,50 @@ def read_metrics(log_dir: str) -> list[dict]:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def span(name: str):
+    """A profiler range ``name`` around the block while a profiler runs
+    (``profile_trace``, ``torch.profiler.profile``); a shared no-op
+    context otherwise, so an unprofiled call never enters the profiler."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None):
-    """Profile the block (CPU, and CUDA when a card is present) and write
-    ``<log_dir>/trace.json`` at its end; nothing when ``log_dir`` is
-    empty."""
+    """Profile the block and write ``<log_dir>/trace.json`` (a Chrome
+    trace) at its end; nothing when ``log_dir`` is empty.
+
+    A light profile: the program's spans (``span``), and with a card the
+    CUDA runtime calls and the device's kernels, copies and sets, each
+    runtime call with the correlation id of the device work it issued; no
+    operator is recorded. The spans' and the device's timestamps share one
+    clock. The profiler's public interface records every operator, so the
+    profiler is enabled here through its private entry points with only
+    the user scope (``torch.profiler.record_function``) kept."""
     if not log_dir:
         yield
         return
-    import torch
+    from torch._C import _autograd, _profiler
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    activities = {_profiler.ProfilerActivity.CPU}
+    cuda = torch.cuda.is_available()
+    if cuda:
+        activities.add(_profiler.ProfilerActivity.CUDA)
+    config = _profiler.ProfilerConfig(
+        _profiler.ProfilerState.KINETO, False, False, False, False, False,
+        _profiler._ExperimentalConfig())
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    _autograd._prepare_profiler(config, activities)
+    _autograd._enable_profiler(config, activities,
+                               {_profiler.RecordScope.USER_SCOPE})
+    try:
         yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        result = _autograd._disable_profiler()
+    result.save(os.path.join(log_dir, "trace.json"))
 
 
 class StepTimer:

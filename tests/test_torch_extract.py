@@ -176,3 +176,73 @@ def test_chip_smoke_extract_phase_rehearsal(tmp_path, dtype):
                                    dtype=dtype)
     assert out["launches"] == {"geom_attention": 0, "node_attention": 0}
     assert [r["n_res"] for r in out["records"]] == [13, 19]
+
+
+def _span_counts(path) -> dict:
+    """Events of each name in a Chrome trace written by ``profile_trace``."""
+    import json
+    from collections import Counter
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return Counter(e["name"] for e in events if e.get("ph") == "X")
+
+
+def test_spans_never_enter_the_profiler_when_none_runs(weights,  # noqa: F811
+                                                       monkeypatch):
+    from dynamicpdb_tpu_torch.utils import logging as plogging
+
+    def refuse(name):
+        raise AssertionError(f"span {name!r} entered the profiler")
+
+    monkeypatch.setattr(plogging, "record_function", refuse)
+    out = list(cli.extract_embeddings(FASTA, weights[3], num_cycles=2,
+                                      num_pseudo_msa=2))
+    assert [name for name, _, _ in out] == ["short", "long"]
+
+
+def test_profile_trace_holds_every_span_and_no_op(weights,  # noqa: F811
+                                                  tmp_path):
+    """Under the light profile each span of the extraction path appears as
+    often as its layer runs, and no operator is recorded."""
+    from dynamicpdb_tpu_torch.utils.logging import profile_trace
+
+    model, cycles = weights[3], 2
+    with profile_trace(str(tmp_path)):
+        out = list(cli.extract_embeddings(FASTA, model, num_cycles=cycles,
+                                          num_pseudo_msa=2))
+    counts = _span_counts(tmp_path / "trace.json")
+    seqs = len(out)
+    blocks = model.cfg.geo_num_blocks * seqs * cycles
+    assert {k: v for k, v in counts.items()
+            if k.startswith(("extract.", "omegafold.", "ops."))} == {
+        "extract.pipeline": seqs, "extract.fetch": seqs,
+        "omegafold.cycle": seqs * cycles, "omegafold.inputs": seqs * cycles,
+        "omegafold.plm": seqs * cycles,
+        "omegafold.plm_and_embedders": seqs * cycles,
+        "omegafold.geoformer": seqs * cycles,
+        "omegafold.structure_module": seqs * cycles,
+        "omegafold.atom14_and_confidence": seqs * cycles,
+        "omegafold.readback": seqs,
+        **{f"omegafold.{step}": blocks for step in (
+            "attention_w_edge_bias", "column_attention", "node_transition",
+            "out_product", "geometric_attention", "edge_transition")},
+        "ops.geom_attention": model.cfg.geom_count * blocks,
+        "ops.node_attention": blocks,
+    }
+    assert not [k for k in counts if k.startswith("aten::")]
+
+
+def test_cli_profile_dir_writes_the_trace(tmp_path):
+    torch.save({k: torch.tensor(v) for k, v in random_omegafold_state_dict(
+        cli_cfg(), 6).items()}, tmp_path / "w.pt")
+    fasta = tmp_path / "seqs.fasta"
+    fasta.write_text("".join(FASTA))
+    records = cli.main(["--fasta", str(fasta), "--out-dir",
+                        str(tmp_path / "out"), "--weights",
+                        str(tmp_path / "w.pt"), "--num-cycles", "1",
+                        "--num-pseudo-msa", "1", "--device", "cpu",
+                        "--profile-dir", str(tmp_path / "prof")])
+    counts = _span_counts(tmp_path / "prof" / "trace.json")
+    assert counts["extract.fetch"] == len(records) == 2
+    assert counts["omegafold.cycle"] == 2

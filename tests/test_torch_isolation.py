@@ -101,7 +101,6 @@ def test_extraction_modules_load_without_jax():
     code = (
         "import sys\n"
         "import dynamicpdb_tpu_torch.preprocess.extract_embeddings\n"
-        "import dynamicpdb_tpu_torch.tools.profile_extract\n"
         "import dynamicpdb_tpu_torch.ops.geom_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('jaxlib',)!r}]\n"

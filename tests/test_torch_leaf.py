@@ -88,14 +88,45 @@ def test_read_metrics_reads_what_both_write(tmp_path):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The light profile keeps the program's spans and drops the ops."""
     with plogging.profile_trace(None):
         pass  # nothing to write
+    assert plogging.span("leaf.none") is plogging.span("leaf.none")
     with plogging.profile_trace(str(tmp_path / "prof")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        for _ in range(3):
+            with plogging.span("leaf.matmul"):
+                torch.tanh(torch.ones(64, 64) @ torch.ones(64, 64))
+    assert not torch.autograd._profiler_enabled()
     with open(tmp_path / "prof" / "trace.json") as f:
         trace = json.load(f)
-    names = {e.get("name") for e in trace["traceEvents"]}
-    assert "aten::mm" in names
+    names = [e.get("name") for e in trace["traceEvents"]
+             if e.get("ph") == "X"]
+    assert names.count("leaf.matmul") == 3
+    assert not [n for n in names if n.startswith("aten::")]
+
+
+def test_profile_trace_private_entry_points_keep_their_signatures():
+    """``profile_trace`` enables the profiler through torch's private
+    entry points (the public one records every op); a torch whose
+    signatures differ fails here, not in a profile."""
+    from torch._C import _autograd, _profiler
+
+    def params(fn):
+        head = fn.__doc__.splitlines()[0]
+        inner = head[head.index("(") + 1:head.rindex(")")]
+        return [p.split(":")[0].strip() for p in inner.split(", ") if p]
+
+    assert params(_autograd._prepare_profiler)[:2] == ["config",
+                                                       "activities"]
+    assert params(_autograd._enable_profiler) == ["config", "activities",
+                                                  "scopes"]
+    assert params(_autograd._disable_profiler) == []
+    assert "_ProfilerResult" in _autograd._disable_profiler.__doc__
+    assert hasattr(_autograd._ProfilerResult, "save")
+    assert params(_profiler.ProfilerConfig.__init__)[:8] == [
+        "self", "state", "report_input_shapes", "profile_memory",
+        "with_stack", "with_flops", "with_modules", "experimental_config"]
+    assert hasattr(_profiler.RecordScope, "USER_SCOPE")
 
 
 def test_compile_cache_points_the_kernel_build_dir(tmp_path, monkeypatch,
