@@ -1416,6 +1416,207 @@ def geom_rect_phase(torch, device, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: GeometricAttention's triangle-multiplicative route
+# ---------------------------------------------------------------------------
+TRI_D = 128  # the release edge width, the one the kernels are built for
+# (label, L, (q0, Lr) or None, masked tail, pad_safe): the release square
+# call; a ragged L with its padded tail masked as pad_safe masks it; the
+# short calls of phase 11a; a 'seq' rank's rows 128-255 of the release
+# window, pad_safe; rank 1's rows of a ragged 203 (its last a pad row)
+TRI_CASES = (("release", 256, None, 0, False),
+             ("ragged pad_safe", 203, None, 11, True),
+             ("L 96", 96, None, 0, False),
+             ("rows 128-255 pad_safe", 256, (128, 128), 32, True),
+             ("ragged rows 102-203", 203, (102, 102), 0, False))
+# float32 on both sides, sums of 128 and 256 terms in another order, then
+# a LayerNorm that rescales ab by ~1/4 at these inputs: 1e-4 on unit-scale
+# outputs, as the attention kernels. bfloat16: the route computes in
+# float32 from the bf16 values and rounds its result once, so it is held
+# against the plain version run in float32 on the same bf16 values, whose
+# result rounded to bf16 may differ by one bf16 step: 2^-7 |want| on top
+# (the plain version in bf16 rounds every intermediate to bf16 instead).
+TRI_ATOL = 1e-4
+TRI_BF16_RTOL = 2.0 ** -7
+TRI_KERNELS = ("tri_proj", "tri_mm", "tri_out")
+
+
+def triangle_inputs(torch, device, L: int, dtype, seed: int, *,
+                    rows: tuple | None = None, masked: int = 0) -> dict:
+    """Seeded inputs of ``geom_triangle`` at the release width: the whole
+    normalised edge ~ N(0, 1) [L, L, d], a rank's rows [q0, q0 + Lr) of it
+    as ``edge`` (pad rows past L ~ N(0, 1): the model's pad rows hold
+    values too; ``edge`` is ``whole`` for the square call), attended ~ N(0,
+    1), the mask with its last ``masked`` residues 0, weights ~ N(0, 1/d)
+    and biases ~ N(0, 0.1^2), all in ``dtype`` but the float32 mask."""
+    d = TRI_D
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device)
+                * scale).to(dtype)
+
+    whole = rnd(L, L, d)
+    q0, Lr = rows or (0, L)
+    edge = whole
+    if rows:
+        real = whole[q0:min(q0 + Lr, L)]
+        edge = torch.cat([real, rnd(Lr - real.shape[0], L, d)])
+    mask = torch.ones(L, device=device)
+    mask[L - masked:] = 0.0
+    return dict(edge=edge, whole=whole, attended=rnd(Lr, L, d), mask=mask,
+                act_w=rnd(d, 2, 5 * d, scale=d ** -0.5),
+                act_b=rnd(2, 5 * d, scale=0.1),
+                out_proj_w=rnd(2, d, d, scale=d ** -0.5),
+                out_proj_b=rnd(2, d, scale=0.1), q0=q0)
+
+
+TRI_ARGS = ("edge", "whole", "attended", "mask", "act_w", "act_b",
+            "out_proj_w", "out_proj_b")
+
+
+def triangle_call(mod, inp: dict, pad_safe: bool, plain: bool):
+    """The route (or its plain version) on ``inp``; the plain version of a
+    bf16 call runs in float32 on the same values and rounds its result
+    (TRI_BF16_RTOL says why)."""
+    args = [inp[k] for k in TRI_ARGS]
+    if not plain:
+        return mod.geom_triangle(*args, q0=inp["q0"], pad_safe=pad_safe)
+    out = mod.geom_triangle_plain(*(a.float() for a in args), q0=inp["q0"],
+                                  pad_safe=pad_safe)
+    return out.to(inp["attended"].dtype)
+
+
+def triangle_error(got, want) -> tuple[float, float]:
+    """(max_abs_err, how far past its tolerance: <= 0 passes)."""
+    import torch
+
+    w = want.float()
+    err = (got.float() - w).abs()
+    rtol = TRI_BF16_RTOL if got.dtype == torch.bfloat16 else 0.0
+    return float(err.max()), float((err - rtol * w.abs() - TRI_ATOL).max())
+
+
+def triangle_cost(L: int) -> dict:
+    """{kernel: (products, bytes)} of one square float32 call at the release
+    width: products are 2 operations a multiply-add, at the unpadded
+    length; bytes count each input read once and each output written once,
+    the kernels' float32 operands at their padded length Lp."""
+    from dynamicpdb_tpu_torch.ops.geom_triangle import padded_length
+
+    d, Lp, f = TRI_D, padded_length(L), 4
+    x = f * L * L * d  # the edge, attended or out
+    weights = f * (d * 2 * 5 * d + 2 * 5 * d + 2 * d * d + 2 * d + L)
+    act = f * 2 * d * 2 * L * Lp  # act_row and act_col
+    ab = f * 2 * d * L * Lp
+    return {
+        "tri_proj": (2 * 2 * 2 * L * L * d * 2 * d, x + weights + act),
+        "tri_mm": (2 * 2 * d * L * L * L, act + ab),
+        "tri_out": (2 * 2 * L * L * 2 * d * d, ab + 3 * x + weights),
+    }
+
+
+def triangle_kernel_ms(torch, mod, inp: dict, kernel: str, reps: int,
+                       pad_safe: bool = False) -> float:
+    """The time of one of the route's kernels alone (``mod.launch`` with
+    only ``kernel``; its operands prepared once, its input tensors as
+    torch.empty left them), ``reps`` launches."""
+    ops = mod.kernel_inputs(*(inp[k] for k in TRI_ARGS), q0=inp["q0"])
+    return time_ms(torch, lambda: mod.launch(ops, q0=inp["q0"],
+                                             pad_safe=pad_safe,
+                                             kernels=(kernel,)), reps)
+
+
+def triangle_counts(mod) -> dict:
+    """The route's counters of ``ops.geom_triangle``: its calls on the card
+    (``geom_triangle``) and each kernel's launches."""
+    return {"geom_triangle": mod.triangle_launches,
+            **{k: getattr(mod, f"{k}_launches") for k in TRI_KERNELS}}
+
+
+def reset_triangle_counts(mod) -> None:
+    mod.triangle_launches = 0
+    for k in TRI_KERNELS:
+        setattr(mod, f"{k}_launches", 0)
+
+
+def triangle_phase(torch, device, card: str) -> list[dict]:
+    """The route against its plain version at TRI_CASES in float32 and
+    bfloat16, each rectangular call's real rows against the square call's
+    bit for bit; then, at the release shapes in float32, the route through
+    its wrapper, each kernel alone and the plain version (the einsum
+    branch the route replaces), with each kernel's bounds. Returns one
+    report a kernel (``launches`` filled by phase 5)."""
+    from dynamicpdb_tpu_torch.ops import geom_triangle as mod
+
+    worst = 0.0
+    for label, L, rows, masked, pad_safe in TRI_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed = 60 + L + (dtype == torch.bfloat16)
+            inp = triangle_inputs(torch, device, L, dtype, seed, rows=rows,
+                                  masked=masked)
+            before = [getattr(mod, f"{k}_launches") for k in TRI_KERNELS]
+            got = triangle_call(mod, inp, pad_safe, plain=False)
+            torch.cuda.synchronize()
+            after = [getattr(mod, f"{k}_launches") for k in TRI_KERNELS]
+            check(after == [b + 1 for b in before], f"geom_triangle "
+                  f"{label}: launches {before} -> {after}")
+            want = triangle_call(mod, inp, pad_safe, plain=True)
+            check(got.dtype == dtype and got.shape == want.shape,
+                  f"geom_triangle {label}: {got.dtype} {tuple(got.shape)}, "
+                  f"want {dtype} {tuple(want.shape)}")
+            err, over = triangle_error(got, want)
+            tol = "1e-4" if dtype == torch.float32 else "1e-4 + 2^-7 |want|"
+            print(f"kernel geom_triangle {label} L={L} {str(dtype)[6:]}: "
+                  f"max_abs_err {err:.3e} (tol {tol}; scale "
+                  f"{float(want.float().abs().max()):.3f})")
+            check(over <= 0, f"geom_triangle {label} {dtype}: max_abs_err "
+                  f"{err} out of tolerance")
+            if rows:
+                # a row's arithmetic does not depend on the rows beside it
+                q0, n = rows[0], min(rows[1], L - rows[0])
+                square = dict(inp, edge=inp["whole"], q0=0, attended=torch.cat(
+                    [inp["whole"][:q0], inp["attended"][:n],
+                     inp["whole"][q0 + n:]]))
+                same = torch.equal(triangle_call(mod, square, pad_safe,
+                                                 plain=False)[q0:q0 + n],
+                                   got[:n])
+                print(f"kernel geom_triangle {label} {str(dtype)[6:]}: real "
+                      f"rows equal to the square call's bit for bit: {same}")
+                check(same, f"geom_triangle {label} {dtype}: not the square "
+                      "call's rows bit for bit")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            del inp, got, want
+    inp = triangle_inputs(torch, device, 256, torch.float32, seed=7)
+    ms = time_ms(torch, lambda: triangle_call(mod, inp, False, plain=False),
+                 20)
+    plain_ms = time_ms(torch, lambda: triangle_call(mod, inp, False,
+                                                    plain=True), 5)
+    reports = []
+    for kernel, (prods, nbytes) in triangle_cost(256).items():
+        rep = {
+            "name": kernel, "route": "cuda",
+            "source": "dynamicpdb_tpu_torch/csrc/geom_triangle.cu",
+            "replaces": None, "launches": None, "max_abs_err": worst,
+            # the route's three kernels through the wrapper, and the einsum
+            # branch it replaces, on the card
+            "ms_route": ms, "plain_ms": plain_ms,
+            "ms_kernel": triangle_kernel_ms(torch, mod, inp, kernel, 20),
+            **bounds(prods, 0.0, nbytes),
+        }
+        reports.append(rep)
+        print(f"kernel {kernel} release float32: {rep['ms_kernel']:.4f} ms "
+              f"alone, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}: "
+              f"{prods / 1e9:.3f} GFLOP of products, {nbytes / 1e6:.2f} MB), "
+              f"tensor-core bound {rep['tc_bound_ms']:.4f} ms "
+              f"({rep['tc_bound_by']}) [{card}]")
+    print(f"kernel geom_triangle release float32: {ms:.4f} ms through the "
+          f"wrapper (three kernels), the einsum branch it replaces "
+          f"{plain_ms:.4f} ms; warm L2 [{card}]")
+    return reports
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
 def _post(base: str, raw: dict, query: str, timeout: float = 600):
@@ -3404,11 +3605,13 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
     CLI's main on random sequences of ``lengths``. Checks every npz against
     the DFOLD contract (validate) and the kernel launch counts (every
     cycle runs each GeoFormer block's attention with edge bias once and its
-    geom_count geometric attentions; none on the CPU). Returns the records,
+    geom_count geometric attentions, each of those also running the
+    triangle route's three kernels; none on the CPU). Returns the records,
     counts, parameter count, peak device memory and the npz arrays."""
     import torch
 
     from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
     from dynamicpdb_tpu_torch.preprocess import extract_embeddings as cli
     from dynamicpdb_tpu_torch.preprocess.embeddings import validate
     from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
@@ -3431,6 +3634,7 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    reset_triangle_counts(tri_mod)
     t0 = time.perf_counter()
     records = cli.main(["--fasta", fasta, "--out-dir", out_dir, "--weights",
                         ckpt, "--num-cycles", str(num_cycles),
@@ -3439,12 +3643,14 @@ def extract_phase(device: str, cfg, *, lengths, num_cycles: int,
                         device, "--dtype", dtype])
     wall = time.perf_counter() - t0
     launched = {"geom_attention": geom_mod.geom_launches,
-                "node_attention": geom_mod.node_launches}
+                "node_attention": geom_mod.node_launches,
+                **triangle_counts(tri_mod)}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     per_cycle = cfg.geo_num_blocks if on_card else 0
-    expect = {"geom_attention": len(lengths) * num_cycles * per_cycle
-              * cfg.geom_count,
-              "node_attention": len(lengths) * num_cycles * per_cycle}
+    geom = len(lengths) * num_cycles * per_cycle * cfg.geom_count
+    expect = {"geom_attention": geom,
+              "node_attention": len(lengths) * num_cycles * per_cycle,
+              **{k: geom for k in ("geom_triangle",) + TRI_KERNELS}}
     check(launched == expect, f"extract: kernel launches {launched}, "
           f"expected {expect}")
     check(sorted(r["n_res"] for r in records) == sorted(lengths),
@@ -3553,6 +3759,7 @@ def fold_phase(device: str, cfg, ckpt: str, *, lengths, num_cycles: int,
     from dynamicpdb_tpu_torch import fold_cli
     from dynamicpdb_tpu_torch.analysis.pdb_io import read_pdb
     from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
 
     rng = np.random.default_rng(seed + 100)
     seqs = {f"fold{i}_{n}": "".join(rng.choice(list(RESTYPES), n))
@@ -3565,6 +3772,7 @@ def fold_phase(device: str, cfg, ckpt: str, *, lengths, num_cycles: int,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     geom_mod.geom_launches = geom_mod.node_launches = 0  # the path starts
+    reset_triangle_counts(tri_mod)
     t0 = time.perf_counter()
     records = fold_cli.main(["--fasta", fasta, "--out-dir", out_dir,
                              "--weights", ckpt, "--num-cycles",
@@ -3573,12 +3781,14 @@ def fold_phase(device: str, cfg, ckpt: str, *, lengths, num_cycles: int,
                              str(pad_multiple), "--device", device])
     wall = time.perf_counter() - t0
     launched = {"geom_attention": geom_mod.geom_launches,
-                "node_attention": geom_mod.node_launches}
+                "node_attention": geom_mod.node_launches,
+                **triangle_counts(tri_mod)}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     per_cycle = cfg.geo_num_blocks if on_card else 0
-    expect = {"geom_attention": len(lengths) * num_cycles * per_cycle
-              * cfg.geom_count,
-              "node_attention": len(lengths) * num_cycles * per_cycle}
+    geom = len(lengths) * num_cycles * per_cycle * cfg.geom_count
+    expect = {"geom_attention": geom,
+              "node_attention": len(lengths) * num_cycles * per_cycle,
+              **{k: geom for k in ("geom_triangle",) + TRI_KERNELS}}
     check(launched == expect, f"fold: kernel launches {launched}, expected "
           f"{expect}")
     check(sorted(r["name"] for r in records) == sorted(seqs),
@@ -3851,6 +4061,7 @@ def sp_omegafold_phase(torch, tmp: str, card: str, *, weights: str | None,
             # geom_attention every row of the window (the 256-row one)
             _, rows, window = got["rows"]
             want = {"geom_launches": n * blocks * cfg.geom_count,
+                    "triangle_launches": n * blocks * cfg.geom_count,
                     "node_launches": n * blocks,
                     "geom_launches_128": (n * blocks * cfg.geom_count
                                           if tile_rows(window) == 128 else 0),
@@ -4377,6 +4588,7 @@ def main() -> int:
         r["name"]: r for r in [fwd_report, wide_fwd_report] + bwd_reports})
     geom_reports = geom_kernel_phase(torch, device, card)
     geom_rect_reports = geom_rect_phase(torch, device, card)
+    tri_reports = triangle_phase(torch, device, card)
     print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 3: the serving path at release width
@@ -4543,6 +4755,9 @@ def main() -> int:
             rep["launches_pipeline_train"] = pipe["train"][key]
     check(ext["params"] == 795_074_210, f"extract: the release model has "
           f"{ext['params']:,} parameters, not 795,074,210")
+    for rep in tri_reports:
+        rep["launches"] = ext["launches"][rep["name"]]
+        rep["launches_fold"] = fold["launches"][rep["name"]]
     for rep in geom_reports:
         rep["launches"] = ext["launches"][rep["name"]]
         rep["launches_fold"] = fold["launches"][rep["name"]]
@@ -4558,7 +4773,7 @@ def main() -> int:
     print(f"fold: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
     reports = ([fwd_report, wide_fwd_report] + bwd_reports + geom_reports
-               + geom_rect_reports)
+               + geom_rect_reports + tri_reports)
     for rep in reports:
         check(rep["launches"] > 0, f"{rep['name']} never launched on its "
               "main path")

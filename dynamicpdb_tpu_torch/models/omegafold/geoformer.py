@@ -27,8 +27,9 @@ node holds this rank's residues [M, Lr, d], edge its query rows
     all-to-all). The triangle product needs act_col of every residue j,
     made from edge row j and edge column j: the rank gathers the
     normalised edge (L^2 de numbers) rather than act_col itself (2 L^2 de)
-    and projects every j's act_col from it, a row block at a time; the
-    whole edge also gives the rank its rows of the column view. Against an
+    and projects every j's act_col from it (``ops/geom_triangle``: in one
+    launch on the card, a row block at a time on the CPU); the whole edge
+    also gives the rank its rows of the column view. Against an
     all-to-all column view of the edge and a gathered act_col, a rank
     receives half the numbers, in three collectives instead of four;
   * column attention and the transitions are local.
@@ -51,6 +52,7 @@ from dynamicpdb_tpu_torch.ops.geom_attention import (
     fused_gated_geom_attention_t,
     fused_gated_node_attention,
 )
+from dynamicpdb_tpu_torch.ops.geom_triangle import geom_triangle
 from dynamicpdb_tpu_torch.parallel import sp
 from dynamicpdb_tpu_torch.utils.logging import span
 
@@ -188,17 +190,6 @@ class GeometricAttention(nn.Module):
                                    device=device)
 
 
-def _glu(x):
-    a, b = x.chunk(2, dim=-1)
-    return a * torch.sigmoid(b)
-
-
-def _sliced(w, d_edge: int, shift: int):
-    """act_w[..., :4d] unflattened to (4, d), rows [shift::2] -> (2d)."""
-    core = w[..., :4 * d_edge].reshape(w.shape[:-1] + (4, d_edge))
-    return core[..., shift::2, :].reshape(w.shape[:-1] + (2 * d_edge,))
-
-
 def geometric_attention(p: GeometricAttention, edge, mask, *,
                         pad_safe: bool = False):
     """edge [Lr, L, d], this rank's rows (all L outside sequence
@@ -209,11 +200,10 @@ def geometric_attention(p: GeometricAttention, edge, mask, *,
     ``pad_safe=True`` restores the key masking there and masks the
     triangle product's summed-out axis, so that padding cannot perturb
     real positions; with an all-ones mask it changes nothing."""
-    d, L = edge.shape[-1], mask.shape[-1]
+    L = mask.shape[-1]
     edge = _normalize(edge)
     whole = sp.gather_rows(edge, L, dim=0)  # [L, L, d]; edge itself at S 1
     cols = whole.transpose(0, 1)  # the column view: cols[j, k] = whole[k, j]
-    rows = sp.row_range(L)[1]
     # axis-major [Lr, 2, L, d]: the row and column views, as the kernel
     # reads them; the kernel's batch rows are this rank's rows
     stacked = torch.stack([edge, sp.take_rows(cols, L, 0)], dim=-3)
@@ -228,31 +218,10 @@ def geometric_attention(p: GeometricAttention, edge, mask, *,
     attended = _attn_out_proj(out5, a)
     attended = attended[..., 0] + sp.column_view(attended[..., 1], L)
 
-    # the triangle-multiplicative branch
-    m_all = mask.to(stacked.dtype)
-    m = sp.take_rows(m_all, L, 0)
-    row_w, row_b = _sliced(p.act_w, d, 0), _sliced(p.act_b, d, 0)
-    col_w, col_b = _sliced(p.act_w, d, 1), _sliced(p.act_b, d, 1)
-    act_row = _glu(torch.einsum("irkd,drc->ikrc", stacked, row_w) + row_b)
-    act_row = act_row * m[:, None, None, None]
-    if pad_safe:
-        act_row = act_row * m_all[None, :, None, None]
-
-    def col_act(x):  # x [j, 2, L, d] -> [j, L, 2, d]
-        return _glu(torch.einsum("jrkd,drc->jkrc", x, col_w) + col_b)
-
-    # every residue j's act_col; split, one row block at a time, so that
-    # no more than a block's [rows, L, 2, 2d] projection is alive at once
-    act_col = (col_act(stacked) if not sp.is_active() else torch.cat([
-        col_act(torch.stack([whole[j:j + rows], cols[j:j + rows]], dim=-3))
-        for j in range(0, L, rows)]))
-    act_col = act_col * m_all[:, None, None, None]
-    ab = _normalize(torch.einsum("ikrd,jkrd->ijrd", act_row, act_col))
-    gated = torch.einsum("ijrd,rdc->ijrc", ab, p.out_proj_w) + p.out_proj_b
-    act_g = torch.sigmoid(torch.einsum("irjd,drc->ijrc", stacked,
-                                       p.act_w[..., -d:]) + p.act_b[..., -d:])
-    gated = gated * act_g[:, : gated.shape[1]]
-    return attended + gated.sum(-2)
+    # the triangle-multiplicative branch, added to the attended one
+    return geom_triangle(edge, whole, attended, mask, p.act_w, p.act_b,
+                         p.out_proj_w, p.out_proj_b, q0=sp.row_range(L)[0],
+                         pad_safe=pad_safe)
 
 
 class GeoFormerBlock(nn.Module):

@@ -21,6 +21,15 @@ rows 128-255 of the release window), "rows-0-127", "ragged-rows-102-203",
 square calls at 96 residues). The inputs and the timer are
 ``chip_smoke.py``'s (``geom_inputs``, ``time_ms``), from this checkout.
 
+``--case triangle`` times GeometricAttention's triangle-multiplicative
+branch instead (``ops/geom_triangle.py`` of the package), at the release
+shapes in float32 (L 256, d 128, ``chip_smoke.triangle_inputs``): in each
+round the einsum branch it replaced (``geom_triangle_plain`` on the card),
+the route through its wrapper, the route again and the einsum branch
+again, then each of its three kernels alone, each against its bound
+max(3 x products / 495 TFLOP/s, compulsory bytes / 3.35 TB/s)
+(``chip_smoke.triangle_cost``, ``chip_smoke.bounds``' tensor-core bound).
+
 ``--package DIR`` times the ``dynamicpdb_tpu_torch`` package under DIR
 instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one session: run this script (as a script, not with
@@ -156,7 +165,7 @@ def _load(package: str, module: str = "geom_attention"):
 # --case: the release square calls, or a call of chip_smoke.GEOM_RECT_CASES
 # by its label, spaces as hyphens (both kernels where two share a label)
 CASES = ("release", "rows-128-255", "rows-0-127", "ragged-rows-102-203",
-         "rows-256-511", "B-128", "L-96")
+         "rows-256-511", "B-128", "L-96", "triangle")
 
 
 def case_inputs(smoke, device, case: str, dtype) -> list[tuple]:
@@ -219,6 +228,35 @@ def timings(smoke, mod, device, rounds: int, reps: int,
     return [{"case": case, "kernel": kind, "dtype": name,
              "tile_rows": _tile_rows(mod, inputs[(case, kind, name)]), **t}
             for (case, kind, name), t in times.items()]
+
+
+def triangle_timings(smoke, tri, device, rounds: int, reps: int) -> list:
+    """The triangle branch at the release shapes, float32: ``plain_ms``
+    (the einsum branch) and ``ms`` (the route through its wrapper), in the
+    order plain, route, route, plain each round, and each kernel alone
+    (``ms_kernel``), one value a round, beside its bounds."""
+    inp = smoke.triangle_inputs(torch, device, 256, torch.float32, seed=7)
+    t = {"plain_ms": [], "ms": []}
+    kernels = {k: [] for k in smoke.TRI_KERNELS}
+
+    def run(plain):
+        return smoke.time_ms(torch, lambda: smoke.triangle_call(
+            tri, inp, False, plain=plain), reps)
+    for _ in range(rounds):
+        for key, plain in (("plain_ms", True), ("ms", False), ("ms", False),
+                           ("plain_ms", True)):
+            t[key].append(run(plain))
+        for k, ms in kernels.items():
+            ms.append(smoke.triangle_kernel_ms(torch, tri, inp, k, reps))
+    rows = [{"case": "triangle", "kernel": "geom_triangle",
+             "dtype": "float32", **t}]
+    for k, (prods, nbytes) in smoke.triangle_cost(256).items():
+        b = smoke.bounds(prods, 0.0, nbytes)
+        rows.append({"case": "triangle", "kernel": k, "dtype": "float32",
+                     "ms_kernel": kernels[k], "bound_ms": b["tc_bound_ms"],
+                     "bound_by": b["tc_bound_by"],
+                     "gflop_products": prods / 1e9, "mb": nbytes / 1e6})
+    return rows
 
 
 def kernel_outputs(smoke, mod, device) -> dict:
@@ -379,9 +417,16 @@ def main(argv=None) -> int:
     card = smoke.card_line()
     device = torch.device("cuda")
     label = os.path.relpath(os.path.abspath(args.package), ROOT)
-    for row in timings(smoke, mod, device, args.rounds, args.reps,
-                       args.case):
-        print(json.dumps({"package": label, "card": card, **row}))
+    geom_cases = [c for c in args.case if c != "triangle"]
+    if geom_cases:
+        for row in timings(smoke, mod, device, args.rounds, args.reps,
+                           geom_cases):
+            print(json.dumps({"package": label, "card": card, **row}))
+    if "triangle" in args.case:
+        tri = importlib.import_module("dynamicpdb_tpu_torch.ops.geom_triangle")
+        for row in triangle_timings(smoke, tri, device, args.rounds,
+                                    args.reps):
+            print(json.dumps({"package": label, "card": card, **row}))
     if args.save_outputs:
         torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
     if args.compare_outputs:

@@ -68,6 +68,7 @@ from dynamicpdb_tpu_torch.models.omegafold.model import (
 )
 from dynamicpdb_tpu_torch.models.score_network import DFoldScoreNetwork
 from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
 from dynamicpdb_tpu_torch.ops import ipa_attention as ipa_mod
 from dynamicpdb_tpu_torch.parallel import mesh as mesh_lib
 from dynamicpdb_tpu_torch.parallel import sp
@@ -80,12 +81,15 @@ IPA_COUNTERS = tuple(ipa_mod.COUNTERS.values())
 
 GEOM_COUNTERS = ("geom_launches", "node_launches", "geom_launches_128",
                  "node_launches_128")
+TRI_COUNTERS = ("triangle_launches", "tri_proj_launches", "tri_mm_launches",
+                "tri_out_launches")
 DFOLD_PARTS = ("forward", "rollout", "rollout_float32")
 
 
 def counts() -> dict:
     return {**{n: getattr(ipa_mod, n) for n in IPA_COUNTERS},
-            **{n: getattr(geom_mod, n) for n in GEOM_COUNTERS}}
+            **{n: getattr(geom_mod, n) for n in GEOM_COUNTERS},
+            **{n: getattr(tri_mod, n) for n in TRI_COUNTERS}}
 
 
 def reset_counts():
@@ -93,6 +97,8 @@ def reset_counts():
         setattr(ipa_mod, n, 0)
     for n in GEOM_COUNTERS:
         setattr(geom_mod, n, 0)
+    for n in TRI_COUNTERS:
+        setattr(tri_mod, n, 0)
     sp.reset_counts()
 
 

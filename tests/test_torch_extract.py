@@ -29,6 +29,7 @@ from dynamicpdb_tpu_torch.models.omegafold.model import (
     omegafold_from_state_dict,
 )
 from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
 from dynamicpdb_tpu_torch.preprocess import extract_embeddings as cli
 from dynamicpdb_tpu_torch.preprocess.embeddings import validate
 from dynamicpdb_tpu_torch.weights import random_omegafold_state_dict
@@ -87,9 +88,11 @@ def test_embed_matches_jax_and_selects_the_same_cycle(weights, jax_run):  # noqa
     np.testing.assert_array_equal(np.asarray(node), per_cycle[chosen][0])
     assert conf == max(0.0, *confs)
 
-    before = (geom_mod.geom_launches, geom_mod.node_launches)
+    before = (geom_mod.geom_launches, geom_mod.node_launches,
+              chip_smoke.triangle_counts(tri_mod))
     got = omegafold_embed(port, cycles)
-    assert (geom_mod.geom_launches, geom_mod.node_launches) == before
+    assert (geom_mod.geom_launches, geom_mod.node_launches,
+            chip_smoke.triangle_counts(tri_mod)) == before
     np.testing.assert_allclose(got.confidences, confs, atol=1e-5, rtol=0)
     assert got.cycle == chosen
     assert got.node.dtype == got.edge.dtype == torch.float32
@@ -174,7 +177,9 @@ def test_chip_smoke_extract_phase_rehearsal(tmp_path, dtype):
                                    num_cycles=2, num_pseudo_msa=2,
                                    pad_multiple=8, tmp=str(tmp_path),
                                    dtype=dtype)
-    assert out["launches"] == {"geom_attention": 0, "node_attention": 0}
+    assert out["launches"] == {
+        "geom_attention": 0, "node_attention": 0, "geom_triangle": 0,
+        **{k: 0 for k in chip_smoke.TRI_KERNELS}}
     assert [r["n_res"] for r in out["records"]] == [13, 19]
 
 
@@ -228,6 +233,7 @@ def test_profile_trace_holds_every_span_and_no_op(weights,  # noqa: F811
             "attention_w_edge_bias", "column_attention", "node_transition",
             "out_product", "geometric_attention", "edge_transition")},
         "ops.geom_attention": model.cfg.geom_count * blocks,
+        "ops.geom_triangle": model.cfg.geom_count * blocks,
         "ops.node_attention": blocks,
     }
     assert not [k for k in counts if k.startswith("aten::")]

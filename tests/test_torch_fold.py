@@ -286,7 +286,9 @@ def test_chip_smoke_fold_phase_rehearsal_on_cpu(checkpoint, tmp_path):
                                 lengths=(19, 13), num_cycles=2,
                                 num_pseudo_msa=2, pad_multiple=8,
                                 tmp=str(tmp_path))
-    assert out["launches"] == {"geom_attention": 0, "node_attention": 0}
+    assert out["launches"] == {
+        "geom_attention": 0, "node_attention": 0, "geom_triangle": 0,
+        **{k: 0 for k in chip_smoke.TRI_KERNELS}}
     assert sorted(r["n_res"] for r in out["records"]) == [13, 19]
 
 

@@ -380,3 +380,42 @@ def test_geom_kernels_reject_what_they_cannot_take(cuda):
         with pytest.raises(RuntimeError, match=f"rows={rows}"):
             chip_smoke.geom_kernel_launch(torch, geom_mod, "geom_attention",
                                           inp, rows)()
+
+
+# ---------------------------------------------------------------------------
+# GeometricAttention's triangle-multiplicative route (ops/geom_triangle.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.TRI_CASES,
+                         ids=[c[0].replace(" ", "-")
+                              for c in chip_smoke.TRI_CASES])
+def test_triangle_route_matches_plain(cuda, case, dtype):
+    """The route's three kernels against the plain branch (tolerances and
+    their reasons: chip_smoke.TRI_ATOL, TRI_BF16_RTOL) at the release width:
+    L 256, a ragged 203 with its padded tail under pad_safe, the short 96,
+    a 'seq' rank's rows 128-255 of 256 under pad_safe and rank 1's rows
+    102-203 of a ragged 203 (its last a pad row). One launch of each kernel
+    a call; a rank's real rows equal the square call's bit for bit."""
+    from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
+
+    label, L, rows, masked, pad_safe = case
+    dtype = getattr(torch, dtype)
+    inp = chip_smoke.triangle_inputs(torch, cuda, L, dtype, seed=61 + L,
+                                     rows=rows, masked=masked)
+    before = chip_smoke.triangle_counts(tri_mod)
+    got = chip_smoke.triangle_call(tri_mod, inp, pad_safe, plain=False)
+    torch.cuda.synchronize()
+    assert chip_smoke.triangle_counts(tri_mod) == {
+        k: v + 1 for k, v in before.items()}
+    want = chip_smoke.triangle_call(tri_mod, inp, pad_safe, plain=True)
+    assert got.dtype == dtype and got.shape == want.shape
+    err, over = chip_smoke.triangle_error(got, want)
+    assert over <= 0, err
+    if rows:
+        q0, n = rows[0], min(rows[1], L - rows[0])
+        square = dict(inp, edge=inp["whole"], q0=0, attended=torch.cat(
+            [inp["whole"][:q0], inp["attended"][:n], inp["whole"][q0 + n:]]))
+        full = chip_smoke.triangle_call(tri_mod, square, pad_safe,
+                                        plain=False)
+        assert torch.equal(full[q0:q0 + n], got[:n])
