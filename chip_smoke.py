@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dp-cards   # data parallel over every card (NCCL)
+    python3 chip_smoke.py --alphafold [--parent DIR]   # phases 2d and 12
 
 Phases, each printing its own lines:
   0. setup: the card's name and power limit (nvidia-smi), device checks;
@@ -149,11 +150,26 @@ Phases, each printing its own lines:
      --no-strict written without the embedding; 11e, phase 3's served
      frames (256 and 97 residues) scored by analysis/violations.py,
      analysis/structure_checks.py and analysis/contact_order.py (on the
-     card), every metric finite, the key sets JAX's.
+     card), every metric finite, the key sets JAX's;
+  12. alphafold (``--alphafold`` runs it alone, after phase 2d, and with
+     ``--parent DIR`` holds the kernels' outputs against DIR's package bit
+     for bit, bench_geom.py's --save-outputs/--compare-outputs): a seeded
+     random AlphaFold2 model_5 (92.7M parameters) saved to a temporary
+     checkpoint and run by the extraction CLI (--model alphafold2) on one
+     256-residue alignment of 4,096 rows, 4 recycles: the npz's keys and
+     shapes, and the launches a recycle (node_attention 2 x 48, the
+     one-axis geom_attention 2 x 52, the single-view triangle route 2 x 52);
+     then a tiny model_5 on the CPU, which launches nothing.
+Phase 2d holds the triangle route's single view (AlphaFold2's outgoing
+and incoming triangle multiplications) against its plain version at L 256
+and 203, both views, and times it beside its bound.
 Phase 2 also holds both GeoFormer attention kernels against their plain
 versions (release, ragged and long ragged L, float32 and bfloat16) and
 times them beside their bounds and torch's SDPA on the same attention
-core; then their rectangular calls under sequence parallelism
+core, then at the shapes AlphaFold2 model_5 calls them at (MSA row
+attention, 512 rows of 256 keys; MSA column attention on the transpose,
+256 rows of 512 keys with a zero bias; triangle attention on z and z^T,
+one axis, H 4, d 128), float32 (``--alphafold`` runs these too); then their rectangular calls under sequence parallelism
 (node_attention on rows 0-127 and 128-255 of the release window, on a
 ragged block with a pad row and on rows 256-511 of 512, the odd rows' last
 33 keys masked; geom_attention on B = 128 rows of a 256 window) and both
@@ -1288,7 +1304,89 @@ def geom_kernel_phase(torch, device, card: str) -> list[dict]:
               f"bound {rep['tc_bound_ms']:.4f} ms ({rep['tc_bound_by']}); "
               f"bfloat16 {ms16:.4f} ms ({kernel_ms16:.4f} alone); warm L2 "
               f"[{card}]")
+    af2_attention_checks(torch, device)
     return list(reports.values())
+
+
+# phase 2b's AlphaFold2 cases: both wrappers at the shapes model_5's path
+# calls them at (256 residues, 512 MSA clusters), set up as
+# models/alphafold/model.py sets them up: MSA row attention (512 rows of
+# 256 keys, a bias from the pair), MSA column attention (the wrapper on the
+# MSA's transpose: 256 rows of 512 keys, a zero bias), triangle attention
+# on z and on z's transpose (one axis, H 4, d 128). Every key unmasked, as
+# the path's are. (label, kind, rows, keys, H, d)
+AF2_ATTENTION_CASES = (
+    ("msa_row", "node_attention", 512, 256, 8, 256),
+    ("msa_column", "node_attention", 256, 512, 8, 256),
+    ("triangle_start", "geom_attention", 256, 256, 4, 128),
+    ("triangle_end", "geom_attention", 256, 256, 4, 128),
+)
+
+
+def af2_attention_inputs(torch, device, case: tuple, seed: int) -> dict:
+    """Seeded float32 inputs of an AF2_ATTENTION_CASES call (the keys of
+    ``geom_inputs``' dict): x the LayerNorm of N(0, 1) activations, laid
+    out as the model lays it out; weights ~ N(0, 1/d), biases ~ N(0,
+    0.1^2); the pair bias ~ N(0, 1), zero for column attention."""
+    from dynamicpdb_tpu_torch.models.omegafold.core import layer_norm_f32
+
+    label, kind, rows, keys, H, d = case
+    c = GEOM_C
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    w = dict(qg_w=rnd(d, 1, H, 2 * c, scale=d ** -0.5),
+             qg_b=rnd(1, H, 1, 2 * c, scale=0.1),
+             kv_w=rnd(d, 1, H, 2 * c, scale=d ** -0.5),
+             kv_b=rnd(1, H, 1, 2 * c, scale=0.1))
+    kmask = None
+    if label == "msa_row":  # m [M, L, c_m]
+        x, bias = layer_norm_f32(rnd(rows, keys, d)), rnd(H, keys, keys)
+        kmask = torch.ones(rows, keys, device=device)
+    elif label == "msa_column":  # m [M, L, c_m] -> [L, M, c_m]
+        x = layer_norm_f32(rnd(keys, rows, d)).transpose(0, 1).contiguous()
+        bias = torch.zeros(H, keys, keys, device=device)
+        kmask = torch.ones(rows, keys, device=device)
+    else:  # z [L, L, c_z], the ending node on z's transpose
+        z = rnd(keys, keys, d)
+        x = layer_norm_f32(z if label == "triangle_start"
+                           else z.transpose(0, 1)).unsqueeze(1)
+        bias = rnd(1, H, keys, keys)
+    return dict(x=x, bias=bias, kmask=kmask, **w)
+
+
+def af2_attention_checks(torch, device) -> float:
+    """Both wrappers against their plain versions at AF2_ATTENTION_CASES,
+    float32 (tolerance GEOM_ATOL), each call counted once. Returns the
+    largest error."""
+    from dynamicpdb_tpu_torch.ops import geom_attention as mod
+
+    counters = {"node_attention": "node_launches",
+                "geom_attention": "geom_launches"}
+    worst = 0.0
+    for i, case in enumerate(AF2_ATTENTION_CASES):
+        label, kind, rows, keys = case[:4]
+        inp = af2_attention_inputs(torch, device, case, seed=240 + i)
+        before = getattr(mod, counters[kind])
+        got = geom_call(mod, kind, inp, plain=False)
+        torch.cuda.synchronize()
+        check(getattr(mod, counters[kind]) == before + 1,
+              f"{kind} alphafold {label}: launches {before} -> "
+              f"{getattr(mod, counters[kind])}")
+        want = geom_call(mod, kind, inp, plain=True)
+        check(got.shape == want.shape, f"{kind} alphafold {label}: "
+              f"{tuple(got.shape)}, want {tuple(want.shape)}")
+        err, over = geom_error(got, want)
+        print(f"kernel {kind} alphafold {label} ({rows} rows of {keys} "
+              f"keys) float32: max_abs_err {err:.3e} (tol {GEOM_ATOL}; "
+              f"scale {float(want.abs().max()):.3f})")
+        check(over <= 0, f"{kind} alphafold {label}: max_abs_err {err} "
+              "out of tolerance")
+        worst = max(worst, err)
+        del inp, got, want
+    return worst
 
 
 # The rectangular calls of OmegaFold under sequence parallelism (phase 10):
@@ -1614,6 +1712,265 @@ def triangle_phase(torch, device, card: str) -> list[dict]:
           f"wrapper (three kernels), the einsum branch it replaces "
           f"{plain_ms:.4f} ms; warm L2 [{card}]")
     return reports
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the triangle route's single view (AlphaFold2's multiplications)
+# ---------------------------------------------------------------------------
+# (L, view): the release length and a ragged one, both views
+TRI_VIEW_CASES = ((256, 0), (256, 1), (203, 0), (203, 1))
+TRI_VIEW_ARGS = ("edge", "attended", "mask", "act_w", "act_b",
+                 "out_proj_w", "out_proj_b")
+
+
+def triangle_view_inputs(torch, device, L: int, seed: int) -> dict:
+    """``triangle_inputs`` with one view's weights (the two-view layout's
+    view 0: act_w [d, 5d], act_b [5d], out_w [d, d], out_b [d]); the
+    residual in attended's place."""
+    inp = triangle_inputs(torch, device, L, torch.float32, seed)
+    for k in ("act_w", "out_proj_w"):
+        inp[k] = inp[k][:, 0].contiguous() if k == "act_w" else inp[k][0]
+    for k in ("act_b", "out_proj_b"):
+        inp[k] = inp[k][0].contiguous()
+    return inp
+
+
+def triangle_view_call(mod, inp: dict, view: int, plain: bool):
+    fn = mod.geom_triangle_view_plain if plain else mod.geom_triangle_view
+    return fn(*(inp[k] for k in TRI_VIEW_ARGS), view=view)
+
+
+def triangle_view_cost(L: int) -> tuple[float, float]:
+    """(products, bytes) of one single-view call, float32: the two
+    operands' value and gate projections, the L^3 d product, the gate's
+    and the output's projections; the edge and the residual read, the
+    result written, the weights read."""
+    d, f = TRI_D, 4
+    prods = 2 * (2 * L * L * d * 2 * d) + 2 * d * L ** 3 + 2 * (2 * L * L * d * d)
+    return prods, f * (3 * L * L * d + 6 * d * d + 6 * d + L)
+
+
+def triangle_view_phase(torch, device, card: str) -> dict:
+    """The single-view route against its plain version at TRI_VIEW_CASES
+    (float32, tolerance TRI_ATOL), then timed at the release length
+    beside its bound. Returns a kernel report."""
+    from dynamicpdb_tpu_torch.ops import geom_triangle as mod
+
+    worst = 0.0
+    for L, view in TRI_VIEW_CASES:
+        inp = triangle_view_inputs(torch, device, L, seed=90 + L + view)
+        before = mod.tri_view_launches
+        got = triangle_view_call(mod, inp, view, plain=False)
+        torch.cuda.synchronize()
+        check(mod.tri_view_launches == before + 1, "geom_triangle_view: "
+              f"launches {before} -> {mod.tri_view_launches}")
+        want = triangle_view_call(mod, inp, view, plain=True)
+        err, over = triangle_error(got, want)
+        print(f"kernel geom_triangle_view L={L} view {view} float32: "
+              f"max_abs_err {err:.3e} (tol {TRI_ATOL}; scale "
+              f"{float(want.abs().max()):.3f})")
+        check(over <= 0, f"geom_triangle_view L={L} view {view}: "
+              f"max_abs_err {err} out of tolerance")
+        worst = max(worst, err)
+    inp = triangle_view_inputs(torch, device, 256, seed=7)
+    rep = {"name": "geom_triangle_view", "route": "cuda",
+           "source": "dynamicpdb_tpu_torch/csrc/geom_triangle.cu",
+           "replaces": None, "launches": None, "max_abs_err": worst}
+    for view in (0, 1):
+        rep[f"ms_view{view}"] = time_ms(torch, lambda: triangle_view_call(
+            mod, inp, view, plain=False), 20)
+        rep[f"plain_ms_view{view}"] = time_ms(torch, lambda: triangle_view_call(
+            mod, inp, view, plain=True), 5)
+    prods, nbytes = triangle_view_cost(256)
+    rep.update(ms=rep["ms_view0"], **bounds(prods, 0.0, nbytes))
+    print(f"kernel geom_triangle_view release float32: view 0 "
+          f"{rep['ms_view0']:.4f} ms, view 1 {rep['ms_view1']:.4f} ms "
+          f"through the wrapper (three kernels; the einsums "
+          f"{rep['plain_ms_view0']:.4f}, {rep['plain_ms_view1']:.4f} ms), "
+          f"tensor-core bound {rep['tc_bound_ms']:.4f} ms "
+          f"({rep['tc_bound_by']}: {prods / 1e9:.3f} GFLOP of products, "
+          f"{nbytes / 1e6:.2f} MB) [{card}]")
+    return rep
+
+
+def two_view_against_parent(parent: str, tmp: str) -> None:
+    """The two-view route's (and both attention kernels') outputs of this
+    checkout against those of the package under ``parent``, bit for bit
+    (``tools/bench_geom.py --save-outputs``/``--compare-outputs``)."""
+    bench = os.path.join(ROOT, "dynamicpdb_tpu_torch", "tools",
+                         "bench_geom.py")
+    saved = os.path.join(tmp, "parent_outputs.pt")
+    run_command([sys.executable, bench, "--package", parent, "--case",
+                 "release", "--rounds", "1", "--reps", "1",
+                 "--save-outputs", saved], "bench_geom parent")
+    out = run_command([sys.executable, bench, "--case", "release",
+                       "--rounds", "1", "--reps", "1", "--compare-outputs",
+                       saved], "bench_geom change")
+    line = json.loads([ln for ln in out.splitlines()
+                       if '"bit_identical"' in ln][-1])
+    same = line["bit_identical"]
+    tri = {k: v for k, v in same.items() if k.startswith("geom_triangle")}
+    print(f"two-view route against {parent}: {len(tri)} triangle outputs, "
+          f"bit-identical {all(tri.values())}; every output "
+          f"{sum(same.values())}/{len(same)}")
+    check(tri and all(same.values()), "the kernels' outputs moved against "
+          f"the parent: {[k for k, v in same.items() if not v]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: AlphaFold2 extraction from an MSA
+# ---------------------------------------------------------------------------
+def random_a3m(query: str, rows: int, seed: int) -> list[str]:
+    """An alignment of ``query``: rows at 25-90% identity, 10% of the
+    changes gaps, insertions after 2% of the positions."""
+    rng = np.random.default_rng(seed)
+    aa = "ACDEFGHIKLMNPQRSTVWY"
+    lines = [">query", query]
+    for r in range(1, rows):
+        ident = rng.uniform(0.25, 0.9)
+        row = []
+        for ch in query:
+            u = rng.random()
+            row.append(ch if u < ident else "-" if u < ident + 0.1 * (
+                1 - ident) else aa[rng.integers(20)])
+            if rng.random() < 0.02:
+                row.append(aa[rng.integers(20)].lower())
+        lines += [f">row{r}", "".join(row)]
+    return lines
+
+
+def alphafold_phase(torch, device: str, tmp: str, card: str, *, cfg=None,
+                    length: int = 256, rows: int = 4096, seed: int = 0
+                    ) -> dict:
+    """Seeded random weights at ``cfg`` (``model_5`` by default) ->
+    torch.save -> the extraction CLI's main with ``--model alphafold2``
+    on one random alignment. Checks the npz's keys and shapes and the
+    kernel launches a recycle: every Evoformer block runs node attention
+    twice (MSA row and column attention), and every block of both stacks
+    the one-axis geometric attention twice (triangle attention) and the
+    single-view triangle route twice; none on the CPU."""
+    from dynamicpdb_tpu_torch.models.alphafold.model import (
+        AlphaFoldConfig,
+        random_alphafold_state_dict,
+    )
+    from dynamicpdb_tpu_torch.ops import geom_attention as geom_mod
+    from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
+    from dynamicpdb_tpu_torch.preprocess import extract_embeddings as cli
+
+    cfg = cfg or AlphaFoldConfig()
+    t0 = time.perf_counter()
+    sd = random_alphafold_state_dict(cfg, seed)
+    n_params = sum(v.size for v in sd.values())
+    ckpt = os.path.join(tmp, f"alphafold_{device}.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+    del sd
+    a3m = os.path.join(tmp, f"prot_{length}.a3m")
+    with open(a3m, "w") as f:
+        f.write("\n".join(random_a3m(random_sequences((length,), seed)[0],
+                                      rows, seed)) + "\n")
+    print(f"alphafold: {n_params:,} parameters, the checkpoint and a "
+          f"{rows}-row a3m written in {time.perf_counter() - t0:.2f} s")
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    geom_mod.geom_launches = geom_mod.node_launches = 0
+    tri_mod.tri_view_launches = 0
+    recycles = cfg.num_recycle + 1
+    t0 = time.perf_counter()
+    records = cli.main([
+        "--model", "alphafold2", "--a3m", a3m, "--out-dir",
+        os.path.join(tmp, f"af2_npz_{device}"), "--weights", ckpt,
+        "--device", device])
+    wall = time.perf_counter() - t0
+    launched = {"node_launches": geom_mod.node_launches,
+                "geom_launches": geom_mod.geom_launches,
+                "tri_view_launches": tri_mod.tri_view_launches}
+    per_recycle = {k: v / recycles for k, v in launched.items()}
+    blocks = cfg.evoformer_blocks + cfg.extra_msa_blocks
+    want = ({"node_launches": 2 * cfg.evoformer_blocks,
+             "geom_launches": 2 * blocks, "tri_view_launches": 2 * blocks}
+            if on_card else dict.fromkeys(launched, 0))
+    check(per_recycle == want, f"alphafold: launches a recycle "
+          f"{per_recycle}, expected {want}")
+    r, = records
+    with np.load(r["path"]) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    L = length
+    check(shapes == {"node_repr": (L, cfg.msa_dim),
+                     "edge_repr": (L, L, cfg.pair_dim),
+                     "single_repr": (L, cfg.struct.node_dim),
+                     "confidence": ()}, f"alphafold: npz {shapes}")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    print(f"alphafold: {r['name']} n_res={r['n_res']} depth={r['depth']} "
+          f"{recycles} recycles: {r['seconds']:.3f} s "
+          f"({r['n_res'] / r['seconds']:.2f} residues/s), mean pLDDT "
+          f"{r['confidence']:.4f}; CLI {wall:.2f} s; peak "
+          f"{peak / 2**30:.3f} GiB; launches a recycle {per_recycle} "
+          f"[{card}]")
+    return dict(record=r, launches=launched, per_recycle=per_recycle,
+                params=n_params, peak_bytes=peak)
+
+
+def alphafold_tiny_cfg():
+    """Every part of ``model_5`` narrow and shallow, the pair width 128
+    (the triangle kernels' width), for phase 12's CPU run (model_5's data
+    settings, which the CLI takes)."""
+    from dynamicpdb_tpu_torch.models.alphafold.model import AlphaFoldConfig
+    from dynamicpdb_tpu_torch.models.omegafold.model import StructConfig
+
+    return AlphaFoldConfig(
+        msa_dim=32, pair_dim=128, extra_msa_dim=16, evoformer_blocks=2,
+        extra_msa_blocks=1, msa_heads=2, msa_head_dim=8,
+        extra_msa_head_dim=4, pair_heads=2, pair_head_dim=8, opm_dim=4,
+        struct=StructConfig(node_dim=24, edge_dim=128, num_cycle=8,
+                            num_transition=3, num_head=2, num_point_qk=2,
+                            num_point_v=2, num_scalar_qk=4, num_scalar_v=4,
+                            num_channel=16, num_residual_block=2,
+                            hidden_dim=8, num_bins=10))
+
+
+def alphafold_main() -> int:
+    """``--alphafold [--parent DIR]``: phase 1's build of the triangle
+    kernels, phase 2d, phase 12 at the release widths on the card and at a
+    tiny size on the CPU (no launches there), and, with ``--parent``, the
+    kernels' outputs against that package's, bit for bit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    from dynamicpdb_tpu_torch.ops import _build
+    from dynamicpdb_tpu_torch.utils.platform import resolve_device
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card)
+    device = resolve_device("cuda")
+    for b in _build.build(["geom_triangle", "geom_attention"]).values():
+        print(f"build: {b.name} in {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if b.name == "geom_triangle" and ("registers" in line
+                                              or "spill" in line):
+                print(f"build: {b.name}: {line.strip()}")
+    rep = triangle_view_phase(torch, device, card)
+    af2_attention_checks(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        parent = (sys.argv[sys.argv.index("--parent") + 1]
+                  if "--parent" in sys.argv else None)
+        if parent:
+            two_view_against_parent(parent, tmp)
+        af2 = alphafold_phase(torch, "cuda", tmp, card)
+        rep["launches"] = af2["launches"]["tri_view_launches"]
+        alphafold_phase(torch, "cpu", tmp, card, cfg=alphafold_tiny_cfg(),
+                        length=14, rows=600)
+    print(f"total: {time.perf_counter() - t_start:.2f} s wall [{card}]")
+    print(json.dumps({"kernels": [rep]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4589,6 +4946,7 @@ def main() -> int:
     geom_reports = geom_kernel_phase(torch, device, card)
     geom_rect_reports = geom_rect_phase(torch, device, card)
     tri_reports = triangle_phase(torch, device, card)
+    view_report = triangle_view_phase(torch, device, card)
     print(f"kernels: phase in {time.perf_counter() - t0:.2f} s")
 
     # phase 3: the serving path at release width
@@ -4772,8 +5130,18 @@ def main() -> int:
     fold_card_vs_cpu()
     print(f"fold: card vs CPU in {time.perf_counter() - t0:.2f} s")
 
+    # phase 12: AlphaFold2 extraction from a 4,096-row MSA at model_5's
+    # widths and depth, then at a tiny size on the CPU
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        af2 = alphafold_phase(torch, "cuda", tmp, card)
+        view_report["launches"] = af2["launches"]["tri_view_launches"]
+        alphafold_phase(torch, "cpu", tmp, card, cfg=alphafold_tiny_cfg(),
+                        length=14, rows=600)
+    print(f"alphafold: phase in {time.perf_counter() - t0:.2f} s [{card}]")
+
     reports = ([fwd_report, wide_fwd_report] + bwd_reports + geom_reports
-               + geom_rect_reports + tri_reports)
+               + geom_rect_reports + tri_reports + [view_report])
     for rep in reports:
         check(rep["launches"] > 0, f"{rep['name']} never launched on its "
               "main path")
@@ -4792,6 +5160,6 @@ if __name__ == "__main__":
         print("chip_smoke: dynamicpdb_tpu_torch is not beside this script",
               file=sys.stderr)
         sys.exit(1)
-    modes = {"--dp-cards": dp_cards_main}
+    modes = {"--dp-cards": dp_cards_main, "--alphafold": alphafold_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes
              else main())

@@ -31,6 +31,18 @@
 //   tri_out   per (i, j) and view: LayerNorm over c of ab[r, :, i, j],
 //             the out-projection, the gate's projection of x_r[i, j], the
 //             sum over r and the add of attended; writes out [Lr, L, d].
+// The single-view form (the same three launchers with `view` 0 or 1) runs
+// the same three kernels on one view r = `view` with its own weights
+// (act_w [d, 5d], act_b [5d], out_w [d, d], out_b [d]), for AlphaFold2's
+// triangle multiplications, which apply the two views one after the other:
+// view 0 is its "outgoing" update (sum_k a_ik b_jk), view 1 its "incoming"
+// one (sum_k a_ki b_kj). Its gate reads x_0[i, j] = e[i, j] for either
+// view, as AlphaFold2's does, and `residual` (the un-normalised pair
+// tensor) takes attended's place:
+//   out[i, j] = residual[i, j] + (LN(ab[i, j]) . Wo + bo)
+//               * sigmoid(e[i, j] . Wg + bg).
+// The two-view instances are the same code with kOne false: their
+// arithmetic and launches are as they were.
 // No operand is permuted outside a kernel: every layout above is read as
 // the kernels want it. The x views are read by index from `edge` and
 // `whole` (x_1's rows are strided by L d, each row's d values contiguous).
@@ -208,19 +220,24 @@ static_assert(kProjSmem <= 232448, "fits one block");
 // blockIdx.x + gridDim.x, ... of (row, 64 positions). 16 warps, 2 (rows,
 // 32 each) x 8 (channels, 16 each): the one block of an SM keeps four
 // warps on each tensor-core partition.
+// kOne: the single-view form, block (x, kind) of view `view`, whose
+// weights and outputs have no view axis.
 constexpr int kProjThreads = 512;
-template <typename T>
+template <typename T, bool kOne>
 __global__ void __launch_bounds__(kProjThreads, 1)
 tri_proj_kernel(const T* __restrict__ edge, const T* __restrict__ whole,
                 const float* __restrict__ w, const float* __restrict__ bias,
                 const float* __restrict__ mask, int key_mask,
                 float* __restrict__ act_row, float* __restrict__ act_col,
-                int Lr, int L, int Lp, int q0) {
+                int Lr, int L, int Lp, int q0, int view) {
   extern __shared__ float4 smem4[];
   float* sW = reinterpret_cast<float*>(smem4);
   char* bufs = reinterpret_cast<char*>(sW + kD * kPW);
   constexpr int XS = XStride<T>::v;
-  const int r = blockIdx.y >> 1, kind = blockIdx.y & 1;
+  constexpr int kViews = kOne ? 1 : 2;
+  const int r = kOne ? view : (int)(blockIdx.y >> 1);  // the view x is read in
+  const int kind = kOne ? (int)blockIdx.y : (int)(blockIdx.y & 1);
+  const int slot = kOne ? 0 : r;  // its place in the weights and outputs
   const int rows = kind ? L : Lr;
   const int nk = Lp / kKT;
   const int n_tiles = rows * nk;
@@ -235,7 +252,7 @@ tri_proj_kernel(const T* __restrict__ edge, const T* __restrict__ whole,
     const int dd = e / (2 * kD / 4), q = e % (2 * kD / 4);
     const int col = q < kD / 4 ? v_col + 4 * q : g_col + 4 * (q - kD / 4);
     cp_async16(sW + dd * kPW + 4 * q,
-               w + ((size_t)dd * 2 + r) * (5 * kD) + col, true);
+               w + ((size_t)dd * kViews + slot) * (5 * kD) + col, true);
   }
   auto fetch = [&](int tau, int buf) {
     const int rho = tau / nk, k0 = (tau % nk) * kKT;
@@ -257,8 +274,8 @@ tri_proj_kernel(const T* __restrict__ edge, const T* __restrict__ whole,
   };
 
   fetch(blockIdx.x, 0);  // one group with the weights
-  const float* bv = bias + r * 5 * kD + v_col;
-  const float* bg = bias + r * 5 * kD + g_col;
+  const float* bv = bias + slot * 5 * kD + v_col;
+  const float* bg = bias + slot * 5 * kD + g_col;
   int it = 0;
   for (int tau = blockIdx.x; tau < n_tiles; tau += gridDim.x, ++it) {
     const int buf = it & 1;
@@ -316,7 +333,7 @@ tri_proj_kernel(const T* __restrict__ edge, const T* __restrict__ whole,
       }
     __syncthreads();
     float* dst = (kind ? act_col : act_row) +
-                 ((size_t)r * kD * rows + rho) * Lp + k0;
+                 ((size_t)slot * kD * rows + rho) * Lp + k0;
     for (int e = tid; e < kD * (kKT / 4); e += kProjThreads) {
       const int c = e / (kKT / 4), q = e % (kKT / 4);
       *reinterpret_cast<float4*>(dst + (size_t)c * rows * Lp + 4 * q) =
@@ -477,8 +494,10 @@ __device__ __forceinline__ void out_slice_t(float (&acc)[2][4][4],
 
 // Block (j tile, i). Warps 2 (columns j, 32 each) x 4 (channels, 32 each).
 // Two blocks an SM (105 KB of shared memory and at most 128 registers
-// each), so that one block's loads overlap the other's products.
-template <typename T>
+// each), so that one block's loads overlap the other's products. kOne: the
+// single-view form, one pass with x_0's gate and weights without a view
+// axis.
+template <typename T, bool kOne>
 __global__ void __launch_bounds__(kThreads, 2)
 tri_out_kernel(const float* __restrict__ ab, const T* __restrict__ edge,
                const T* __restrict__ whole, const T* __restrict__ attended,
@@ -505,7 +524,8 @@ tri_out_kernel(const float* __restrict__ ab, const T* __restrict__ edge,
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
-  for (int r = 0; r < 2; ++r) {
+  constexpr int kViews = kOne ? 1 : 2;
+  for (int r = 0; r < kViews; ++r) {
     // slice s < 4: act_w[32 s.., r, 4d:5d] (the gate); s >= 4: out_proj_w[r]
     auto fetch_w = [&](int s, int buf) {
       float* dst = sWb + buf * (kOutW / 4);
@@ -513,7 +533,7 @@ tri_out_kernel(const float* __restrict__ ab, const T* __restrict__ edge,
         const int dd = e / (kD / 4), q = e % (kD / 4);
         const int row = (s % (kD / kSK)) * kSK + dd;
         const float* src =
-            s < kD / kSK ? w + ((size_t)row * 2 + r) * (5 * kD) + 4 * kD
+            s < kD / kSK ? w + ((size_t)row * kViews + r) * (5 * kD) + 4 * kD
                          : wo + ((size_t)r * kD + row) * kD;
         cp_async16(dst + dd * kOW + 4 * q, src + 4 * q, true);
       }
@@ -648,26 +668,42 @@ bool bad_shape(int Lr, int L, int Lp, int q0) {
          Lp - L >= kPad || L > 65535;
 }
 
-template <typename T>
+template <typename T, bool kOne>
 cudaError_t launch_proj(const void* edge, const void* whole, const float* w,
                         const float* bias, const float* mask, int key_mask,
                         float* act_row, float* act_col, int Lr, int L, int Lp,
-                        int q0, int device, cudaStream_t stream) {
+                        int q0, int view, int device, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(tri_proj_kernel<T>, kProjSmem, device, ready);
+  cudaError_t err =
+      prepare(tri_proj_kernel<T, kOne>, kProjSmem, device, ready);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  // one block an SM over the four (view, operand) pairs
-  const dim3 grid((sms + 3) / 4, 4);
-  tri_proj_kernel<T><<<grid, kProjThreads, kProjSmem, stream>>>(
+  // one block an SM over the (view, operand) pairs: four, or the one
+  // view's two
+  const int pairs = kOne ? 2 : 4;
+  const dim3 grid((sms + pairs - 1) / pairs, pairs);
+  tri_proj_kernel<T, kOne><<<grid, kProjThreads, kProjSmem, stream>>>(
       static_cast<const T*>(edge), static_cast<const T*>(whole), w, bias,
-      mask, key_mask, act_row, act_col, Lr, L, Lp, q0);
+      mask, key_mask, act_row, act_col, Lr, L, Lp, q0, view);
   return cudaGetLastError();
 }
 
-template <typename T>
+// ab for `views` views: grid z over (view, channel)
+cudaError_t launch_mm(const float* act_row, const float* act_col, float* ab,
+                      int Lr, int L, int Lp, int views, int device,
+                      cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t err = prepare(tri_mm_kernel, kMmSmem, device, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lp + kNB - 1) / kNB, (Lr + kMB - 1) / kMB, views * kD);
+  tri_mm_kernel<<<grid, kThreads, kMmSmem, stream>>>(act_row, act_col, ab,
+                                                      Lr, L, Lp);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kOne>
 cudaError_t launch_out(const float* ab, const void* edge, const void* whole,
                        const void* attended, const float* w,
                        const float* bias, const float* wo, const float* bo,
@@ -675,10 +711,10 @@ cudaError_t launch_out(const float* ab, const void* edge, const void* whole,
                        cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
   const cudaError_t err =
-      prepare(tri_out_kernel<T>, kOutSmem, device, ready);
+      prepare(tri_out_kernel<T, kOne>, kOutSmem, device, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid(Lp / kJT, Lr);
-  tri_out_kernel<T><<<grid, kThreads, kOutSmem, stream>>>(
+  tri_out_kernel<T, kOne><<<grid, kThreads, kOutSmem, stream>>>(
       ab, static_cast<const T*>(edge), static_cast<const T*>(whole),
       static_cast<const T*>(attended), w, bias, wo, bo, static_cast<T*>(out),
       Lr, L, Lp, q0);
@@ -697,35 +733,43 @@ cudaError_t launch_out(const float* ab, const void* edge, const void* whole,
 // (bf16 = 1); act_w [d, 2, 5d], act_b [2, 5d], out_w [2, d, d], out_b
 // [2, d], mask [L] float32; act_row [2, d, Lr, Lp], act_col [2, d, L, Lp]
 // and ab [2, d, Lr, Lp] float32. key_mask = 1 also masks act_row's summed
-// index k (pad_safe). Anything else is refused (cudaErrorInvalidValue).
+// index k (pad_safe). `view` -1 runs both views; 0 or 1 the single-view
+// form on that view, whose layouts have no view axis (act_w [d, 5d], act_b
+// [5d], out_w [d, d], out_b [d]; act_row [d, Lr, Lp], act_col [d, L, Lp],
+// ab [d, Lr, Lp]), the residual in attended's place (tri_mm takes the
+// number of views, 2 or 1). Anything else is refused
+// (cudaErrorInvalidValue).
 extern "C" int tri_proj(const void* edge, const void* whole, const float* w,
                         const float* bias, const float* mask, int key_mask,
                         float* act_row, float* act_col, int Lr, int L, int Lp,
-                        int q0, int d, int bf16, int device,
+                        int q0, int view, int d, int bf16, int device,
                         cudaStream_t stream) {
-  if (d != kD || bad_shape(Lr, L, Lp, q0)) return (int)cudaErrorInvalidValue;
+  if (d != kD || bad_shape(Lr, L, Lp, q0) || view < -1 || view > 1)
+    return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    return bf16 ? launch_proj<__nv_bfloat16>(edge, whole, w, bias, mask,
-                                             key_mask, act_row, act_col, Lr,
-                                             L, Lp, q0, device, stream)
-                : launch_proj<float>(edge, whole, w, bias, mask, key_mask,
-                                     act_row, act_col, Lr, L, Lp, q0, device,
-                                     stream);
+    if (view < 0)
+      return bf16 ? launch_proj<__nv_bfloat16, false>(
+                        edge, whole, w, bias, mask, key_mask, act_row,
+                        act_col, Lr, L, Lp, q0, 0, device, stream)
+                  : launch_proj<float, false>(edge, whole, w, bias, mask,
+                                              key_mask, act_row, act_col, Lr,
+                                              L, Lp, q0, 0, device, stream);
+    return bf16 ? launch_proj<__nv_bfloat16, true>(
+                      edge, whole, w, bias, mask, key_mask, act_row, act_col,
+                      Lr, L, Lp, q0, view, device, stream)
+                : launch_proj<float, true>(edge, whole, w, bias, mask,
+                                           key_mask, act_row, act_col, Lr, L,
+                                           Lp, q0, view, device, stream);
   });
 }
 
 extern "C" int tri_mm(const float* act_row, const float* act_col, float* ab,
-                      int Lr, int L, int Lp, int d, int device,
+                      int Lr, int L, int Lp, int views, int d, int device,
                       cudaStream_t stream) {
-  if (d != kD || bad_shape(Lr, L, Lp, 0)) return (int)cudaErrorInvalidValue;
+  if (d != kD || bad_shape(Lr, L, Lp, 0) || (views != 1 && views != 2))
+    return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    static std::atomic<unsigned long long> ready{0};
-    const cudaError_t err = prepare(tri_mm_kernel, kMmSmem, device, ready);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Lp + kNB - 1) / kNB, (Lr + kMB - 1) / kMB, 2 * kD);
-    tri_mm_kernel<<<grid, kThreads, kMmSmem, stream>>>(act_row, act_col, ab,
-                                                        Lr, L, Lp);
-    return cudaGetLastError();
+    return launch_mm(act_row, act_col, ab, Lr, L, Lp, views, device, stream);
   });
 }
 
@@ -733,16 +777,24 @@ extern "C" int tri_out(const float* ab, const void* edge, const void* whole,
                        const void* attended, const float* w,
                        const float* bias, const float* out_w,
                        const float* out_b, void* out, int Lr, int L, int Lp,
-                       int q0, int d, int bf16, int device,
+                       int q0, int view, int d, int bf16, int device,
                        cudaStream_t stream) {
-  if (d != kD || bad_shape(Lr, L, Lp, q0)) return (int)cudaErrorInvalidValue;
+  if (d != kD || bad_shape(Lr, L, Lp, q0) || view < -1 || view > 1)
+    return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    return bf16 ? launch_out<__nv_bfloat16>(ab, edge, whole, attended, w,
-                                            bias, out_w, out_b, out, Lr, L,
-                                            Lp, q0, device, stream)
-                : launch_out<float>(ab, edge, whole, attended, w, bias, out_w,
-                                    out_b, out, Lr, L, Lp, q0, device,
-                                    stream);
+    if (view < 0)
+      return bf16 ? launch_out<__nv_bfloat16, false>(
+                        ab, edge, whole, attended, w, bias, out_w, out_b, out,
+                        Lr, L, Lp, q0, device, stream)
+                  : launch_out<float, false>(ab, edge, whole, attended, w,
+                                             bias, out_w, out_b, out, Lr, L,
+                                             Lp, q0, device, stream);
+    return bf16 ? launch_out<__nv_bfloat16, true>(
+                      ab, edge, whole, attended, w, bias, out_w, out_b, out,
+                      Lr, L, Lp, q0, device, stream)
+                : launch_out<float, true>(ab, edge, whole, attended, w, bias,
+                                          out_w, out_b, out, Lr, L, Lp, q0,
+                                          device, stream);
   });
 }
 

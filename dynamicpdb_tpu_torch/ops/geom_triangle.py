@@ -11,7 +11,23 @@ over the two views, added to the attended branch's output:
             * sigmoid(x_r[i, j] . act_w[:, r, 4d:] + act_b[r, 4d:])
 
 for the two views x_0 = edge and x_1 = its column view, with (m[k]) under
-``pad_safe`` only. The JAX package has no kernel for it: its
+``pad_safe`` only.
+
+``geom_triangle_view`` is the single-view form, for AlphaFold2's triangle
+multiplications, which apply the views one after the other with weights
+of their own: view 0 is its "outgoing" update (sum_k a_ik b_jk), view 1
+its "incoming" one (sum_k a_ki b_kj). It computes
+
+  out = residual + (LayerNorm_d(sum_k act_row[i, k] act_col[j, k])
+        . out_w + out_b) * sigmoid(x_0[i, j] . act_w[:, 4d:] + act_b[4d:])
+
+with act_row (m[k] always) and act_col as above on the chosen view x_r
+and act_w [d, 5d] (the value and gate of a, the value and gate of b, as
+in the two-view layout, then the output gate), act_b [5d], out_w [d, d],
+out_b [d], over every row of the pair tensor (no 'seq' rows). The gate
+reads x_0 = edge for either view, as AlphaFold2's does. On the card it
+runs the same three kernels in their single-view instances (``launch``
+with ``view``). The JAX package has no kernel for it: its
 ``geometric_attention`` (``dynamicpdb_tpu/models/omegafold/geoformer.py``)
 leaves it to XLA's einsums, and ``geom_triangle_plain`` is that code as
 the port ran it before the route, moved here unchanged in what it
@@ -28,7 +44,8 @@ by index, so nothing is stacked or transposed for them.
 
 ``triangle_launches`` counts the calls of this process that ran on the
 card, ``tri_proj_launches``, ``tri_mm_launches`` and ``tri_out_launches``
-each kernel's launches (one a call); a run that must show the route on
+each kernel's launches (one a call), ``tri_view_launches`` the
+single-view calls on the card (three launches each); a run that must show the route on
 its path sets them to 0 before and reads them after. The wrapper's whole
 call (the plain path and the launches alike) runs under the span
 ``ops.geom_triangle`` (``utils.logging.span``), where a profile reads its
@@ -50,6 +67,7 @@ triangle_launches = 0
 tri_proj_launches = 0
 tri_mm_launches = 0
 tri_out_launches = 0
+tri_view_launches = 0
 
 KERNEL_D = 128  # the edge width the kernels are compiled for
 PAD = 64  # the kernels' operands pad the summed index to a multiple of this
@@ -115,6 +133,22 @@ def geom_triangle_plain(edge, whole, attended, mask, act_w, act_b,
     return attended + gated.sum(-2)
 
 
+def geom_triangle_view_plain(edge, residual, mask, act_w, act_b, out_w,
+                             out_b, *, view: int):
+    """``geom_triangle_view`` as einsums in the input's dtype."""
+    d = edge.shape[-1]
+    x = edge if view == 0 else edge.transpose(0, 1)  # x_r
+    m = mask.to(edge.dtype)
+    act_row = _glu(torch.einsum("ikd,dc->ikc", x, _sliced(act_w, d, 0))
+                   + _sliced(act_b, d, 0)) * (m[:, None] * m[None, :])[..., None]
+    act_col = _glu(torch.einsum("jkd,dc->jkc", x, _sliced(act_w, d, 1))
+                   + _sliced(act_b, d, 1)) * m[:, None, None]
+    ab = layer_norm_f32(torch.einsum("ikd,jkd->ijd", act_row, act_col))
+    gate = torch.sigmoid(torch.einsum("ijd,dc->ijc", edge, act_w[:, -d:])
+                         + act_b[-d:])
+    return residual + (torch.einsum("ijd,dc->ijc", ab, out_w) + out_b) * gate
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -125,9 +159,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("geom_triangle")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tri_proj.argtypes = [p] * 5 + [i] + [p] * 2 + [i] * 7 + [p]
-    lib.tri_mm.argtypes = [p] * 3 + [i] * 5 + [p]
-    lib.tri_out.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.tri_proj.argtypes = [p] * 5 + [i] + [p] * 2 + [i] * 8 + [p]
+    lib.tri_mm.argtypes = [p] * 3 + [i] * 6 + [p]
+    lib.tri_out.argtypes = [p] * 9 + [i] * 8 + [p]
     for fn in (lib.tri_proj, lib.tri_mm, lib.tri_out):
         fn.restype = i
     lib.geom_triangle_error_string.argtypes = [i]
@@ -136,12 +170,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_inputs(edge, whole, attended, mask, act_w, act_b, out_proj_w,
-                  out_proj_b, q0: int) -> dict:
+                  out_proj_b, q0: int, views: int = 2) -> dict:
     """The kernels' operands from the wrapper's: edge, whole and attended
     contiguous in their dtype (float32 or bfloat16, all three the same),
     mask and the weights float32 and contiguous (the tensors themselves
-    where they already are). Raises on what the kernels cannot take."""
-    fn = "geom_triangle"
+    where they already are). ``views`` 1: the single-view form's weights,
+    without the view axis. Raises on what the kernels cannot take."""
+    fn = "geom_triangle" if views == 2 else "geom_triangle_view"
+    v = (2,) if views == 2 else ()
     if edge.dim() != 3:
         raise ValueError(f"{fn}: edge has shape {tuple(edge.shape)}, "
                          "expected [Lr, L, d]")
@@ -162,10 +198,10 @@ def kernel_inputs(edge, whole, attended, mask, act_w, act_b, out_proj_w,
     for name, t, shape in (("whole", whole, (L, L, d)),
                            ("attended", attended, (Lr, L, d)),
                            ("mask", mask, (L,)),
-                           ("act_w", act_w, (d, 2, 5 * d)),
-                           ("act_b", act_b, (2, 5 * d)),
-                           ("out_proj_w", out_proj_w, (2, d, d)),
-                           ("out_proj_b", out_proj_b, (2, d))):
+                           ("act_w", act_w, (d,) + v + (5 * d,)),
+                           ("act_b", act_b, v + (5 * d,)),
+                           ("out_proj_w", out_proj_w, v + (d, d)),
+                           ("out_proj_b", out_proj_b, v + (d,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
@@ -187,11 +223,14 @@ def _check(lib, kernel: str, rc: int, Lr, L, q0):
             f"Lr={Lr}, L={L}, q0={q0})")
 
 
-def launch(ops: dict, *, q0: int, pad_safe: bool, kernels=None):
+def launch(ops: dict, *, q0: int, pad_safe: bool, kernels=None,
+           view: int | None = None):
     """Run the three kernels on ``kernel_inputs``' operands, each launch
     checked; returns out [Lr, L, d] in edge's dtype. ``kernels`` (None:
     all) names the ones to launch, for timing them one at a time; a kernel
-    left out finds its input as torch.empty left it."""
+    left out finds its input as torch.empty left it. ``view`` 0 or 1: the
+    single-view form on ``kernel_inputs(..., views=1)``' operands (the
+    per-kernel counters count the two-view launches alone)."""
     global tri_proj_launches, tri_mm_launches, tri_out_launches
     lib = _lib()
     edge = ops["edge"]
@@ -202,21 +241,23 @@ def launch(ops: dict, *, q0: int, pad_safe: bool, kernels=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     bf16 = int(edge.dtype == torch.bfloat16)
     run = (lambda name: kernels is None or name in kernels)
-    act_row = torch.empty((2, d, Lr, Lp), dtype=f32, device=dev)
-    act_col = torch.empty((2, d, L, Lp), dtype=f32, device=dev)
+    two = view is None
+    v, views = (-1, (2,)) if two else (view, ())
+    act_row = torch.empty(views + (d, Lr, Lp), dtype=f32, device=dev)
+    act_col = torch.empty(views + (d, L, Lp), dtype=f32, device=dev)
     if run("tri_proj"):
         _check(lib, "tri_proj", lib.tri_proj(
             edge.data_ptr(), ops["whole"].data_ptr(), ops["act_w"].data_ptr(),
-            ops["act_b"].data_ptr(), ops["mask"].data_ptr(), int(pad_safe),
-            act_row.data_ptr(), act_col.data_ptr(), Lr, L, Lp, q0, d, bf16,
-            device, stream), Lr, L, q0)
-        tri_proj_launches += 1
-    ab = torch.empty((2, d, Lr, Lp), dtype=f32, device=dev)
+            ops["act_b"].data_ptr(), ops["mask"].data_ptr(),
+            int(pad_safe), act_row.data_ptr(), act_col.data_ptr(),
+            Lr, L, Lp, q0, v, d, bf16, device, stream), Lr, L, q0)
+        tri_proj_launches += two
+    ab = torch.empty(views + (d, Lr, Lp), dtype=f32, device=dev)
     if run("tri_mm"):
         _check(lib, "tri_mm", lib.tri_mm(
             act_row.data_ptr(), act_col.data_ptr(), ab.data_ptr(), Lr, L, Lp,
-            d, device, stream), Lr, L, q0)
-        tri_mm_launches += 1
+            2 if two else 1, d, device, stream), Lr, L, q0)
+        tri_mm_launches += two
     del act_row, act_col  # the caching allocator takes them back in order
     out = torch.empty_like(ops["attended"])
     if run("tri_out"):
@@ -224,9 +265,9 @@ def launch(ops: dict, *, q0: int, pad_safe: bool, kernels=None):
             ab.data_ptr(), edge.data_ptr(), ops["whole"].data_ptr(),
             ops["attended"].data_ptr(), ops["act_w"].data_ptr(),
             ops["act_b"].data_ptr(), ops["out_w"].data_ptr(),
-            ops["out_b"].data_ptr(), out.data_ptr(), Lr, L, Lp, q0, d, bf16,
-            device, stream), Lr, L, q0)
-        tri_out_launches += 1
+            ops["out_b"].data_ptr(), out.data_ptr(), Lr, L, Lp, q0, v, d,
+            bf16, device, stream), Lr, L, q0)
+        tri_out_launches += two
     return out
 
 
@@ -250,4 +291,27 @@ def geom_triangle(edge, whole, attended, mask, act_w, act_b, out_proj_w,
         ops = kernel_inputs(*args, q0=q0)
         out = launch(ops, q0=q0, pad_safe=pad_safe)
         triangle_launches += 1
+        return out
+
+
+def geom_triangle_view(edge, residual, mask, act_w, act_b, out_w, out_b, *,
+                       view: int):
+    """One view of the triangle-multiplicative branch, added to
+    ``residual``: AlphaFold2's outgoing (``view`` 0) or incoming (1)
+    triangle multiplication.
+
+    edge [L, L, d], the normalised pair tensor; residual [L, L, d]; mask
+    [L], which masks a's pairs (i, k) and b's rows j, as AlphaFold2's pair
+    mask does; act_w [d, 5d], act_b [5d], out_w [d, d], out_b [d] (the
+    module docstring's layout). Returns [L, L, d] in residual's dtype."""
+    global tri_view_launches
+    if view not in (0, 1):
+        raise ValueError(f"geom_triangle_view: view={view}, expected 0 or 1")
+    with span("ops.geom_triangle"):
+        args = (edge, residual, mask, act_w, act_b, out_w, out_b)
+        if _device_of("geom_triangle_view", args).type == "cpu":
+            return geom_triangle_view_plain(*args, view=view)
+        ops = kernel_inputs(edge, *args, q0=0, views=1)
+        out = launch(ops, q0=0, pad_safe=True, view=view)
+        tri_view_launches += 1
         return out

@@ -30,6 +30,13 @@ again, then each of its three kernels alone, each against its bound
 max(3 x products / 495 TFLOP/s, compulsory bytes / 3.35 TB/s)
 (``chip_smoke.triangle_cost``, ``chip_smoke.bounds``' tensor-core bound).
 
+``--case triangle-view`` times the route's single-view form
+(``geom_triangle_view``, AlphaFold2's triangle multiplications) the same
+way at the release shapes, both views, against its bound
+(``chip_smoke.triangle_view_cost``): in each round the einsums
+(``geom_triangle_view_plain`` on the card), the route, the route, the
+einsums.
+
 ``--package DIR`` times the ``dynamicpdb_tpu_torch`` package under DIR
 instead of this checkout's, so that two versions of the kernels can be
 timed on one card in one session: run this script (as a script, not with
@@ -38,7 +45,8 @@ timed on one card in one session: run this script (as a script, not with
 ``--save-outputs FILE`` writes both kernels' outputs at phase 2b's cases
 of ``chip_smoke.py`` (``GEOM_CASES``: release, ragged and long ragged L;
 ``GEOM_RECT_CASES``: the rectangular and short calls; float32 and
-bfloat16) to FILE; ``--compare-outputs FILE`` computes them again and
+bfloat16) and the two-view triangle route's at ``TRI_CASES`` (float32
+and bfloat16) to FILE; ``--compare-outputs FILE`` computes them again and
 prints, per output, whether it equals FILE's bit for bit and its largest
 difference: run another checkout's package with the first and this one
 with the second to show that a change left the kernels' arithmetic as it
@@ -165,7 +173,7 @@ def _load(package: str, module: str = "geom_attention"):
 # --case: the release square calls, or a call of chip_smoke.GEOM_RECT_CASES
 # by its label, spaces as hyphens (both kernels where two share a label)
 CASES = ("release", "rows-128-255", "rows-0-127", "ragged-rows-102-203",
-         "rows-256-511", "B-128", "L-96", "triangle")
+         "rows-256-511", "B-128", "L-96", "triangle", "triangle-view")
 
 
 def case_inputs(smoke, device, case: str, dtype) -> list[tuple]:
@@ -259,10 +267,54 @@ def triangle_timings(smoke, tri, device, rounds: int, reps: int) -> list:
     return rows
 
 
+def triangle_view_timings(smoke, tri, device, rounds: int, reps: int
+                          ) -> list:
+    """The single-view route at the release shapes, float32, each view:
+    ``plain_ms`` (its einsums) and ``ms`` (the route), plain, route,
+    route, plain each round, beside its bound."""
+    inp = smoke.triangle_view_inputs(torch, device, 256, seed=7)
+    prods, nbytes = smoke.triangle_view_cost(256)
+    b = smoke.bounds(prods, 0.0, nbytes)
+    rows = []
+    for view in (0, 1):
+        t = {"plain_ms": [], "ms": []}
+        for _ in range(rounds):
+            for key, plain in (("plain_ms", True), ("ms", False),
+                               ("ms", False), ("plain_ms", True)):
+                t[key].append(smoke.time_ms(torch, lambda: (
+                    smoke.triangle_view_call(tri, inp, view, plain)), reps))
+        rows.append({"case": "triangle-view", "kernel": "geom_triangle_view",
+                     "view": view, "dtype": "float32", **t,
+                     "bound_ms": b["tc_bound_ms"],
+                     "bound_by": b["tc_bound_by"],
+                     "gflop_products": prods / 1e9, "mb": nbytes / 1e6})
+    return rows
+
+
+def triangle_outputs(smoke, device) -> dict:
+    """{"geom_triangle label dtype": output} of the two-view route at
+    phase 2c's cases (``TRI_CASES``), on phase 2c's inputs; none for a
+    package without the route."""
+    try:
+        tri = importlib.import_module("dynamicpdb_tpu_torch.ops.geom_triangle")
+    except ImportError:
+        return {}
+    out = {}
+    for label, L, rows, masked, pad_safe in smoke.TRI_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = smoke.triangle_inputs(
+                torch, device, L, dtype, 60 + L + (dtype == torch.bfloat16),
+                rows=rows, masked=masked)
+            out[f"geom_triangle {label} {str(dtype)[6:]}"] = (
+                smoke.triangle_call(tri, inp, pad_safe, plain=False).cpu())
+    return out
+
+
 def kernel_outputs(smoke, mod, device) -> dict:
     """{"kind label dtype": output} at phase 2b's square cases and at its
-    rectangular and short cases (GEOM_RECT_CASES), on phase 2b's inputs."""
-    out = {}
+    rectangular and short cases (GEOM_RECT_CASES), on phase 2b's inputs,
+    and the two-view triangle route's (``triangle_outputs``)."""
+    out = triangle_outputs(smoke, device)
     for kind in smoke.GEOM_SHAPES:
         for label, L, pad, B, prefix in smoke.GEOM_CASES:
             for dtype in (torch.float32, torch.bfloat16):
@@ -417,7 +469,8 @@ def main(argv=None) -> int:
     card = smoke.card_line()
     device = torch.device("cuda")
     label = os.path.relpath(os.path.abspath(args.package), ROOT)
-    geom_cases = [c for c in args.case if c != "triangle"]
+    geom_cases = [c for c in args.case
+                  if c not in ("triangle", "triangle-view")]
     if geom_cases:
         for row in timings(smoke, mod, device, args.rounds, args.reps,
                            geom_cases):
@@ -427,6 +480,11 @@ def main(argv=None) -> int:
         for row in triangle_timings(smoke, tri, device, args.rounds,
                                     args.reps):
             print(json.dumps({"package": label, "card": card, **row}))
+    if "triangle-view" in args.case:
+        tri = importlib.import_module("dynamicpdb_tpu_torch.ops.geom_triangle")
+        for row in triangle_view_timings(smoke, tri, device, args.rounds,
+                                         args.reps):
+            print(json.dumps({"package": label, "card": card, **row}))
     if args.save_outputs:
         torch.save(kernel_outputs(smoke, mod, device), args.save_outputs)
     if args.compare_outputs:
@@ -434,11 +492,12 @@ def main(argv=None) -> int:
         want = torch.load(args.compare_outputs, weights_only=True)
         print(json.dumps({"package": label, "card": card,
                           "against": args.compare_outputs,
-                          "bit_identical": {k: bool(torch.equal(got[k], w))
-                                            for k, w in want.items()},
+                          "bit_identical": {k: bool(k in got and torch.equal(
+                              got[k], w)) for k, w in want.items()},
                           "max_abs_diff": {k: float((got[k].float()
                                                      - w.float()).abs().max())
-                                           for k, w in want.items()}}))
+                                           for k, w in want.items()
+                                           if k in got}}))
     if args.precision:
         for row in precision(smoke, mod, device):
             print(json.dumps({"package": label, "card": card, **row}))

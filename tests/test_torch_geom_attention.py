@@ -330,14 +330,16 @@ def test_plain_block_of_the_128_row_tile_matches_jax_rows():
 def test_bench_geom_cases_and_ablations_apply():
     """tools/bench_geom.py's pieces that run without a card: every --case
     names calls of phase 2b (chip_smoke.GEOM_RECT_CASES), or the release
-    calls, or the triangle branch (phase 2c's release call), and every
+    calls, or the triangle branch (phase 2c's release call), or its single
+    view (phase 2d's release calls), and every
     ablation still finds the lines it edits in csrc/geom_attention.cu (an
     edit that no longer applies would only fail on the card)."""
     from dynamicpdb_tpu_torch.ops import _build
     from dynamicpdb_tpu_torch.tools import bench_ipa
 
     labels = {c[0].replace(" ", "-") for c in chip_smoke.GEOM_RECT_CASES}
-    assert set(bench_geom.CASES) == labels | {"release", "triangle"}
+    assert set(bench_geom.CASES) == labels | {"release", "triangle",
+                                              "triangle-view"}
     with open(f"{_build.CSRC_DIR}/geom_attention.cu") as f:
         src = f.read()
     for name, edits in bench_geom.ABLATIONS.items():

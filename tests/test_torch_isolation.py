@@ -111,6 +111,24 @@ def test_extraction_modules_load_without_jax():
                    check=True, timeout=120)
 
 
+def test_alphafold_modules_load_without_jax():
+    """models/alphafold (the model, its data path and its plain
+    reference) and the extraction entry that runs it, imported alone."""
+    code = (
+        "import sys\n"
+        "import dynamicpdb_tpu_torch.models.alphafold.model\n"
+        "import dynamicpdb_tpu_torch.models.alphafold.features\n"
+        "import dynamicpdb_tpu_torch.models.alphafold.reference\n"
+        "import dynamicpdb_tpu_torch.preprocess.extract_embeddings\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('jaxlib',)!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
 def test_eval_modules_load_without_jax():
     code = (
         "import sys\n"

@@ -313,6 +313,27 @@ def test_geom_kernels_match_plain(cuda, kind, L, pad, B, prefix, dtype):
     assert over <= 0, err
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.AF2_ATTENTION_CASES,
+                         ids=[c[0] for c in chip_smoke.AF2_ATTENTION_CASES])
+def test_geom_kernels_at_alphafold_shapes_match_plain(cuda, case):
+    """Each wrapper against its plain version at the shapes AlphaFold2
+    model_5's path calls it at (MSA row and column attention on
+    node_attention, triangle attention on the one-axis geom_attention, on
+    z and z^T), set up as the model sets them up; float32, tolerance
+    chip_smoke.GEOM_ATOL; one launch each."""
+    kind = case[1]
+    inp = chip_smoke.af2_attention_inputs(torch, cuda, case, seed=17)
+    before = getattr(geom_mod, GEOM_COUNTERS[kind])
+    got = chip_smoke.geom_call(geom_mod, kind, inp, plain=False)
+    torch.cuda.synchronize()
+    assert getattr(geom_mod, GEOM_COUNTERS[kind]) == before + 1
+    want = chip_smoke.geom_call(geom_mod, kind, inp, plain=True)
+    assert got.shape == want.shape
+    err, over = chip_smoke.geom_error(got, want)
+    assert over <= 0, err
+
+
 def _rect_id(case) -> str:
     """The case's label, hyphenated, with its kernel where two kernels
     share the label."""
@@ -419,3 +440,26 @@ def test_triangle_route_matches_plain(cuda, case, dtype):
         full = chip_smoke.triangle_call(tri_mod, square, pad_safe,
                                         plain=False)
         assert torch.equal(full[q0:q0 + n], got[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.TRI_VIEW_CASES,
+                         ids=[f"L{L}-view{v}"
+                              for L, v in chip_smoke.TRI_VIEW_CASES])
+def test_triangle_view_route_matches_plain(cuda, case):
+    """The single-view route (AlphaFold2's outgoing and incoming triangle
+    multiplications) against its plain version at the release width, L
+    256 and a ragged 203, float32 (tolerance chip_smoke.TRI_ATOL); one
+    call counted, the two-view counters untouched."""
+    from dynamicpdb_tpu_torch.ops import geom_triangle as tri_mod
+
+    L, view = case
+    inp = chip_smoke.triangle_view_inputs(torch, cuda, L, seed=91 + L)
+    before = (tri_mod.tri_view_launches, chip_smoke.triangle_counts(tri_mod))
+    got = chip_smoke.triangle_view_call(tri_mod, inp, view, plain=False)
+    torch.cuda.synchronize()
+    assert tri_mod.tri_view_launches == before[0] + 1
+    assert chip_smoke.triangle_counts(tri_mod) == before[1]
+    want = chip_smoke.triangle_view_call(tri_mod, inp, view, plain=True)
+    err, over = chip_smoke.triangle_error(got, want)
+    assert over <= 0, err
